@@ -1,0 +1,146 @@
+"""Build and load the port's CUDA kernels (``roms_tpu_torch/csrc``).
+
+The kernels are compiled by ``nvcc`` for ``sm_90a`` into one shared library
+with a plain C interface, loaded with ctypes.  The build runs at first use,
+from the repository's sources only, into ``build/kernels/`` at the root of
+the checkout, keyed by a hash of the sources: a changed source builds anew.
+Nothing here runs at import time, so the package imports on a machine with
+no CUDA toolkit.
+
+``--fmad=false`` keeps nvcc from contracting a*b+c into fused multiply-adds,
+so that a kernel rounds like its plain PyTorch version operation for
+operation; the remaining differences come from summation order.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
+              "-Xcompiler", "-fPIC")
+_ENTRY_POINTS = ("roms_grid_flux", "roms_omega", "roms_eos",
+                 "roms_fast_loop")
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (nvcc on PATH or /usr/local/cuda)")
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def _source_key() -> str:
+    cu, cuh = _sources()
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in cu + cuh:
+        digest.update(path.name.encode())
+        digest.update(path.read_bytes())
+    return digest.hexdigest()[:16]
+
+
+@functools.cache
+def build() -> dict:
+    """Compile the library if this source hash has no build yet.  Returns
+    {"path", "seconds", "log"}: the library, the build's wall time (0 when
+    an earlier build was reused) and nvcc's output (-Xptxas -v register and
+    spill counts)."""
+    so = BUILD_DIR / f"libroms_kernels_{_source_key()}.so"
+    if so.exists():
+        return {"path": so, "seconds": 0.0, "log": ""}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu, _ = _sources()
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+                           f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
+    os.replace(tmp, so)       # atomic: concurrent builders agree
+    return {"path": so, "seconds": seconds, "log": res.stdout + res.stderr}
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    lib = ctypes.CDLL(str(build()["path"]))
+    for name in _ENTRY_POINTS:
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
+                       ctypes.POINTER(ctypes.c_int),
+                       ctypes.POINTER(ctypes.c_double), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    lib.roms_fast_loop_scratch_planes.argtypes = []
+    lib.roms_fast_loop_scratch_planes.restype = ctypes.c_int
+    return lib
+
+
+def on_card(t) -> bool:
+    """False for a CPU tensor (the wrappers then take the plain version),
+    True for a CUDA tensor (the wrappers launch the kernel); any other
+    device raises."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type == "cuda":
+        return True
+    raise ValueError(f"no kernel or plain path for device {t.device}")
+
+
+def check_tensors(tensors: dict, shapes: dict, dtype, device) -> bool:
+    """Raise unless every tensor is contiguous, of `dtype` on `device`, of
+    its expected shape, and `dtype` is one the kernels take.  Returns
+    whether `dtype` is float64 (the kernels' dtype flag)."""
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"the kernels take float32 and float64, not {dtype}")
+    for name, t in tensors.items():
+        if t.device != device or t.dtype != dtype:
+            raise ValueError(f"{name}: {t.dtype} on {t.device}, expected "
+                             f"{dtype} on {device}")
+        if tuple(t.shape) != tuple(shapes[name]):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"{tuple(shapes[name])}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+    return dtype == torch.float64
+
+
+def geometry(cfg) -> list:
+    """The padded-grid geometry ints every kernel takes first (csrc/bc.cuh
+    Geom): Ny Nx H Lm Mm ew_periodic ns_periodic."""
+    return [cfg.ny_tot, cfg.nx_tot, cfg.halo, cfg.Lm, cfg.Mm,
+            int(cfg.ew_periodic), int(cfg.ns_periodic)]
+
+
+def launch(name: str, f64: bool, tensors, ints, doubles, stream) -> None:
+    """Call entry point `name` with device pointers of `tensors` (None for
+    a null pointer), host int/double parameter arrays and the CUDA stream;
+    raise if the launch reports an error."""
+    ptrs = (ctypes.c_void_p * len(tensors))(
+        *[None if t is None else t.data_ptr() for t in tensors])
+    ip = (ctypes.c_int * max(len(ints), 1))(*ints)
+    dp = (ctypes.c_double * max(len(doubles), 1))(*doubles)
+    err = getattr(library(), name)(int(f64), ptrs, ip, dp,
+                                   ctypes.c_void_p(stream.cuda_stream))
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
