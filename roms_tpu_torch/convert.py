@@ -46,7 +46,8 @@ def _tensor(a, dtype, device):
     return torch.tensor(np.asarray(a), dtype=dtype, device=device)
 
 
-def grid_from_numpy(cfg: Config, arrays: dict, device="cpu") -> Grid:
+def grid_from_numpy(cfg: Config, arrays: dict,
+                    device=torch.device("cuda")) -> Grid:
     """A Grid from {field name: array} (the JAX Grid's fields)."""
     dtype = torch_dtype(cfg)
     kw = {}
@@ -56,7 +57,8 @@ def grid_from_numpy(cfg: Config, arrays: dict, device="cpu") -> Grid:
     return Grid(**kw)
 
 
-def state_from_numpy(cfg: Config, arrays: dict, device="cpu") -> State:
+def state_from_numpy(cfg: Config, arrays: dict,
+                     device=torch.device("cuda")) -> State:
     """A State from {field name: array} (the JAX State's fields); time and
     iic become host numbers."""
     dtype = torch_dtype(cfg)

@@ -84,74 +84,96 @@ __device__ __forceinline__ T fill(const Geom& g, const T* f, int j, int i) {
            fill_src(i, g.H, g.L, g.ew_per)];
 }
 
-// apply_bc_u before mask and fill: the E-W writes (normal direction,
-// including the pinned ghost column H-1) come first, then the N-S rows
-// (tangential, gamma2 slip) copy rows that already carry them.
-template <typename T>
-__device__ __forceinline__ T bc_u_ew(const Geom& g, const int* b, const T* f,
-                                     int J, int I) {
+// What apply_bc_u/v write at one point, before mask and fill: a copy of
+// point q, zero, and possibly times gamma2 (a tangential slip row).
+struct BcSrc {
+  int q;       // source point (unused when zero)
+  bool zero;   // the normal-direction closed wall: 0
+  bool gamma;  // times gamma2
+};
+
+// apply_bc_u: the E-W writes (normal direction, including the pinned ghost
+// column H-1) come first, then the N-S rows (tangential, gamma2 slip) copy
+// rows that already carry them.
+__device__ __forceinline__ BcSrc bc_u_ew_src(const Geom& g, const int* b,
+                                             int J, int I) {
   const int r = J * g.Nx;
   if (!g.ew_per) {
     if (I == g.H || I == g.H - 1) {
-      if (b[0] == BC_CLO) return T(0);
-      if (b[0] == BC_GRA) return f[r + g.H + 1];
-      return f[r + g.H];
+      if (b[0] == BC_CLO) return {r, true, false};
+      if (b[0] == BC_GRA) return {r + g.H + 1, false, false};
+      return {r + g.H, false, false};
     }
     if (I == g.H + g.L) {
-      if (b[2] == BC_CLO) return T(0);
-      if (b[2] == BC_GRA) return f[r + g.H + g.L - 1];
+      if (b[2] == BC_CLO) return {r, true, false};
+      if (b[2] == BC_GRA) return {r + g.H + g.L - 1, false, false};
     }
   }
-  return f[r + I];
+  return {r + I, false, false};
+}
+
+__device__ __forceinline__ BcSrc bc_u_src(const Geom& g, const int* b, int J,
+                                          int I) {
+  if (!g.ns_per) {
+    const int Jr = J == g.H - 1 ? g.H : g.H + g.M - 1;
+    const int side = J == g.H - 1 ? b[1] : b[3];
+    if ((J == g.H - 1 || J == g.H + g.M) && grad_like(side)) {
+      BcSrc s = bc_u_ew_src(g, b, Jr, I);
+      s.gamma = side == BC_CLO;
+      return s;
+    }
+  }
+  return bc_u_ew_src(g, b, J, I);
+}
+
+// apply_bc_v: N-S (normal) rows first, then the E-W (tangential) columns.
+__device__ __forceinline__ BcSrc bc_v_ns_src(const Geom& g, const int* b,
+                                             int J, int I) {
+  if (!g.ns_per) {
+    if (J == g.H || J == g.H - 1) {
+      if (b[1] == BC_CLO) return {I, true, false};
+      if (b[1] == BC_GRA) return {(g.H + 1) * g.Nx + I, false, false};
+      return {g.H * g.Nx + I, false, false};
+    }
+    if (J == g.H + g.M) {
+      if (b[3] == BC_CLO) return {I, true, false};
+      if (b[3] == BC_GRA) return {(g.H + g.M - 1) * g.Nx + I, false, false};
+    }
+  }
+  return {J * g.Nx + I, false, false};
+}
+
+__device__ __forceinline__ BcSrc bc_v_src(const Geom& g, const int* b, int J,
+                                          int I) {
+  if (!g.ew_per) {
+    const int Ir = I == g.H - 1 ? g.H : g.H + g.L - 1;
+    const int side = I == g.H - 1 ? b[0] : b[2];
+    if ((I == g.H - 1 || I == g.H + g.L) && grad_like(side)) {
+      BcSrc s = bc_v_ns_src(g, b, J, Ir);
+      s.gamma = side == BC_CLO;
+      return s;
+    }
+  }
+  return bc_v_ns_src(g, b, J, I);
+}
+
+// The value a BcSrc names, read from f.
+template <typename T>
+__device__ __forceinline__ T bc_value(const BcSrc& s, T gamma2, const T* f) {
+  const T v = s.zero ? T(0) : f[s.q];
+  return s.gamma ? gamma2 * v : v;
 }
 
 template <typename T>
 __device__ __forceinline__ T bc_u_val(const Geom& g, const int* b, T gamma2,
                                       const T* f, int J, int I) {
-  if (!g.ns_per) {
-    if (J == g.H - 1) {
-      if (b[1] == BC_CLO) return gamma2 * bc_u_ew(g, b, f, g.H, I);
-      if (b[1] == BC_GRA) return bc_u_ew(g, b, f, g.H, I);
-    } else if (J == g.H + g.M) {
-      if (b[3] == BC_CLO) return gamma2 * bc_u_ew(g, b, f, g.H + g.M - 1, I);
-      if (b[3] == BC_GRA) return bc_u_ew(g, b, f, g.H + g.M - 1, I);
-    }
-  }
-  return bc_u_ew(g, b, f, J, I);
-}
-
-// apply_bc_v before mask and fill: N-S (normal) rows first, then the E-W
-// (tangential) columns.
-template <typename T>
-__device__ __forceinline__ T bc_v_ns(const Geom& g, const int* b, const T* f,
-                                     int J, int I) {
-  if (!g.ns_per) {
-    if (J == g.H || J == g.H - 1) {
-      if (b[1] == BC_CLO) return T(0);
-      if (b[1] == BC_GRA) return f[(g.H + 1) * g.Nx + I];
-      return f[g.H * g.Nx + I];
-    }
-    if (J == g.H + g.M) {
-      if (b[3] == BC_CLO) return T(0);
-      if (b[3] == BC_GRA) return f[(g.H + g.M - 1) * g.Nx + I];
-    }
-  }
-  return f[J * g.Nx + I];
+  return bc_value(bc_u_src(g, b, J, I), gamma2, f);
 }
 
 template <typename T>
 __device__ __forceinline__ T bc_v_val(const Geom& g, const int* b, T gamma2,
                                       const T* f, int J, int I) {
-  if (!g.ew_per) {
-    if (I == g.H - 1) {
-      if (b[0] == BC_CLO) return gamma2 * bc_v_ns(g, b, f, J, g.H);
-      if (b[0] == BC_GRA) return bc_v_ns(g, b, f, J, g.H);
-    } else if (I == g.H + g.L) {
-      if (b[2] == BC_CLO) return gamma2 * bc_v_ns(g, b, f, J, g.H + g.L - 1);
-      if (b[2] == BC_GRA) return bc_v_ns(g, b, f, J, g.H + g.L - 1);
-    }
-  }
-  return bc_v_ns(g, b, f, J, I);
+  return bc_value(bc_v_src(g, b, J, I), gamma2, f);
 }
 
 // fill_halo(mask * apply_bc_u(f)) and fill_halo(mask * apply_bc_v(f))

@@ -221,7 +221,7 @@ def build_grid(
     beta: float,
     depth_fn: Callable,   # (xr, yr, i, j, cfg) -> h  (numpy, padded arrays)
     mask_fn: Optional[Callable] = None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = torch.device("cuda"),
 ):
     """Build a uniform Cartesian grid (the non-spherical ana_grid.h path).
 

@@ -66,7 +66,8 @@ def wind_stress(cfg: Config, time: float, dstart: float = 0.0) -> float:
     return -0.1 / cfg.rho0
 
 
-def build(cfg: Config | None = None, device: torch.device | str = "cpu"):
+def build(cfg: Config | None = None,
+          device: torch.device | str = torch.device("cuda")):
     """Returns (cfg, grid, state0, forcing_fn) with tensors on `device`."""
     cfg = cfg or make_config()
     Xsize = 1000.0 * cfg.Lm

@@ -4,8 +4,9 @@ The kernels are compiled by ``nvcc`` for ``sm_90a`` into one shared library
 with a plain C interface, loaded with ctypes.  The build runs at first use,
 from the repository's sources only, into ``build/kernels/`` at the root of
 the checkout, keyed by a hash of the sources: a changed source builds anew.
-Nothing here runs at import time, so the package imports on a machine with
-no CUDA toolkit.
+Each ``csrc/*.cu`` compiles in its own ``nvcc`` process, all started
+together, and one more links the objects.  Nothing here runs at import
+time, so the package imports on a machine with no CUDA toolkit.
 
 ``--fmad=false`` keeps nvcc from contracting a*b+c into fused multiply-adds,
 so that a kernel rounds like its plain PyTorch version operation for
@@ -25,13 +26,16 @@ from pathlib import Path
 
 import torch
 
+from ..config import BC_PERIODIC, BC_CLOSED, BC_GRADIENT
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
-              "-Xcompiler", "-fPIC")
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = _ARCH + ("-std=c++17", "-O3", "--fmad=false", "-Xptxas", "-v",
+                      "-Xcompiler", "-fPIC")
 _ENTRY_POINTS = ("roms_grid_flux", "roms_omega", "roms_eos",
-                 "roms_fast_loop")
+                 "roms_fast_loop", "roms_prsgrd32", "roms_tracer_predictor",
+                 "roms_tracer_corrector", "roms_uv_corrector")
 
 
 def _nvcc() -> str:
@@ -69,16 +73,34 @@ def build() -> dict:
         return {"path": so, "seconds": 0.0, "log": ""}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cu, _ = _sources()
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
+    tag = f"{so.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in cu]
+    tmp = so.with_name(f"{tag}.tmp")
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = [[_nvcc(), *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+            for src, obj in zip(cu, objs)]
+    log = _run_all(jobs)
+    log += _run_all([[_nvcc(), *_ARCH, "-shared", "-o", str(tmp),
+                      *map(str, objs)]])
     seconds = time.perf_counter() - t0
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
+    for obj in objs:
+        obj.unlink()
     os.replace(tmp, so)       # atomic: concurrent builders agree
-    return {"path": so, "seconds": seconds, "log": res.stdout + res.stderr}
+    return {"path": so, "seconds": seconds, "log": log}
+
+
+def _run_all(cmds) -> str:
+    """Run the commands side by side; return their joined output, or raise
+    with the output of the first that failed."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [proc.communicate()[0] for proc in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{out}")
+    return "".join(outs)
 
 
 @functools.cache
@@ -125,11 +147,35 @@ def check_tensors(tensors: dict, shapes: dict, dtype, device) -> bool:
     return dtype == torch.float64
 
 
+BC_CODE = {BC_PERIODIC: 0, BC_CLOSED: 1, BC_GRADIENT: 2}   # bc.cuh BcKind
+
+
+def bc_kinds(lbc) -> list:
+    """The kind codes of an LBC's west, south, east and north sides; raise
+    for a kind the kernels do not take (the open boundaries)."""
+    kinds = [getattr(lbc, s) for s in ("west", "south", "east", "north")]
+    if any(k not in BC_CODE for k in kinds):
+        raise ValueError(f"the kernels take periodic, closed and gradient "
+                         f"lateral BCs, not {kinds}")
+    return [BC_CODE[k] for k in kinds]
+
+
 def geometry(cfg) -> list:
     """The padded-grid geometry ints every kernel takes first (csrc/bc.cuh
     Geom): Ny Nx H Lm Mm ew_periodic ns_periodic."""
     return [cfg.ny_tot, cfg.nx_tot, cfg.halo, cfg.Lm, cfg.Mm,
             int(cfg.ew_periodic), int(cfg.ns_periodic)]
+
+
+MAX_N = 64      # csrc/column.cuh kMaxN: levels a column kernel's thread holds
+
+
+def column_ints(cfg, name: str) -> list:
+    """N and the geometry ints of a column kernel (csrc/column.cuh); raise
+    for a depth its thread-local columns cannot hold."""
+    if not 3 <= cfg.N <= MAX_N:
+        raise ValueError(f"{name} kernel: N={cfg.N} outside 3..{MAX_N}")
+    return [cfg.N] + geometry(cfg)
 
 
 def launch(name: str, f64: bool, tensors, ints, doubles, stream) -> None:

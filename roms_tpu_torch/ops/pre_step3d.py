@@ -25,6 +25,21 @@ def pre_step3d(cfg: Config, grid: Grid, iic: int, t, t_prev, u, v,
                ru_prev, ru_prev2, rv_prev, rv_prev2,
                srflx=None, ghats=None, swdk_w=None):
     """Returns (t3, t_nnew, u_nnew, v_nnew)."""
+    t3, t_nnew = tracer_phase(cfg, grid, iic, t, t_prev, Hz, Huon, Hvom, W,
+                              Akt, stflx, btflx, srflx=srflx, ghats=ghats,
+                              swdk_w=swdk_w)
+    a1, a2 = ab3_start_coefs(iic)
+    u_nnew, v_nnew = momentum_init(
+        cfg, grid.pm, grid.pn, a1, a2, u, v, Hz, ru_prev, ru_prev2, rv_prev,
+        rv_prev2, sustr, svstr, bustr, bvstr)
+    return t3, t_nnew, u_nnew, v_nnew
+
+
+def tracer_phase(cfg: Config, grid: Grid, iic: int, t, t_prev, Hz, Huon,
+                 Hvom, W, Akt, stflx, btflx, srflx=None, ghats=None,
+                 swdk_w=None):
+    """The tracer loop of pre_step3d (pre_step3d.F:336-598): returns the
+    stacks (t3, t_nnew)."""
     pmn = grid.pm * grid.pn
     t3_list = []
     tn_list = []
@@ -41,12 +56,7 @@ def pre_step3d(cfg: Config, grid: Grid, iic: int, t, t_prev, u, v,
         tn_list.append(tn_i)
     t3 = torch.stack(t3_list, dim=0) if t3_list else t
     t_nnew = torch.stack(tn_list, dim=0) if tn_list else t
-
-    a1, a2 = ab3_start_coefs(iic)
-    u_nnew, v_nnew = momentum_init(
-        cfg, grid.pm, grid.pn, a1, a2, u, v, Hz, ru_prev, ru_prev2, rv_prev,
-        rv_prev2, sustr, svstr, bustr, bvstr)
-    return t3, t_nnew, u_nnew, v_nnew
+    return t3, t_nnew
 
 
 def predictor_coefs(cfg: Config, iic: int, itrc: int):

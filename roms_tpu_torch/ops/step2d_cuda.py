@@ -15,17 +15,17 @@ from __future__ import annotations
 
 import torch
 
-from ..config import Config, BC_PERIODIC, BC_CLOSED, BC_GRADIENT
+from ..config import Config
 from ..grid import Grid
 from . import bc
-from ._kernels import check_tensors, geometry, launch, library, on_card
+from ._kernels import (BC_CODE, bc_kinds, check_tensors, geometry, launch,
+                       library, on_card)
 from .stencil import ip1, jp1
 from .step2d import (FS_FIELDS, Fast2DState, depth_fluxes, _g,
                      _rhs_momentum, _step_momentum)
 
 GRID_FIELDS = ("h", "f", "pm", "pn", "dndx", "dmde",
                "rmask", "umask", "vmask", "pmask")
-_BC_CODE = {BC_PERIODIC: 0, BC_CLOSED: 1, BC_GRADIENT: 2}
 
 
 def supported(cfg: Config, bry=None, sources=None, clm=None) -> bool:
@@ -40,7 +40,7 @@ def supported(cfg: Config, bry=None, sources=None, clm=None) -> bool:
     if bry is not None or sources is not None or clm is not None:
         return False
     for lbc in (cfg.lbc_zeta, cfg.lbc_ubar, cfg.lbc_vbar):
-        if any(getattr(lbc, s) not in _BC_CODE
+        if any(getattr(lbc, s) not in BC_CODE
                for s in ("west", "south", "east", "north")):
             return False
     return cfg.nfast >= 2
@@ -237,9 +237,8 @@ def fast_loop(cfg: Config, grid: Grid, fs: Fast2DState, rufrc, rvfrc,
     rufrc_c, rvfrc_c = torch.empty(shape, **kw), torch.empty(shape, **kw)
     scratch = torch.empty(
         (library().roms_fast_loop_scratch_planes(),) + shape, **kw)
-    kinds = [_BC_CODE[getattr(lbc, s)]
-             for lbc in (cfg.lbc_zeta, cfg.lbc_ubar, cfg.lbc_vbar)
-             for s in ("west", "south", "east", "north")]
+    kinds = [code for lbc in (cfg.lbc_zeta, cfg.lbc_ubar, cfg.lbc_vbar)
+             for code in bc_kinds(lbc)]
     ints = geometry(cfg) + kinds + [
         int(cfg.uv_adv), int(cfg.uv_cor), int(cfg.curvgrid),
         int(cfg.uv_vis2 and cfg.visc2 != 0.0), cfg.nfast]

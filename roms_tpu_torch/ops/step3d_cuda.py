@@ -1,0 +1,191 @@
+"""The 3-D predictor/corrector stages: their CUDA kernels and plain versions.
+
+tracer_predictor - the tracer loop of pre_step3d: (t, t_prev, ...) ->
+                   (t3, t_nnew).  Replaces the TPU kernel
+                   roms_tpu/ops/step3d_pallas.py::tracer_predictor_fused.
+uv_corrector     - step3d_uv -> (u, v, ubar, vbar, Huon, Hvom).  Replaces
+                   step3d_pallas.uv_corrector_fused.
+tracer_corrector - step3d_t -> the new tracers.  Replaces
+                   step3d_pallas.tracer_corrector_fused.
+
+Each wrapper takes its plain version (``*_plain``: the port's stage
+functions) for CPU tensors only.  For CUDA tensors it launches the kernel of
+csrc/step3d.cu, one launch for all tracers or both directions, or raises;
+it never falls back.  ``wrapper.launches`` counts kernel launches.  The
+gates ``use_tracer`` and ``use_uv`` decide, as the JAX step's
+``use_tracer_pallas`` / ``use_uv_pallas`` do, whether the step calls the
+wrappers at all.  The TPU kernel's folded harmonic mixing
+(``mix_in_predictor``, off by default there) is not ported.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..config import Config
+from ..grid import Grid
+from . import bc
+from ._kernels import bc_kinds, check_tensors, column_ints, launch, on_card
+from .pre_step3d import predictor_coefs, tracer_phase as tracer_predictor_plain
+from .step3d_t import step3d_t as tracer_corrector_plain
+from .step3d_uv import corrector_cff, step3d_uv as uv_corrector_plain
+
+# the schemes step3d_pallas lets into its kernels, and the ones ours take
+_OK_SCHEMES = {"C2", "U1", "U3", "C4", "A4", "SPLINES"}
+_HADV_CODE = {"U3": 0, "C4": 1}           # csrc/column.cuh HScheme
+_VADV_CODE = {"C4": 0, "SPLINES": 1}      # csrc/column.cuh VScheme
+MAX_TRACERS = 16                          # column.cuh kMaxTr
+
+
+def use_tracer(cfg: Config, bry=None, clm=None, sources=None,
+               want_diags=False) -> bool:
+    """Gate of the two tracer kernels (step3d_pallas.use_tracer_pallas)."""
+    if not cfg.pallas2d:
+        return False
+    if bry is not None or clm is not None or sources is not None \
+            or want_diags:
+        return False
+    if bc.has_advanced(cfg.lbc_t):
+        return False
+    nt = cfg.ntracers
+    return nt >= 1 and all(s in _OK_SCHEMES for s in cfg.t_hadv[:nt]) and \
+        all(s in _OK_SCHEMES for s in cfg.t_vadv[:nt])
+
+
+def use_uv(cfg: Config, bry=None, sources=None, wet=None) -> bool:
+    """Gate of the momentum-corrector kernel (step3d_pallas.use_uv_pallas)."""
+    if not cfg.pallas2d:
+        return False
+    if bry is not None or sources is not None or wet is not None:
+        return False
+    return not (bc.has_advanced(cfg.lbc_u) or bc.has_advanced(cfg.lbc_v))
+
+
+def _tracer_ints(cfg: Config, name: str) -> list:
+    """The per-tracer scheme codes; raise for a tracer count or scheme the
+    kernels do not take."""
+    nt = cfg.ntracers
+    if not 1 <= nt <= MAX_TRACERS:
+        raise ValueError(f"{name} kernel: {nt} tracers outside "
+                         f"1..{MAX_TRACERS}")
+    hs, vs = cfg.t_hadv[:nt], cfg.t_vadv[:nt]
+    if any(s not in _HADV_CODE for s in hs) or \
+            any(s not in _VADV_CODE for s in vs):
+        raise ValueError(f"{name} kernel: advection schemes {hs}/{vs} (it "
+                         "takes U3/C4 horizontal, C4/SPLINES vertical)")
+    return [_HADV_CODE[s] for s in hs] + [_VADV_CODE[s] for s in vs]
+
+
+def _akt_shape(cfg: Config, Akt):
+    """Akt's expected shape: as many planes as it has, at least the ones the
+    tracers read (tracer 0, and 1 for all others when NT >= 2)."""
+    need = 2 if cfg.ntracers >= 2 else 1
+    return (max(Akt.shape[0], need), cfg.N + 1, cfg.ny_tot, cfg.nx_tot)
+
+
+def tracer_predictor(cfg: Config, grid: Grid, iic: int, t, t_prev, Hz,
+                     Huon, Hvom, W, Akt, stflx, btflx, srflx=None,
+                     ghats=None, swdk_w=None):
+    """Returns the stacks (t3, t_nnew), (NT,N,Ny,Nx) each."""
+    if not on_card(t):
+        return tracer_predictor_plain(cfg, grid, iic, t, t_prev, Hz, Huon,
+                                      Hvom, W, Akt, stflx, btflx,
+                                      srflx=srflx, ghats=ghats,
+                                      swdk_w=swdk_w)
+    name = "tracer_predictor"
+    ints = column_ints(cfg, name)
+    schemes = _tracer_ints(cfg, name)
+    nt, N = cfg.ntracers, cfg.N
+    s2 = (cfg.ny_tot, cfg.nx_tot)
+    s3, sw = (N,) + s2, (N + 1,) + s2
+    sol = srflx is not None and swdk_w is not None
+    ins = dict(t=t, t_prev=t_prev, Hz=Hz, Huon=Huon, Hvom=Hvom, W=W,
+               Akt=Akt, pm=grid.pm, pn=grid.pn, stflx=stflx, btflx=btflx)
+    shapes = dict(t=(nt,) + s3, t_prev=(nt,) + s3, Hz=s3, Huon=s3, Hvom=s3,
+                  W=sw, Akt=_akt_shape(cfg, Akt), pm=s2, pn=s2,
+                  stflx=(nt,) + s2, btflx=(nt,) + s2)
+    if ghats is not None:
+        ins["ghats"] = ghats
+        shapes["ghats"] = (ghats.shape[0],) + sw
+    if sol:
+        ins.update(srflx=srflx, swdk_w=swdk_w)
+        shapes.update(srflx=s2, swdk_w=sw)
+    f64 = check_tensors(ins, shapes, t.dtype, t.device)
+    t3, t_nnew = torch.empty_like(t), torch.empty_like(t)
+    ng = 0 if ghats is None else min(ghats.shape[0], nt)
+    coefs = [c for itrc in range(nt) for c in predictor_coefs(cfg, iic, itrc)]
+    launch("roms_tracer_predictor", f64,
+           [t, t_prev, Hz, Huon, Hvom, W, Akt, grid.pm, grid.pn, stflx,
+            btflx, ghats, srflx if sol else None, swdk_w if sol else None,
+            t3, t_nnew],
+           ints + [nt, ng, int(sol)] + bc_kinds(cfg.lbc_t) + schemes,
+           [cfg.dt] + coefs, torch.cuda.current_stream(t.device))
+    tracer_predictor.launches += 1
+    return t3, t_nnew
+
+
+def tracer_corrector(cfg: Config, grid: Grid, t_nnew, t3, Huon, Hvom, W,
+                     Hz_new, z_r_new, Akt):
+    """Returns the new tracers (NT,N,Ny,Nx), halo-filled."""
+    if not on_card(t_nnew):
+        return tracer_corrector_plain(cfg, grid, t_nnew, t3, Huon, Hvom, W,
+                                      Hz_new, z_r_new, Akt)
+    name = "tracer_corrector"
+    ints = column_ints(cfg, name)
+    schemes = _tracer_ints(cfg, name)
+    nt, N = cfg.ntracers, cfg.N
+    s2 = (cfg.ny_tot, cfg.nx_tot)
+    s3, sw = (N,) + s2, (N + 1,) + s2
+    thomas = not cfg.splines_vdiff
+    ins = dict(t_nnew=t_nnew, t3=t3, Huon=Huon, Hvom=Hvom, W=W,
+               Hz_new=Hz_new, Akt=Akt, pm=grid.pm, pn=grid.pn)
+    shapes = dict(t_nnew=(nt,) + s3, t3=(nt,) + s3, Huon=s3, Hvom=s3, W=sw,
+                  Hz_new=s3, Akt=_akt_shape(cfg, Akt), pm=s2, pn=s2)
+    if thomas:
+        ins["z_r_new"] = z_r_new
+        shapes["z_r_new"] = s3
+    f64 = check_tensors(ins, shapes, t_nnew.dtype, t_nnew.device)
+    out = torch.empty_like(t_nnew)
+    launch("roms_tracer_corrector", f64,
+           [t_nnew, t3, Huon, Hvom, W, Hz_new, z_r_new if thomas else None,
+            Akt, grid.pm, grid.pn, out],
+           ints + [nt] + bc_kinds(cfg.lbc_t) + [int(cfg.splines_vdiff)] +
+           schemes, [cfg.dt], torch.cuda.current_stream(t_nnew.device))
+    tracer_corrector.launches += 1
+    return out
+
+
+def uv_corrector(cfg: Config, grid: Grid, iic: int, u_nnew, v_nnew, ru, rv,
+                 Hz_new, Akv, DU_avg1, DV_avg1, DU_avg2, DV_avg2, Huon_old,
+                 Hvom_old):
+    """Returns (u, v, ubar, vbar, Huon, Hvom), all halo-filled."""
+    if not on_card(u_nnew):
+        return uv_corrector_plain(cfg, grid, iic, u_nnew, v_nnew, ru, rv,
+                                  Hz_new, Akv, DU_avg1, DV_avg1, DU_avg2,
+                                  DV_avg2, Huon_old, Hvom_old)
+    ints = column_ints(cfg, "uv_corrector")
+    N = cfg.N
+    s2 = (cfg.ny_tot, cfg.nx_tot)
+    s3, sw = (N,) + s2, (N + 1,) + s2
+    ins = dict(u_nnew=u_nnew, v_nnew=v_nnew, ru=ru, rv=rv, Hz_new=Hz_new,
+               Akv=Akv, DU_avg1=DU_avg1, DV_avg1=DV_avg1, DU_avg2=DU_avg2,
+               DV_avg2=DV_avg2, Huon_old=Huon_old, Hvom_old=Hvom_old,
+               pm=grid.pm, pn=grid.pn, umask=grid.umask, vmask=grid.vmask)
+    shapes = dict.fromkeys(ins, s2)
+    shapes.update(dict.fromkeys(("u_nnew", "v_nnew", "ru", "rv", "Hz_new",
+                                 "Huon_old", "Hvom_old"), s3), Akv=sw)
+    f64 = check_tensors(ins, shapes, u_nnew.dtype, u_nnew.device)
+    outs = [torch.empty_like(a) for a in (u_nnew, v_nnew, DU_avg1, DV_avg1,
+                                          u_nnew, v_nnew)]
+    launch("roms_uv_corrector", f64, list(ins.values()) + outs,
+           ints + bc_kinds(cfg.lbc_u) + bc_kinds(cfg.lbc_v) +
+           [int(cfg.splines_vvisc)],
+           [cfg.dt, corrector_cff(cfg.dt, iic), cfg.gamma2],
+           torch.cuda.current_stream(u_nnew.device))
+    uv_corrector.launches += 1
+    return tuple(outs)
+
+
+tracer_predictor.launches = 0
+tracer_corrector.launches = 0
+uv_corrector.launches = 0

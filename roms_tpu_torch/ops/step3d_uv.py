@@ -20,6 +20,13 @@ from .stencil import im1, jm1
 from .tridiag import spline_vdiff_flux
 
 
+def corrector_cff(dt: float, iic: int) -> float:
+    """0.25 dt times the AB3 weight of the new right-hand side over the
+    start-up ladder: 1, 3/2, then 23/12 (step3d_uv.F)."""
+    return 0.25 * dt * (1.0 if iic == 0 else (1.5 if iic == 1
+                                             else 23.0 / 12.0))
+
+
 def step3d_uv(cfg: Config, grid: Grid, iic: int, u_nnew, v_nnew, ru, rv,
               Hz_new, Akv, DU_avg1, DV_avg1, DU_avg2, DV_avg2,
               Huon_old, Hvom_old):
@@ -30,8 +37,7 @@ def step3d_uv(cfg: Config, grid: Grid, iic: int, u_nnew, v_nnew, ru, rv,
     pm, pn = grid.pm, grid.pn
     H = cfg.halo
     L, M = cfg.Lm, cfg.Mm
-    cff = 0.25 * dt * (1.0 if iic == 0 else (1.5 if iic == 1
-                                             else 23.0 / 12.0))
+    cff = corrector_cff(dt, iic)
 
     # ---------------- XI direction ----------------
     Hzk_u = 0.5 * (Hz_new + im1(Hz_new))

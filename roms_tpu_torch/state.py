@@ -84,7 +84,8 @@ TENSOR_FIELDS = tuple(f.name for f in dataclasses.fields(State)
                       if f.name not in ("time", "iic"))
 
 
-def initial_state(cfg: Config, device: torch.device | str = "cpu",
+def initial_state(cfg: Config,
+                  device: torch.device | str = torch.device("cuda"),
                   zeta=None, ubar=None, vbar=None, u=None, v=None,
                   t=None) -> State:
     """Cold-start state (ini_fields semantics: histories zeroed, mixing

@@ -8,10 +8,12 @@ constant mixing coefficients, prsgrd32, U3/C4/SPLINES advection, harmonic
 viscosity and diffusion).  Every other branch raises NotImplementedError
 naming the missing feature.
 
-Kernels: with ``cfg.pallas2d`` true (the default), the four kernel stages
-go through their wrappers (ops/diag_cuda.py, ops/step2d_cuda.py), which
-launch the CUDA kernels for CUDA tensors and take the plain versions for
-CPU tensors.  ``cfg.pallas2d=False`` runs the plain versions on any device.
+Kernels: with ``cfg.pallas2d`` true (the default), the eight kernel stages
+go through their wrappers (ops/diag_cuda.py, prsgrd_cuda.py,
+step3d_cuda.py, step2d_cuda.py), in the dispatch the JAX step takes with
+its rhs3d and horizontal-mixing kernels off.  The wrappers launch the CUDA
+kernels for CUDA tensors and take the plain versions for CPU tensors.
+``cfg.pallas2d=False`` runs the plain versions on any device.
 """
 
 from __future__ import annotations
@@ -24,13 +26,11 @@ from .config import Config
 from .grid import Grid, hc_of
 from .state import State
 from . import vgrid
-from .ops import diag_cuda, prsgrd, step2d_cuda
+from .ops import diag_cuda, prsgrd, prsgrd_cuda, step2d_cuda, step3d_cuda
 from .ops.mix3d import uv3dmix2, t3dmix2
-from .ops.pre_step3d import pre_step3d
+from .ops.pre_step3d import ab3_start_coefs, momentum_init
 from .ops.rhs3d import rhs3d_momentum
 from .ops.step2d import Fast2DState
-from .ops.step3d_t import step3d_t
-from .ops.step3d_uv import step3d_uv
 from .ops.vbc import set_vbc
 
 _FORCING_KEYS = {"sustr", "svstr", "stflux", "btflux"}
@@ -115,11 +115,20 @@ def step(cfg: Config, grid: Grid, state: State,
 
     # --- rhs3d phase (main3d.F:563): pre_step3d, prsgrd, t3dmix, rhs,
     #     uv3dmix ---
-    t3, t_nnew, u_nnew, v_nnew = pre_step3d(
-        cfg, grid, iic, state.t, state.t_prev, state.u, state.v, Hz, z_r,
-        Huon, Hvom, W, Akt, sustr, svstr, bustr, bvstr, stflx, btflx,
-        state.ru_prev, state.ru_prev2, state.rv_prev, state.rv_prev2)
-    ru, rv = prsgrd.prsgrd(cfg, grid, rho, z_r, z_w, Hz)
+    tr_kernels = step3d_cuda.use_tracer(cfg)
+    tracer_predictor = step3d_cuda.tracer_predictor if tr_kernels \
+        else step3d_cuda.tracer_predictor_plain
+    t3, t_nnew = tracer_predictor(cfg, grid, iic, state.t, state.t_prev, Hz,
+                                  Huon, Hvom, W, Akt, stflx, btflx)
+    a1, a2 = ab3_start_coefs(iic)
+    u_nnew, v_nnew = momentum_init(
+        cfg, grid.pm, grid.pn, a1, a2, state.u, state.v, Hz, state.ru_prev,
+        state.ru_prev2, state.rv_prev, state.rv_prev2, sustr, svstr, bustr,
+        bvstr)
+    if prsgrd_cuda.supported(cfg):
+        ru, rv = prsgrd_cuda.prsgrd32(cfg, grid, rho, z_r, z_w, Hz)
+    else:
+        ru, rv = prsgrd.prsgrd(cfg, grid, rho, z_r, z_w, Hz)
     if any(x != 0.0 for x in cfg.tnu2):
         t_nnew = t3dmix2(cfg, grid, state.t, Hz, t_nnew, cfg.dt)
     ru, rv, rufrc, rvfrc = rhs3d_momentum(
@@ -154,7 +163,9 @@ def step(cfg: Config, grid: Grid, state: State,
                                       cfg.vtransform)
 
     # --- 3D momentum corrector (main3d.F:762) ---
-    u2, v2, ubar2, vbar2, Huon2, Hvom2 = step3d_uv(
+    uv_corrector = step3d_cuda.uv_corrector if step3d_cuda.use_uv(cfg) \
+        else step3d_cuda.uv_corrector_plain
+    u2, v2, ubar2, vbar2, Huon2, Hvom2 = uv_corrector(
         cfg, grid, iic, u_nnew, v_nnew, ru, rv, Hz2, Akv, fs.DU_avg1,
         fs.DV_avg1, fs.DU_avg2, fs.DV_avg2, Huon, Hvom)
 
@@ -163,7 +174,10 @@ def step(cfg: Config, grid: Grid, state: State,
     W2 = omega(cfg, grid, Huon2, Hvom2, z_w2)
 
     # --- tracer corrector (main3d.F:814) ---
-    t2 = step3d_t(cfg, grid, t_nnew, t3, Huon2, Hvom2, W2, Hz2, z_r2, Akt)
+    tracer_corrector = step3d_cuda.tracer_corrector if tr_kernels \
+        else step3d_cuda.tracer_corrector_plain
+    t2 = tracer_corrector(cfg, grid, t_nnew, t3, Huon2, Hvom2, W2, Hz2, z_r2,
+                          Akt)
 
     return state.replace(
         time=state.time + cfg.dt, iic=iic + 1,

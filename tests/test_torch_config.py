@@ -1,15 +1,18 @@
 """roms_tpu_torch: Config parity with roms_tpu, and no jax at import."""
 
 import dataclasses
+import inspect
 import os
 import subprocess
 import sys
 
+import pytest
 import torch
 
 from roms_tpu import config as jcfg
 from roms_tpu.models import upwelling as jup
-from roms_tpu_torch import config as tcfg, convert
+from roms_tpu_torch import config as tcfg, convert, grid as tgrid, \
+    state as tstate
 from roms_tpu_torch.models import upwelling as tup
 
 torch.set_num_threads(1)
@@ -42,11 +45,28 @@ def test_config_fields_and_defaults_match():
 
 def test_config_conversion_from_reference():
     cfg_j, *_ = jup.build(jup.make_config(Lm=12, Mm=10, N=4, ndtfast=6))
-    cfg_t, *_ = tup.build(tup.make_config(Lm=12, Mm=10, N=4, ndtfast=6))
+    cfg_t, *_ = tup.build(tup.make_config(Lm=12, Mm=10, N=4, ndtfast=6),
+                          device="cpu")
     conv = convert.config_from_reference(cfg_j)
     assert conv == cfg_t
     assert isinstance(conv.lbc_zeta, tcfg.LBC)
     assert isinstance(conv.gls_params, tcfg.GLSParams)
+
+
+def test_entry_points_default_to_the_card():
+    """The entry points put their tensors on the CUDA card unless asked
+    for another device; without a card they raise torch's own error."""
+    for fn in (tup.build, tgrid.build_grid, tstate.initial_state,
+               convert.grid_from_numpy, convert.state_from_numpy):
+        default = inspect.signature(fn).parameters["device"].default
+        assert torch.device(default) == torch.device("cuda"), fn.__name__
+    cfg = tup.make_config(Lm=12, Mm=10, N=4, ndtfast=6)
+    if torch.cuda.is_available():
+        _, grid, s0, _ = tup.build(cfg)
+        assert grid.h.is_cuda and s0.t.is_cuda
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            tup.build(cfg)
 
 
 def test_import_leaves_jax_out():

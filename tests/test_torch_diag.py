@@ -18,6 +18,7 @@ from roms_tpu.ops import eos as jeos
 from roms_tpu.ops.omega import omega as jomega, set_massflux as jmassflux
 from roms_tpu_torch import convert
 from roms_tpu_torch.ops import diag_cuda, eos as teos
+from test_torch_stages import build_pair
 
 torch.set_num_threads(1)
 
@@ -38,12 +39,7 @@ def _case(kind):
         cfg = dataclasses.replace(
             cfg, ew_periodic=False, lbc_zeta=JLBC(), lbc_ubar=JLBC(),
             lbc_vbar=JLBC(), lbc_u=JLBC(), lbc_v=JLBC(), lbc_t=JLBC())
-    cfg_j, grid_j, _, _ = jup.build(cfg)
-    cfg_t = convert.config_from_reference(cfg_j)
-    grid_t = convert.grid_from_numpy(
-        cfg_t, {f.name: getattr(grid_j, f.name)
-                for f in dataclasses.fields(grid_j)})
-    return cfg_j, grid_j, cfg_t, grid_t
+    return build_pair(cfg)
 
 
 def _fields(cfg, seed):

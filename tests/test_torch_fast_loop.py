@@ -19,17 +19,16 @@ from roms_tpu_torch import convert, stepping
 from roms_tpu_torch.models import upwelling as tup
 from roms_tpu_torch.ops import step2d_cuda
 from roms_tpu_torch.ops.step2d import FS_FIELDS, Fast2DState
+from test_torch_stages import build_pair
 
 torch.set_num_threads(1)
 
 
 @pytest.fixture(scope="module")
 def setup():
-    cfg_j, grid_j, _, _ = jup.build(jup.make_config(Lm=24, Mm=20, N=4,
-                                                    ndtfast=8))
-    cfg, grid, s0, ffn = tup.build(tup.make_config(Lm=24, Mm=20, N=4,
-                                                   ndtfast=8))
-    assert convert.config_from_reference(cfg_j) == cfg
+    cfg_j, grid_j, cfg, grid = build_pair(jup.make_config(Lm=24, Mm=20,
+                                                          N=4, ndtfast=8))
+    _, _, s0, ffn = tup.build(cfg, device="cpu")
     # two slow steps so the fast state and forcing history are nontrivial
     s = stepping.run(cfg, grid, s0, 2, ffn)
     st = convert.state_to_numpy(s)
@@ -104,7 +103,7 @@ def test_fast_loop_matches_reference_loop(setup, iic):
 
 def test_fast_loop_gate():
     cfg = tup.make_config(Lm=24, Mm=20, N=4, ndtfast=8)
-    cfg, *_ = tup.build(cfg)
+    cfg, *_ = tup.build(cfg, device="cpu")
     assert step2d_cuda.supported(cfg)
     assert not step2d_cuda.supported(dataclasses.replace(cfg, wetdry=True))
     assert not step2d_cuda.supported(cfg, sources=object())

@@ -29,7 +29,7 @@ def _close(a, b, name=""):
 @pytest.fixture(scope="module")
 def full_size():
     cfg_j, grid_j, s_j, _ = jup.build(jup.make_config())
-    cfg_t, grid_t, s_t, _ = tup.build(tup.make_config())
+    cfg_t, grid_t, s_t, _ = tup.build(tup.make_config(), device="cpu")
     return cfg_j, grid_j, s_j, cfg_t, grid_t, s_t
 
 

@@ -1,5 +1,7 @@
 """roms_tpu_torch CUDA kernels against their plain PyTorch versions, on the
-card, in float32 and float64; and the UPWELLING anchor with the kernels on.
+card, in float32 and float64, on UPWELLING and on closed, gradient and
+masked (an island) variants of it; and the UPWELLING anchor with all eight
+kernels on.
 
 Marked ``gpu``; each test skips without a CUDA device.  This file imports
 no jax, so it also runs where jax is absent:
@@ -18,8 +20,11 @@ from roms_tpu_torch import stepping
 from roms_tpu_torch.config import LBC, BC_CLOSED, BC_GRADIENT
 from roms_tpu_torch.grid import hc_of
 from roms_tpu_torch.models import upwelling
-from roms_tpu_torch.ops import diag_cuda, step2d_cuda
+from roms_tpu_torch.ops import diag_cuda, prsgrd_cuda, step2d_cuda, \
+    step3d_cuda
+from roms_tpu_torch.ops.pre_step3d import ab3_start_coefs, momentum_init
 from roms_tpu_torch.ops.step2d import FS_FIELDS, Fast2DState
+from roms_tpu_torch.ops.vbc import set_vbc
 
 pytestmark = pytest.mark.gpu
 
@@ -48,25 +53,59 @@ def _close(got, ref, rtol, name=""):
 
 def _config(kind, dtype):
     cfg = upwelling.make_config(Lm=20, Mm=16, N=6, ndtfast=8, dtype=dtype)
-    if kind == "closed":
+    if kind in ("closed", "masked"):
         cfg = dataclasses.replace(
             cfg, ew_periodic=False, gamma2=-1.0,
             lbc_zeta=LBC(BC_GRADIENT, BC_CLOSED, BC_CLOSED, BC_GRADIENT),
             lbc_ubar=LBC(BC_CLOSED, BC_GRADIENT, BC_CLOSED, BC_CLOSED),
             lbc_vbar=LBC(BC_GRADIENT, BC_CLOSED, BC_CLOSED, BC_GRADIENT),
             lbc_u=LBC(), lbc_v=LBC(), lbc_t=LBC())
+    if kind == "gradient":
+        grad = LBC(BC_GRADIENT, BC_GRADIENT, BC_GRADIENT, BC_GRADIENT)
+        cfg = dataclasses.replace(cfg, ew_periodic=False, lbc_zeta=grad,
+                                  lbc_ubar=grad, lbc_vbar=grad, lbc_u=grad,
+                                  lbc_v=grad, lbc_t=grad)
     return cfg
 
 
+def _island(grid):
+    """The grid with a land block inside its interior."""
+    m = grid.rmask.clone()
+    m[8:11, 7:12] = 0.0
+    umask = m * torch.roll(m, 1, -1)
+    vmask = m * torch.roll(m, 1, -2)
+    return dataclasses.replace(grid, rmask=m, umask=umask, vmask=vmask,
+                               pmask=umask * torch.roll(umask, 1, -2))
+
+
 @pytest.fixture(scope="module", params=[
-    ("upwelling", "float64"), ("upwelling", "float32"),
-    ("closed", "float64"), ("closed", "float32")])
+    (kind, dtype) for kind in ("upwelling", "closed", "gradient", "masked")
+    for dtype in ("float64", "float32")])
 def developed(request, device):
     """A case and its state after 3 plain steps, on the card."""
     kind, dtype = request.param
     cfg, grid, s0, ffn = upwelling.build(_config(kind, dtype), device=device)
+    if kind == "masked":
+        grid = _island(grid)
     s = stepping.run(cfg.replace(pallas2d=False), grid, s0, 3, ffn)
     return cfg, grid, s
+
+
+def _stage_inputs(cfg, grid, s):
+    """Time-n depths, fluxes, density and boundary fluxes from state s,
+    through the plain versions, with random surface/bottom tracer fluxes."""
+    rng = np.random.default_rng(17)
+    R = lambda shape, scale: scale * torch.tensor(  # noqa: E731
+        rng.standard_normal(shape), dtype=s.u.dtype, device=s.u.device)
+    z_r, z_w, Hz, Huon, Hvom, W = diag_cuda.grid_flux_plain(
+        cfg, grid, s.zeta, s.u, s.v, hc_of(cfg))
+    rho, _ = diag_cuda.eos_plain(cfg, s.t, z_r, z_w, False)
+    stflux = R(s.t.shape[:1] + s.zeta.shape, 1e-5)
+    btflux = R(s.t.shape[:1] + s.zeta.shape, 1e-6)
+    bustr, bvstr, stflx, btflx = set_vbc(cfg, grid, s.u, s.v, s.t, stflux,
+                                         btflux)
+    return dict(z_r=z_r, z_w=z_w, Hz=Hz, Huon=Huon, Hvom=Hvom, W=W, rho=rho,
+                bustr=bustr, bvstr=bvstr, stflx=stflx, btflx=btflx, R=R)
 
 
 def test_grid_flux_and_omega_kernels(developed):
@@ -123,6 +162,96 @@ def test_fast_loop_kernel_rejects_aliased_fields(developed):
         step2d_cuda.fast_loop(cfg, grid, fs, *[s.zeta] * 6, 0)
 
 
+@pytest.mark.parametrize("tide", [False, True])
+def test_prsgrd32_kernel(developed, tide):
+    cfg, grid, s = developed
+    f = _stage_inputs(cfg, grid, s)
+    kw = dict(eq_tide=f["R"](s.zeta.shape, 0.05)) if tide else {}
+    args = (cfg, grid, f["rho"], f["z_r"], f["z_w"], f["Hz"])
+    before = prsgrd_cuda.prsgrd32.launches
+    got = prsgrd_cuda.prsgrd32(*args, **kw)
+    assert prsgrd_cuda.prsgrd32.launches == before + 1
+    _close(got, prsgrd_cuda.prsgrd32_plain(*args, **kw), RTOL[s.u.dtype],
+           "prsgrd32")
+
+
+@pytest.mark.parametrize("vadv", ["C4", "SPLINES"])
+@pytest.mark.parametrize("iic,extra", [(0, False), (1, False), (5, False),
+                                       (5, True)])
+def test_tracer_predictor_kernel(developed, iic, extra, vadv):
+    """Each rung of the AB3 start-up; `extra` adds the KPP nonlocal flux
+    and the penetrating shortwave terms; `vadv` is the vertical tracer
+    advection of both tracers."""
+    cfg, grid, s = developed
+    cfg = cfg.replace(t_vadv=(vadv, vadv))
+    f = _stage_inputs(cfg, grid, s)
+    kw = {}
+    if extra:
+        sw = f["W"].shape
+        kw = dict(ghats=f["R"]((2,) + sw, 1e-3),
+                  srflx=f["R"](s.zeta.shape, 1e-4).abs(),
+                  swdk_w=torch.rand(sw, dtype=s.u.dtype, device=s.u.device))
+    args = (cfg, grid, iic, s.t, s.t_prev, f["Hz"], f["Huon"], f["Hvom"],
+            f["W"], s.Akt + 1e-3, f["stflx"], f["btflx"])
+    before = step3d_cuda.tracer_predictor.launches
+    got = step3d_cuda.tracer_predictor(*args, **kw)
+    assert step3d_cuda.tracer_predictor.launches == before + 1
+    _close(got, step3d_cuda.tracer_predictor_plain(*args, **kw),
+           RTOL[s.u.dtype], "tracer_predictor")
+
+
+@pytest.mark.parametrize("vadv", ["C4", "SPLINES"])
+@pytest.mark.parametrize("splines", [True, False])
+def test_tracer_corrector_kernel(developed, splines, vadv):
+    cfg, grid, s = developed
+    cfg = cfg.replace(splines_vdiff=splines, t_vadv=(vadv, vadv))
+    f = _stage_inputs(cfg, grid, s)
+    Akt = s.Akt + 1e-3
+    t3, t_nnew = step3d_cuda.tracer_predictor_plain(
+        cfg, grid, 3, s.t, s.t_prev, f["Hz"], f["Huon"], f["Hvom"], f["W"],
+        Akt, f["stflx"], f["btflx"])
+    args = (cfg, grid, t_nnew, t3, f["Huon"], f["Hvom"], f["W"],
+            f["Hz"] * 1.001, f["z_r"] + 0.01, Akt)
+    before = step3d_cuda.tracer_corrector.launches
+    got = step3d_cuda.tracer_corrector(*args)
+    assert step3d_cuda.tracer_corrector.launches == before + 1
+    _close([got], [step3d_cuda.tracer_corrector_plain(*args)],
+           RTOL[s.u.dtype], "tracer_corrector")
+
+
+@pytest.mark.parametrize("iic", [0, 1, 5])
+def test_uv_corrector_kernel(developed, iic):
+    cfg, grid, s = developed
+    f = _stage_inputs(cfg, grid, s)
+    a1, a2 = ab3_start_coefs(iic)
+    zero = torch.zeros_like(s.zeta)
+    u_nnew, v_nnew = momentum_init(
+        cfg, grid.pm, grid.pn, a1, a2, s.u, s.v, f["Hz"], s.ru_prev,
+        s.ru_prev2, s.rv_prev, s.rv_prev2, zero, zero, f["bustr"],
+        f["bvstr"])
+    R = f["R"]
+    args = (cfg, grid, iic, u_nnew, v_nnew, R(s.u.shape, 1e-2),
+            R(s.v.shape, 1e-2), f["Hz"] * 1.001, s.Akv + 1e-3,
+            R(s.zeta.shape, 10.0), R(s.zeta.shape, 10.0),
+            R(s.zeta.shape, 10.0), R(s.zeta.shape, 10.0), f["Huon"],
+            f["Hvom"])
+    before = step3d_cuda.uv_corrector.launches
+    got = step3d_cuda.uv_corrector(*args)
+    assert step3d_cuda.uv_corrector.launches == before + 1
+    _close(got, step3d_cuda.uv_corrector_plain(*args), RTOL[s.u.dtype],
+           "uv_corrector")
+
+
+def test_wrappers_raise_on_foreign_tensors(developed):
+    """No fallback on the card: a tensor of another dtype raises."""
+    cfg, grid, s = developed
+    f = _stage_inputs(cfg, grid, s)
+    other = torch.float32 if s.u.dtype == torch.float64 else torch.float64
+    with pytest.raises(ValueError, match="expected"):
+        prsgrd_cuda.prsgrd32(cfg, grid, f["rho"].to(other), f["z_r"],
+                             f["z_w"], f["Hz"])
+
+
 def test_anchor_with_kernels(device):
     """10 float64 steps with the kernels on: every kernel launched once a
     step, and the anchor holds at 100x the bounds of test_anchor.py (the
@@ -131,10 +260,13 @@ def test_anchor_with_kernels(device):
     cfg, grid, s, ffn = upwelling.build(upwelling.make_config(),
                                         device=device)
     wrappers = (diag_cuda.grid_flux, diag_cuda.eos, diag_cuda.omega,
-                step2d_cuda.fast_loop)
+                step2d_cuda.fast_loop, prsgrd_cuda.prsgrd32,
+                step3d_cuda.tracer_predictor, step3d_cuda.uv_corrector,
+                step3d_cuda.tracer_corrector)
     before = [w.launches for w in wrappers]
     s = stepping.run(cfg, grid, s, 10, ffn)
-    assert [w.launches - b for w, b in zip(wrappers, before)] == [10] * 4
+    assert [w.launches - b for w, b in zip(wrappers, before)] == \
+        [10] * len(wrappers)
     H = cfg.halo
     inter = lambda a: a[..., H:H + cfg.Mm, H:H + cfg.Lm].cpu().numpy()
     np.testing.assert_allclose(inter(s.zeta), ref["zeta"], rtol=0,

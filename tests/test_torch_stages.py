@@ -11,12 +11,13 @@ import torch
 
 from roms_tpu import vgrid as jvgrid
 from roms_tpu.config import LBC as JLBC, BC_GRADIENT
-from roms_tpu.grid import hc_of
+from roms_tpu.grid import build_grid as jbuild_grid, hc_of
 from roms_tpu.models import upwelling as jup
 from roms_tpu.ops import advection as jadv, pre_step3d as jpre, \
     stencil as jsten, tridiag as jtri, vbc as jvbc
 from roms_tpu.ops.omega import omega as jomega, set_massflux as jmassflux
 from roms_tpu_torch import convert
+from roms_tpu_torch.models import upwelling as tup
 from roms_tpu_torch.ops import advection as tadv, pre_step3d as tpre, \
     stencil as tsten, tridiag as ttri, vbc as tvbc
 
@@ -37,6 +38,20 @@ T = lambda a: torch.tensor(np.asarray(a))      # noqa: E731
 J = jnp.asarray
 
 
+def build_pair(cfg):
+    """An UPWELLING configuration and grid in both packages, on the CPU,
+    each built by its own package from the same unfinished configuration.
+    roms_tpu builds only the grid, with jup.build's arguments: its eager
+    initial state is not needed here and costs ~1.4 s a shape."""
+    grid_j, cfg_j = jbuild_grid(cfg, 1000.0 * cfg.Lm, 1000.0 * cfg.Mm,
+                                f0=-8.26e-5, beta=0.0,
+                                depth_fn=jup._depth_fn)
+    cfg_t, grid_t, _, _ = tup.build(convert.config_from_reference(cfg),
+                                    device="cpu")
+    assert convert.config_from_reference(cfg_j) == cfg_t
+    return cfg_j, grid_j, cfg_t, grid_t
+
+
 @pytest.fixture(scope="module", params=["upwelling", "closed"])
 def case(request):
     """A small grid and a consistent set of random fields, as numpy."""
@@ -47,11 +62,7 @@ def case(request):
             cfg, ew_periodic=False, lbc_zeta=JLBC(), lbc_ubar=JLBC(),
             lbc_vbar=JLBC(), lbc_u=JLBC(), lbc_v=JLBC(), lbc_t=grad,
             gamma2=-1.0)
-    cfg_j, grid_j, _, _ = jup.build(cfg)
-    cfg_t = convert.config_from_reference(cfg_j)
-    grid_t = convert.grid_from_numpy(
-        cfg_t, {f.name: getattr(grid_j, f.name)
-                for f in dataclasses.fields(grid_j)})
+    cfg_j, grid_j, cfg_t, grid_t = build_pair(cfg)
     rng = np.random.default_rng(11)
     N = cfg_j.N
     s2 = (cfg_j.ny_tot, cfg_j.nx_tot)

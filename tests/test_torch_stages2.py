@@ -13,8 +13,7 @@ from roms_tpu.ops import bc as jbc, mix3d as jmix, prsgrd as jprs, \
     rhs3d as jrhs, step2d as jstep2d, step3d_t as jst3t, \
     step3d_uv as jst3uv
 from roms_tpu_torch.ops import bc as tbc, mix3d as tmix, prsgrd as tprs, \
-    rhs3d as trhs, step2d as tstep2d, step3d_t as tst3t, \
-    step3d_uv as tst3uv
+    prsgrd_cuda, rhs3d as trhs, step2d as tstep2d, step3d_cuda
 from test_torch_stages import T, _close, case  # noqa: F401  (fixture)
 
 torch.set_num_threads(1)
@@ -30,7 +29,7 @@ def test_prsgrd32_matches(case):
     cfg_j, grid_j, cfg_t, grid_t, f = case
     args = (_rho(f), f["z_r"], f["z_w"], f["Hz"])
     ref = jprs.prsgrd(cfg_j, grid_j, *[J(a) for a in args])
-    got = tprs.prsgrd(cfg_t, grid_t, *[T(a) for a in args])
+    got = prsgrd_cuda.prsgrd32_plain(cfg_t, grid_t, *[T(a) for a in args])
     _close(got[0], ref[0], "ru")
     _close(got[1], ref[1], "rv")
     with pytest.raises(NotImplementedError, match="pressure-gradient"):
@@ -147,7 +146,8 @@ def test_step3d_uv_matches(case, iic):
     args = [f["u"] * Hz, f["v"] * Hz, h0, h1, Hz, f["Akv"]] + D2 + \
         [f["Huon"], f["Hvom"]]
     ref = jst3uv.step3d_uv(cfg_j, grid_j, iic, *[J(a) for a in args])
-    got = tst3uv.step3d_uv(cfg_t, grid_t, iic, *[T(a) for a in args])
+    got = step3d_cuda.uv_corrector_plain(cfg_t, grid_t, iic,
+                                         *[T(a) for a in args])
     for a, b, name in zip(got, ref, ("u", "v", "ubar", "vbar", "Huon",
                                      "Hvom")):
         _close(a, b, name)
@@ -162,4 +162,6 @@ def test_step3d_t_matches(case, splines):
     args = [t_nnew, f["t_prev"], f["Huon"], f["Hvom"], f["W"], f["Hz"],
             f["z_r"], f["Akt"]]
     ref = jst3t.step3d_t(cfg_j, grid_j, 3, *[J(a) for a in args])
-    _close(tst3t.step3d_t(cfg_t, grid_t, *[T(a) for a in args]), ref, "t")
+    _close(step3d_cuda.tracer_corrector_plain(cfg_t, grid_t,
+                                              *[T(a) for a in args]),
+           ref, "t")

@@ -1,6 +1,6 @@
 """roms_tpu_torch: the whole baroclinic step.
 
-(a) three eager UPWELLING steps at 24x20x4 / ndtfast 8 through both
+(a) three eager UPWELLING steps at 16x12x4 / ndtfast 8 through both
     packages' stepping.step agree on every State field;
 (b) ten float64 steps of full-size UPWELLING reproduce the pinned anchor
     tests/data/upwelling_anchor.npz at the bounds of test_anchor.py, with
@@ -34,10 +34,10 @@ def interior(cfg, a):
 
 
 def test_three_steps_match_jax():
-    cfg_j, grid_j, s_j, ffn_j = jup.build(jup.make_config(Lm=24, Mm=20, N=4,
+    cfg_j, grid_j, s_j, ffn_j = jup.build(jup.make_config(Lm=16, Mm=12, N=4,
                                                           ndtfast=8))
-    cfg, grid, s, ffn = tup.build(tup.make_config(Lm=24, Mm=20, N=4,
-                                                  ndtfast=8))
+    cfg, grid, s, ffn = tup.build(tup.make_config(Lm=16, Mm=12, N=4,
+                                                  ndtfast=8), device="cpu")
     for _ in range(3):
         s_j = jstepping.step(cfg_j, grid_j, s_j, ffn_j)
         s = stepping.step(cfg, grid, s, ffn)
@@ -52,13 +52,14 @@ def test_three_steps_match_jax():
                                    atol=1e-12 * scale, err_msg=name)
     # the state converts back one to one
     back = convert.state_from_numpy(cfg, {f.name: np.asarray(
-        getattr(s_j, f.name)) for f in dataclasses.fields(s_j)})
+        getattr(s_j, f.name)) for f in dataclasses.fields(s_j)},
+        device="cpu")
     assert isinstance(back, State) and back.iic == s.iic
 
 
 def test_upwelling_10step_anchor():
     ref = np.load(_ANCHOR)
-    cfg, grid, s, ffn = tup.build(tup.make_config())
+    cfg, grid, s, ffn = tup.build(tup.make_config(), device="cpu")
     s = stepping.run(cfg, grid, s, 10, ffn)
     zeta = interior(cfg, s.zeta).numpy()
     u = interior(cfg, s.u).numpy()
@@ -83,7 +84,8 @@ def test_upwelling_10step_anchor():
 
 @pytest.fixture(scope="module")
 def upw():
-    return tup.build(tup.make_config(Lm=16, Mm=24, N=8, ndtfast=10))
+    return tup.build(tup.make_config(Lm=16, Mm=24, N=8, ndtfast=10),
+                     device="cpu")
 
 
 def _constant_tracers(s0):
