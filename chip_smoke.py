@@ -11,14 +11,15 @@ Phases, one or more lines each; any failure exits non-zero:
      gives it (one step of full-size UPWELLING from a developed state), in
      float64 and float32, plus the branches the main path does not take
      (eq_tide, KPP/solar terms, the Thomas solve, SPLINES vertical tracer
-     advection, JM95 + bvf): max abs
+     advection, JM95 + bvf, closed E-W walls, land points, the curvilinear
+     terms, the first step's momentum start): max abs
      error, tolerance, the time a call of kernel and plain version (CUDA
      events around 10 calls back to back, median of 5 such batches), and
      the kernel's bound (bytes and operations);
   4. the main path: 10 float64 steps of full-size UPWELLING through
-     stepping.step, with every kernel's launch count, checked against the
-     pinned anchor (tests/data/upwelling_anchor.npz) and against the same
-     steps with the kernels off (cfg.pallas2d=False);
+     stepping.step, with every kernel's launch count (one a step each),
+     checked against the pinned anchor (tests/data/upwelling_anchor.npz)
+     and against the same steps with the kernels off (cfg.pallas2d=False);
   5. the 5-model-day UPWELLING run: 1440 float32 steps, finite fields,
      volume conservation, the upwelling signature, ms/step;
   6. torch.profiler over 10 float32 steps: launches a step, device busy and
@@ -106,6 +107,25 @@ def _reads_tracer_corrector(g, a, kw):
         ([] if cfg.splines_vdiff else [z_r_new])
 
 
+def _reads_rhs3d(g, a, kw):
+    """rhs3d(cfg, grid, u, v, Huon, Hvom, W, Hz, ru, rv, sustr, svstr,
+    bustr, bvstr, start=): the mass fluxes and W's interior levels with
+    advection, f with Coriolis, dndx and dmde with the curvilinear terms,
+    and the AB3 history with the start."""
+    cfg = a[0]
+    u, v, Huon, Hvom, W, Hz, ru, rv = a[2:10]
+    out = [u, v, Hz, ru, rv, *a[10:14], g.pm, g.pn]
+    if cfg.uv_adv:
+        out += [Huon, Hvom, W[1:-1]]
+    if cfg.uv_cor:
+        out.append(g.f)
+    if cfg.curvgrid and cfg.uv_adv:
+        out += [g.dndx, g.dmde]
+    if kw.get("start") is not None:
+        out += list(kw["start"][2:])
+    return out
+
+
 def _reads_uv_corrector(g, a, kw):
     """uv_corrector(cfg, grid, iic, u_nnew, v_nnew, ru, rv, Hz_new, Akv,
     DU_avg1, DV_avg1, DU_avg2, DV_avg2, Huon_old, Hvom_old): Akv for the
@@ -134,6 +154,11 @@ KERNELS = {
                              "umask", "vmask", "pmask")),
     "prsgrd32": ("roms_tpu_torch/csrc/prsgrd.cu",
                  "roms_tpu/ops/prsgrd_pallas.py:63", _reads_prsgrd32),
+    "rhs3d": ("roms_tpu_torch/csrc/rhs3d.cu",
+              "roms_tpu/ops/rhs3d_pallas.py:60", _reads_rhs3d),
+    "uv3dmix2": ("roms_tpu_torch/csrc/mix3d.cu",
+                 "roms_tpu/ops/mix3d_pallas.py:114",
+                 _reads_all("pm", "pn", "pmask")),
     "tracer_predictor": ("roms_tpu_torch/csrc/step3d.cu",
                          "roms_tpu/ops/step3d_pallas.py:116",
                          _reads_tracer_predictor),
@@ -166,14 +191,16 @@ def nvidia_smi() -> str:
 
 def wrappers():
     """{kernel name: (module, wrapper attribute, plain version)}."""
-    from roms_tpu_torch.ops import diag_cuda, prsgrd_cuda, step2d_cuda, \
-        step3d_cuda
+    from roms_tpu_torch.ops import diag_cuda, mix3d_cuda, prsgrd_cuda, \
+        rhs3d_cuda, step2d_cuda, step3d_cuda
     return {
         "grid_flux": (diag_cuda, "grid_flux", diag_cuda.grid_flux_plain),
         "eos": (diag_cuda, "eos", diag_cuda.eos_plain),
         "omega": (diag_cuda, "omega", diag_cuda.omega_plain),
         "fast_loop": (step2d_cuda, "fast_loop", step2d_cuda.fast_loop_plain),
         "prsgrd32": (prsgrd_cuda, "prsgrd32", prsgrd_cuda.prsgrd32_plain),
+        "rhs3d": (rhs3d_cuda, "rhs3d", rhs3d_cuda.rhs3d_plain),
+        "uv3dmix2": (mix3d_cuda, "uv3dmix2", mix3d_cuda.uv3dmix2_plain),
         "tracer_predictor": (step3d_cuda, "tracer_predictor",
                              step3d_cuda.tracer_predictor_plain),
         "uv_corrector": (step3d_cuda, "uv_corrector",
@@ -200,12 +227,22 @@ def patched(sites, wrap):
 
 
 def fresh(args):
-    """`args` with a Fast2DState among them cloned field by field (the
-    fast-loop kernel updates its fields in place)."""
+    """`args` with every tensor among them cloned, a Fast2DState field by
+    field (the fast-loop and uv3dmix2 kernels update their fields in
+    place); a tensor passed twice stays one tensor."""
+    import torch
     from roms_tpu_torch.ops.step2d import Fast2DState
-    return tuple(dataclasses.replace(a, **{
-        f.name: getattr(a, f.name).clone() for f in dataclasses.fields(a)})
-        if isinstance(a, Fast2DState) else a for a in args)
+    memo = {}
+
+    def copy(a):
+        if isinstance(a, torch.Tensor):
+            return memo.setdefault(id(a), a.clone())
+        if isinstance(a, Fast2DState):
+            return dataclasses.replace(a, **{
+                f.name: copy(getattr(a, f.name))
+                for f in dataclasses.fields(a)})
+        return a
+    return tuple(copy(a) for a in args)
 
 
 def captured_calls(cfg, grid, state, ffn):
@@ -327,6 +364,7 @@ def variants(cfg, grid, calls):
     """Cases beyond the main path's arguments: (label, kernel, args, kw)."""
     import numpy as np
     import torch
+    from roms_tpu_torch.config import LBC
     rng = np.random.default_rng(7)
     like = dict(dtype=grid.h.dtype, device=grid.h.device)
     s2 = tuple(grid.h.shape)
@@ -356,7 +394,35 @@ def variants(cfg, grid, calls):
         vadv = ("SPLINES",) * args[0].ntracers
         out.append((f"{name}[splines vadv]", name,
                     (args[0].replace(t_vadv=vadv),) + args[1:], kw))
+    closed = LBC()
+    for name in ("rhs3d", "uv3dmix2"):
+        args, kw = calls[name]
+        out.append((f"{name}[closed E-W]", name, (args[0].replace(
+            ew_periodic=False, gamma2=-1.0, lbc_zeta=closed, lbc_ubar=closed,
+            lbc_vbar=closed, lbc_u=closed, lbc_v=closed, lbc_t=closed),)
+            + args[1:], kw))
+    args, kw = calls["rhs3d"]
+    curv = dataclasses.replace(grid, dndx=rand(s2, 50.0),
+                               dmde=rand(s2, 50.0))
+    out.append(("rhs3d[curvgrid]", "rhs3d",
+                (args[0].replace(curvgrid=True), curv) + args[2:], kw))
+    out.append(("rhs3d[first step]", "rhs3d", args,
+                dict(kw, start=(0.0, 0.0) + kw["start"][2:])))
+    args, kw = calls["uv3dmix2"]
+    out.append(("uv3dmix2[masked]", "uv3dmix2",
+                (args[0], island(grid)) + args[2:], kw))
     return out
+
+
+def island(grid):
+    """The grid with a block of land points inside its interior."""
+    import torch
+    m = grid.rmask.clone()
+    m[30:40, 15:25] = 0.0
+    umask = m * torch.roll(m, 1, -1)
+    vmask = m * torch.roll(m, 1, -2)
+    return dataclasses.replace(grid, rmask=m, umask=umask, vmask=vmask,
+                               pmask=umask * torch.roll(umask, 1, -2))
 
 
 def kernel_checks(results, device):
@@ -435,8 +501,9 @@ def main_path(device):
     print(f"[main] {nsteps} float64 UPWELLING steps, kernels on: "
           f"{ms_step:.2f} ms/step (host clock incl. first-call set-up); "
           f"launches {launches}", flush=True)
-    check(all(n >= nsteps for n in launches.values()),
-          f"a kernel of the main path missed a step: {launches}")
+    check(all(n == nsteps for n in launches.values()),
+          f"a kernel of the main path did not launch once a step: "
+          f"{launches}")
 
     s_plain = stepping.run(cfg.replace(pallas2d=False), grid, s0, nsteps,
                            ffn)
@@ -513,11 +580,11 @@ def profile(device):
     from torch.profiler import ProfilerActivity, record_function
     from roms_tpu_torch import stepping, vgrid
     from roms_tpu_torch.models import upwelling
+    from roms_tpu_torch.ops import rhs3d_cuda
 
     sites = [(mod, attr) for mod, attr, _ in wrappers().values()]
-    sites += [(stepping, n) for n in ("set_vbc", "momentum_init",
-                                      "rhs3d_momentum", "uv3dmix2",
-                                      "t3dmix2")]
+    sites += [(stepping, n) for n in ("set_vbc", "t3dmix2")]
+    sites.append((rhs3d_cuda, "momentum_rhs"))
     sites.append((vgrid, "set_depth"))
 
     def span(name, fn):

@@ -8,11 +8,15 @@ constant mixing coefficients, prsgrd32, U3/C4/SPLINES advection, harmonic
 viscosity and diffusion).  Every other branch raises NotImplementedError
 naming the missing feature.
 
-Kernels: with ``cfg.pallas2d`` true (the default), the eight kernel stages
-go through their wrappers (ops/diag_cuda.py, prsgrd_cuda.py,
-step3d_cuda.py, step2d_cuda.py), in the dispatch the JAX step takes with
-its rhs3d and horizontal-mixing kernels off.  The wrappers launch the CUDA
-kernels for CUDA tensors and take the plain versions for CPU tensors.
+Kernels: with ``cfg.pallas2d`` true (the default), the kernel stages go
+through their wrappers (ops/diag_cuda.py, prsgrd_cuda.py, rhs3d_cuda.py,
+mix3d_cuda.py, step3d_cuda.py, step2d_cuda.py), in the JAX step's default
+dispatch: where ``rhs3d_cuda.use_kernels`` holds (as the JAX gate
+``rhs3d_pallas.use_pallas``), the momentum phase is one
+``rhs3d_cuda.momentum_rhs`` call (prsgrd32, rhs3d with the momentum start,
+uv3dmix2); otherwise its stages run one by one, uv3dmix2 as kernel or
+plain by ``mix3d_cuda.use_kernels``.  The wrappers launch the CUDA kernels
+for CUDA tensors and take the plain versions for CPU tensors.
 ``cfg.pallas2d=False`` runs the plain versions on any device.
 """
 
@@ -26,8 +30,9 @@ from .config import Config
 from .grid import Grid, hc_of
 from .state import State
 from . import vgrid
-from .ops import diag_cuda, prsgrd, prsgrd_cuda, step2d_cuda, step3d_cuda
-from .ops.mix3d import uv3dmix2, t3dmix2
+from .ops import diag_cuda, mix3d_cuda, prsgrd, prsgrd_cuda, rhs3d_cuda, \
+    step2d_cuda, step3d_cuda
+from .ops.mix3d import t3dmix2
 from .ops.pre_step3d import ab3_start_coefs, momentum_init
 from .ops.rhs3d import rhs3d_momentum
 from .ops.step2d import Fast2DState
@@ -120,24 +125,32 @@ def step(cfg: Config, grid: Grid, state: State,
         else step3d_cuda.tracer_predictor_plain
     t3, t_nnew = tracer_predictor(cfg, grid, iic, state.t, state.t_prev, Hz,
                                   Huon, Hvom, W, Akt, stflx, btflx)
-    a1, a2 = ab3_start_coefs(iic)
-    u_nnew, v_nnew = momentum_init(
-        cfg, grid.pm, grid.pn, a1, a2, state.u, state.v, Hz, state.ru_prev,
-        state.ru_prev2, state.rv_prev, state.rv_prev2, sustr, svstr, bustr,
-        bvstr)
-    if prsgrd_cuda.supported(cfg):
-        ru, rv = prsgrd_cuda.prsgrd32(cfg, grid, rho, z_r, z_w, Hz)
+    if rhs3d_cuda.use_kernels(cfg):
+        # momentum_init -> prsgrd32 -> rhs3d -> uv3dmix2 as one phase
+        u_nnew, v_nnew, ru, rv, rufrc, rvfrc = rhs3d_cuda.momentum_rhs(
+            cfg, grid, iic, state.u, state.v, Hz, z_r, z_w, rho, Huon, Hvom,
+            W, state.ru_prev, state.ru_prev2, state.rv_prev, state.rv_prev2,
+            sustr, svstr, bustr, bvstr)
     else:
-        ru, rv = prsgrd.prsgrd(cfg, grid, rho, z_r, z_w, Hz)
+        a1, a2 = ab3_start_coefs(iic)
+        u_nnew, v_nnew = momentum_init(
+            cfg, grid.pm, grid.pn, a1, a2, state.u, state.v, Hz,
+            state.ru_prev, state.ru_prev2, state.rv_prev, state.rv_prev2,
+            sustr, svstr, bustr, bvstr)
+        prsgrd32 = prsgrd_cuda.prsgrd32 if prsgrd_cuda.supported(cfg) \
+            else prsgrd.prsgrd
+        ru, rv = prsgrd32(cfg, grid, rho, z_r, z_w, Hz)
+        ru, rv, rufrc, rvfrc = rhs3d_momentum(
+            cfg, grid, state.u, state.v, Huon, Hvom, W, Hz, ru, rv,
+            sustr, svstr, bustr, bvstr)
+        if cfg.uv_vis2 and cfg.visc2 != 0.0:
+            uv3dmix2 = mix3d_cuda.uv3dmix2 if mix3d_cuda.use_kernels(cfg) \
+                else mix3d_cuda.uv3dmix2_plain
+            u_nnew, v_nnew, rufrc, rvfrc = uv3dmix2(
+                cfg, grid, state.u, state.v, Hz, u_nnew, v_nnew, rufrc,
+                rvfrc, cfg.dt)
     if any(x != 0.0 for x in cfg.tnu2):
         t_nnew = t3dmix2(cfg, grid, state.t, Hz, t_nnew, cfg.dt)
-    ru, rv, rufrc, rvfrc = rhs3d_momentum(
-        cfg, grid, state.u, state.v, Huon, Hvom, W, Hz, ru, rv,
-        sustr, svstr, bustr, bvstr)
-    if cfg.uv_vis2 and cfg.visc2 != 0.0:
-        u_nnew, v_nnew, rufrc, rvfrc = uv3dmix2(
-            cfg, grid, state.u, state.v, Hz, u_nnew, v_nnew, rufrc, rvfrc,
-            cfg.dt)
 
     # --- fast barotropic loop (main3d.F:592-713).  Every field is its own
     #     tensor: the kernel updates them in place ---

@@ -1,7 +1,7 @@
 """roms_tpu_torch CUDA kernels against their plain PyTorch versions, on the
 card, in float32 and float64, on UPWELLING and on closed, gradient and
-masked (an island) variants of it; and the UPWELLING anchor with all eight
-kernels on.
+masked (an island) variants of it (the momentum kernels also on a
+curvilinear one); and the UPWELLING anchor with all ten kernels on.
 
 Marked ``gpu``; each test skips without a CUDA device.  This file imports
 no jax, so it also runs where jax is absent:
@@ -20,8 +20,8 @@ from roms_tpu_torch import stepping
 from roms_tpu_torch.config import LBC, BC_CLOSED, BC_GRADIENT
 from roms_tpu_torch.grid import hc_of
 from roms_tpu_torch.models import upwelling
-from roms_tpu_torch.ops import diag_cuda, prsgrd_cuda, step2d_cuda, \
-    step3d_cuda
+from roms_tpu_torch.ops import diag_cuda, mix3d_cuda, prsgrd_cuda, \
+    rhs3d_cuda, step2d_cuda, step3d_cuda
 from roms_tpu_torch.ops.pre_step3d import ab3_start_coefs, momentum_init
 from roms_tpu_torch.ops.step2d import FS_FIELDS, Fast2DState
 from roms_tpu_torch.ops.vbc import set_vbc
@@ -242,6 +242,86 @@ def test_uv_corrector_kernel(developed, iic):
            "uv_corrector")
 
 
+def _curvilinear(cfg, grid, curv):
+    """With `curv`, the case with the curvilinear metric terms on and
+    random dndx/dmde."""
+    if not curv:
+        return cfg, grid
+    rng = np.random.default_rng(23)
+    d = {k: torch.tensor(50.0 * rng.standard_normal(grid.h.shape),
+                         dtype=grid.h.dtype, device=grid.h.device)
+         for k in ("dndx", "dmde")}
+    return cfg.replace(curvgrid=True), dataclasses.replace(grid, **d)
+
+
+def _momentum_inputs(s, f):
+    """rhs3d's arguments after (cfg, grid): random pressure gradients and
+    surface stresses, the rest from state s and the stage inputs f."""
+    R = f["R"]
+    return (s.u, s.v, f["Huon"], f["Hvom"], f["W"], f["Hz"],
+            R(s.u.shape, 1e-2), R(s.v.shape, 1e-2), R(s.zeta.shape, 1e-4),
+            R(s.zeta.shape, 1e-4), f["bustr"], f["bvstr"])
+
+
+@pytest.mark.parametrize("curv", [False, True])
+@pytest.mark.parametrize("iic", [None, 0, 1, 5])
+def test_rhs3d_kernel(developed, iic, curv):
+    """Without the start (iic None), and with it at each rung of the AB3
+    start-up; `curv` adds the curvilinear terms."""
+    cfg, grid, s = developed
+    cfg, grid = _curvilinear(cfg, grid, curv)
+    f = _stage_inputs(cfg, grid, s)
+    args = (cfg, grid) + _momentum_inputs(s, f)
+    kw = {}
+    if iic is not None:
+        a1, a2 = ab3_start_coefs(iic)
+        kw = dict(start=(a1, a2, s.ru_prev, s.ru_prev2, s.rv_prev,
+                         s.rv_prev2))
+    before = rhs3d_cuda.rhs3d.launches
+    got = rhs3d_cuda.rhs3d(*args, **kw)
+    assert rhs3d_cuda.rhs3d.launches == before + 1
+    ref = rhs3d_cuda.rhs3d_plain(*args, **kw)
+    assert len(got) == len(ref) == (4 if iic is None else 6)
+    _close(got, ref, RTOL[s.u.dtype], "rhs3d")
+
+
+def test_uv3dmix2_kernel(developed):
+    """The kernel updates its last four arguments in place: it gets
+    copies."""
+    cfg, grid, s = developed
+    f = _stage_inputs(cfg, grid, s)
+    R = f["R"]
+    ins = (s.u, s.v, f["Hz"])
+    upd = (s.u * f["Hz"], s.v * f["Hz"], R(s.zeta.shape, 1.0),
+           R(s.zeta.shape, 1.0))
+    before = mix3d_cuda.uv3dmix2.launches
+    got = mix3d_cuda.uv3dmix2(cfg, grid, *ins, *[a.clone() for a in upd],
+                              cfg.dt)
+    assert mix3d_cuda.uv3dmix2.launches == before + 1
+    _close(got, mix3d_cuda.uv3dmix2_plain(cfg, grid, *ins, *upd, cfg.dt),
+           RTOL[s.u.dtype], "uv3dmix2")
+
+
+@pytest.mark.parametrize("iic,tide", [(0, False), (5, True)])
+def test_momentum_rhs_kernels(developed, iic, tide):
+    """The momentum phase on the card (prsgrd32, rhs3d with the start,
+    uv3dmix2: one launch each) against its plain chain."""
+    cfg, grid, s = developed
+    f = _stage_inputs(cfg, grid, s)
+    u, v, Huon, Hvom, W, Hz, _, _, sustr, svstr, bustr, bvstr = \
+        _momentum_inputs(s, f)
+    args = (cfg, grid, iic, u, v, Hz, f["z_r"], f["z_w"], f["rho"], Huon,
+            Hvom, W, s.ru_prev, s.ru_prev2, s.rv_prev, s.rv_prev2, sustr,
+            svstr, bustr, bvstr)
+    kw = dict(eq_tide=f["R"](s.zeta.shape, 0.05)) if tide else {}
+    wrappers = (prsgrd_cuda.prsgrd32, rhs3d_cuda.rhs3d, mix3d_cuda.uv3dmix2)
+    before = [w.launches for w in wrappers]
+    got = rhs3d_cuda.momentum_rhs(*args, **kw)
+    assert [w.launches - b for w, b in zip(wrappers, before)] == [1, 1, 1]
+    _close(got, rhs3d_cuda.momentum_rhs_plain(*args, **kw), RTOL[s.u.dtype],
+           "momentum_rhs")
+
+
 def test_wrappers_raise_on_foreign_tensors(developed):
     """No fallback on the card: a tensor of another dtype raises."""
     cfg, grid, s = developed
@@ -250,6 +330,18 @@ def test_wrappers_raise_on_foreign_tensors(developed):
     with pytest.raises(ValueError, match="expected"):
         prsgrd_cuda.prsgrd32(cfg, grid, f["rho"].to(other), f["z_r"],
                              f["z_w"], f["Hz"])
+    with pytest.raises(ValueError, match="expected"):
+        rhs3d_cuda.rhs3d(cfg, grid, *[a.to(other) if a is s.u else a
+                                      for a in _momentum_inputs(s, f)])
+    with pytest.raises(ValueError, match="supported"):
+        rhs3d_cuda.momentum_rhs(
+            cfg.replace(prsgrd_scheme="pj"), grid, 3, s.u, s.v, f["Hz"],
+            f["z_r"], f["z_w"], f["rho"], f["Huon"], f["Hvom"], f["W"],
+            s.ru_prev, s.ru_prev2, s.rv_prev, s.rv_prev2, *[s.zeta] * 4)
+    un = s.u.clone()
+    with pytest.raises(ValueError, match="alias"):
+        mix3d_cuda.uv3dmix2(cfg, grid, s.u, s.v, f["Hz"], un, un,
+                            s.zeta.clone(), s.zeta.clone(), cfg.dt)
 
 
 def test_anchor_with_kernels(device):
@@ -261,6 +353,7 @@ def test_anchor_with_kernels(device):
                                         device=device)
     wrappers = (diag_cuda.grid_flux, diag_cuda.eos, diag_cuda.omega,
                 step2d_cuda.fast_loop, prsgrd_cuda.prsgrd32,
+                rhs3d_cuda.rhs3d, mix3d_cuda.uv3dmix2,
                 step3d_cuda.tracer_predictor, step3d_cuda.uv_corrector,
                 step3d_cuda.tracer_corrector)
     before = [w.launches for w in wrappers]
