@@ -1,6 +1,6 @@
 """Smoke run of roms_tpu_torch on one CUDA card: builds the kernels, checks
-each against its plain PyTorch version, drives the UPWELLING step through
-them, and checks the result.
+each against its plain PyTorch version, drives the UPWELLING and the
+BENCHMARK1 steps through them, and checks the results.
 
     python3 chip_smoke.py
 
@@ -24,9 +24,26 @@ Phases, one or more lines each; any failure exits non-zero:
      volume conservation, the upwelling signature, ms/step;
   6. torch.profiler over 10 float32 steps: launches a step, device busy and
      idle share, device time by kernel, host time by stage.
-The last two lines are a JSON object of per-kernel results and a JSON
-object {"ok": true, "device": {...}}.  Without CUDA it exits non-zero and
-prints no result.
+Then BENCHMARK1 (512x64x30, 2 tracers, DT 150 s, nfast 29), the main path
+of the spherical grid, COARE bulk fluxes, KPP and the geopotential tracer
+diffusion (queue 2 row 5, t3dmix2_geo):
+  7. each of the eleven kernels against its plain version on the arguments
+     the BENCHMARK1 step gives it (one step from a state three plain
+     float64 steps from rest), in float64 and float32, with the times and
+     bounds of phase 3; and t3dmix2_geo with one tracer at tnu2 = 0, which
+     must come back bitwise unchanged;
+  8. three float64 steps from that state with the kernels on against
+     cfg.pallas2d=False (every stage plain), each State field the step
+     writes within 1e-9 x max|field|;
+  9. the small BENCHMARK (64x32x12) with the kernels on against
+     tests/data/torch_benchmark_small.npz, at 100x the CPU test's bounds;
+ 10. 200 float32 steps (8.3 model hours) with the kernels on: ms/step,
+     grid-points/s, finite and bounded fields, southern-hemisphere f, an
+     eastward mean surface current, one launch a step of every kernel;
+ 11. torch.profiler over 5 float32 steps, as phase 6.
+The last two lines are a JSON object of per-kernel results (BENCHMARK1
+float32, launches of phase 10) and a JSON object {"ok": true, "device":
+{...}}.  Without CUDA it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -42,6 +59,12 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ANCHOR = os.path.join(ROOT, "tests", "data", "upwelling_anchor.npz")
+BENCH_FIXTURE = os.path.join(ROOT, "tests", "data",
+                             "torch_benchmark_small.npz")
+# kernels-on against kernels-off over three full-size BENCHMARK1 float64
+# steps, relative to max|field|
+BENCH_EQUIV_RTOL = 1e-9
+BENCH_STEPS = 200
 
 # tests/test_anchor.py:47-66 bounds; the card runs them at 100x (nvcc's
 # operation order is kept with --fmad=false, but the card's column sums
@@ -126,6 +149,19 @@ def _reads_rhs3d(g, a, kw):
     return out
 
 
+def _geo_active(cfg):
+    return [k for k in range(cfg.ntracers)
+            if k < len(cfg.tnu2) and cfg.tnu2[k] != 0.0]
+
+
+def _reads_t3dmix2_geo(g, a, kw):
+    """t3dmix2_geo(cfg, grid, t, Hz, z_r, t_nnew, dt): t and t_nnew of the
+    tracers with tnu2 != 0 only."""
+    cfg, _, t, Hz, z_r, t_nnew = a[:6]
+    act = _geo_active(cfg)
+    return [t[act], t_nnew[act], Hz, z_r, g.pm, g.pn]
+
+
 def _reads_uv_corrector(g, a, kw):
     """uv_corrector(cfg, grid, iic, u_nnew, v_nnew, ru, rv, Hz_new, Akv,
     DU_avg1, DV_avg1, DU_avg2, DV_avg2, Huon_old, Hvom_old): Akv for the
@@ -159,6 +195,8 @@ KERNELS = {
     "uv3dmix2": ("roms_tpu_torch/csrc/mix3d.cu",
                  "roms_tpu/ops/mix3d_pallas.py:114",
                  _reads_all("pm", "pn", "pmask")),
+    "t3dmix2_geo": ("roms_tpu_torch/csrc/mix3d.cu",
+                    "roms_tpu/ops/mix3d_pallas.py:78", _reads_t3dmix2_geo),
     "tracer_predictor": ("roms_tpu_torch/csrc/step3d.cu",
                          "roms_tpu/ops/step3d_pallas.py:116",
                          _reads_tracer_predictor),
@@ -201,6 +239,8 @@ def wrappers():
         "prsgrd32": (prsgrd_cuda, "prsgrd32", prsgrd_cuda.prsgrd32_plain),
         "rhs3d": (rhs3d_cuda, "rhs3d", rhs3d_cuda.rhs3d_plain),
         "uv3dmix2": (mix3d_cuda, "uv3dmix2", mix3d_cuda.uv3dmix2_plain),
+        "t3dmix2_geo": (mix3d_cuda, "t3dmix2_geo",
+                        mix3d_cuda.t3dmix2_geo_plain),
         "tracer_predictor": (step3d_cuda, "tracer_predictor",
                              step3d_cuda.tracer_predictor_plain),
         "uv_corrector": (step3d_cuda, "uv_corrector",
@@ -319,6 +359,8 @@ def bound(name, grid, args, kw, outs, ops, dtype):
     ins = KERNELS[name][2](grid, args, kw)
     unique = {(t.data_ptr(), t.shape): t for t in ins}
     nbytes = sum(t.numel() * t.element_size() for t in unique.values())
+    if name == "t3dmix2_geo":       # writes the mixed tracers only
+        outs = outs[_geo_active(args[0])]
     nbytes += sum(t.numel() * t.element_size() for t in tensors_of(outs))
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
@@ -425,9 +467,41 @@ def island(grid):
                                pmask=umask * torch.roll(umask, 1, -2))
 
 
-def kernel_checks(results, device):
-    """Phase 3: every kernel against its plain version, f64 and f32."""
+def check_variants(tag, grid, cases, dtype, results):
+    """Each (label, kernel, args, kw) of `cases` against its plain version:
+    agreement, times, bound; one line each, into results[label][dtype]."""
     import torch
+    table = wrappers()
+    for label, name, args, kw in cases:
+        mod, attr, plain = table[name]
+        kern = getattr(mod, attr)
+        rtol = FAST_RTOL if name == "fast_loop" else KERNEL_RTOL
+        out_k = kern(*fresh(args), **kw)
+        torch.cuda.synchronize()
+        out_p = plain(*fresh(args), **kw)
+        finite = all(bool(torch.isfinite(a).all())
+                     for a in tensors_of(out_k))
+        err, ratio = max_err(out_k, out_p, rtol[dtype])
+        ms = device_ms(kern, args, kw)
+        plain_ms = device_ms(plain, args, kw)
+        ops = count_ops(plain, args, kw)
+        b_ms, b_by = bound(name, grid, args, kw, out_k, ops, dtype)
+        ok = finite and ratio <= 1.0
+        print(f"[{tag}] {label:30s} {dtype}: max_abs_err={err:.3e} "
+              f"tol={rtol[dtype]:g}*max|field| (worst err/tol "
+              f"{ratio:.3e}) finite={finite} kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {b_ms:.5f} ms by {b_by} "
+              f"({ops:.4e} ops)  {'OK' if ok else 'FAIL'}", flush=True)
+        check(ok, f"{label} {dtype}: kernel disagrees with its plain "
+                  "version")
+        results.setdefault(label, {})[dtype] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by)
+
+
+def kernel_checks(results, device):
+    """Phase 3: every kernel of the UPWELLING path (all but t3dmix2_geo:
+    tnu2 = 0) against its plain version, f64 and f32."""
     from roms_tpu_torch import stepping
     from roms_tpu_torch.models import upwelling
     from roms_tpu_torch.state import TENSOR_FIELDS
@@ -443,33 +517,10 @@ def kernel_checks(results, device):
         state = s.replace(**{k: getattr(s, k).to(grid.h.dtype)
                              for k in TENSOR_FIELDS})
         calls = captured_calls(cfg, grid, state, ffn)
-        check(set(calls) == set(table),
+        check(set(calls) == set(table) - {"t3dmix2_geo"},
               f"the main path called {sorted(calls)}, not every kernel")
-        for label, name, args, kw in variants(cfg, grid, calls):
-            mod, attr, plain = table[name]
-            kern = getattr(mod, attr)
-            rtol = FAST_RTOL if name == "fast_loop" else KERNEL_RTOL
-            out_k = kern(*fresh(args), **kw)
-            torch.cuda.synchronize()
-            out_p = plain(*fresh(args), **kw)
-            finite = all(bool(torch.isfinite(a).all())
-                         for a in tensors_of(out_k))
-            err, ratio = max_err(out_k, out_p, rtol[dtype])
-            ms = device_ms(kern, args, kw)
-            plain_ms = device_ms(plain, args, kw)
-            ops = count_ops(plain, args, kw)
-            b_ms, b_by = bound(name, grid, args, kw, out_k, ops, dtype)
-            ok = finite and ratio <= 1.0
-            print(f"[kernel] {label:30s} {dtype}: max_abs_err={err:.3e} "
-                  f"tol={rtol[dtype]:g}*max|field| (worst err/tol "
-                  f"{ratio:.3e}) finite={finite} kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, bound {b_ms:.5f} ms by {b_by} "
-                  f"({ops:.4e} ops)  {'OK' if ok else 'FAIL'}", flush=True)
-            check(ok, f"{label} {dtype}: kernel disagrees with its plain "
-                      "version")
-            results.setdefault(label, {})[dtype] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by)
+        check_variants("kernel", grid, variants(cfg, grid, calls), dtype,
+                       results)
 
 
 def interior(cfg, a):
@@ -492,6 +543,7 @@ def main_path(device):
     nsteps = 10
     for w in table.values():
         w.launches = 0
+    del table["t3dmix2_geo"]          # tnu2 = 0: not on this path
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     s = stepping.run(cfg, grid, s0, nsteps, ffn)
@@ -573,19 +625,23 @@ def long_run(device, name):
     return ms_step
 
 
-def profile(device):
-    """Phase 6: torch.profiler over 10 float32 steps with a
-    record_function span around every stage call of stepping.step."""
+def profile(device, case="upwelling"):
+    """Phase 6 (UPWELLING, 10 steps) and 11 (BENCHMARK1, 5 steps):
+    torch.profiler over float32 steps with a record_function span around
+    every stage call of stepping.step."""
     import torch
     from torch.profiler import ProfilerActivity, record_function
     from roms_tpu_torch import stepping, vgrid
-    from roms_tpu_torch.models import upwelling
+    from roms_tpu_torch.models import benchmark, upwelling
     from roms_tpu_torch.ops import rhs3d_cuda
 
     sites = [(mod, attr) for mod, attr, _ in wrappers().values()]
-    sites += [(stepping, n) for n in ("set_vbc", "t3dmix2")]
+    sites += [(stepping, n) for n in ("set_vbc", "t3dmix2", "bulk_flux",
+                                      "lmd_vmix", "swfrac")]
     sites.append((rhs3d_cuda, "momentum_rhs"))
     sites.append((vgrid, "set_depth"))
+    model, nsteps, tag = (upwelling, 10, "profile") if case == "upwelling" \
+        else (benchmark, 5, "bench-profile")
 
     def span(name, fn):
         def call(*args, **kw):
@@ -593,10 +649,9 @@ def profile(device):
                 return fn(*args, **kw)
         return call
 
-    cfg, grid, s, ffn = upwelling.build(
-        upwelling.make_config(dtype="float32"), device=device)
+    cfg, grid, s, ffn = model.build(model.make_config(dtype="float32"),
+                                    device=device)
     s = stepping.run(cfg, grid, s, 3, ffn)        # warm-up
-    nsteps = 10
     torch.cuda.synchronize()
     with patched(sites, span), torch.profiler.profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -616,7 +671,7 @@ def profile(device):
     launches = sum(n for n, _ in kernels.values()) / nsteps
     busy = sum(t for _, t in kernels.values()) / nsteps
     check(launches > 0, "the profiler saw no device activity")
-    print(f"[profile] 10 float32 steps under torch.profiler: "
+    print(f"[{tag}] {nsteps} float32 {case} steps under torch.profiler: "
           f"{wall_ms:.3f} ms/step (profiler on), {launches:.1f} device "
           f"launches a step, device busy {busy:.3f} ms a step, idle "
           f"{100.0 * (1.0 - busy / wall_ms):.1f}%", flush=True)
@@ -625,13 +680,171 @@ def profile(device):
     shown = [kv for i, kv in enumerate(ranked)
              if i < 8 or "at::native" not in kv[0]]
     for kname, (n, tot) in shown:
-        print(f"[profile] device {tot / nsteps:8.4f} ms/step "
+        print(f"[{tag}] device {tot / nsteps:8.4f} ms/step "
               f"{n / nsteps:7.1f} launches/step  {kname[:90]}")
     stages = [(e.key, e.cpu_time_total / 1e3 / nsteps)
               for e in prof.key_averages()
               if e.key.startswith("stage:") and e.cpu_time_total > 0]
     for key, ms in sorted(stages, key=lambda kv: -kv[1]):
-        print(f"[profile] host {ms:8.3f} ms/step  {key[6:]}")
+        print(f"[{tag}] host {ms:8.3f} ms/step  {key[6:]}")
+
+
+def bench_developed(device):
+    """Full-size BENCHMARK1 in float64 and its state three plain steps
+    from rest: (cfg, grid, state, forcing_fn)."""
+    from roms_tpu_torch import stepping
+    from roms_tpu_torch.models import benchmark
+    cfg, grid, s, ffn = benchmark.build(benchmark.make_config(),
+                                        device=device)
+    s = stepping.run(cfg.replace(pallas2d=False), grid, s, 3, ffn)
+    return cfg, grid, s, ffn
+
+
+def bench_kernel_checks(results, device, s):
+    """Phase 7: every kernel against its plain version on the arguments
+    one BENCHMARK1 step from `s` gives it, f64 and f32; t3dmix2_geo also
+    with the salt at tnu2 = 0, which must come back bitwise unchanged."""
+    import torch
+    from roms_tpu_torch.models import benchmark
+    from roms_tpu_torch.ops import mix3d_cuda
+    from roms_tpu_torch.state import TENSOR_FIELDS
+
+    for dtype in ("float64", "float32"):
+        cfg, grid, _, ffn = benchmark.build(
+            benchmark.make_config(dtype=dtype), device=device)
+        state = s.replace(**{k: getattr(s, k).to(grid.h.dtype)
+                             for k in TENSOR_FIELDS})
+        calls = captured_calls(cfg, grid, state, ffn)
+        check(set(calls) == set(wrappers()),
+              f"the BENCHMARK1 step called {sorted(calls)}, not every "
+              "kernel")
+        cases = [(name, name, args, kw) for name, (args, kw) in
+                 calls.items()]
+        args, kw = calls["t3dmix2_geo"]
+        one = (args[0].replace(tnu2=(500.0, 0.0)),) + args[1:]
+        cases.append(("t3dmix2_geo[salt tnu2=0]", "t3dmix2_geo", one, kw))
+        check_variants("bench-kernel", grid, cases, dtype, results)
+        a = fresh(one)
+        salt_in = a[5][1].clone()
+        out = mix3d_cuda.t3dmix2_geo(*a, **kw)
+        same = torch.equal(out[1], salt_in)
+        print(f"[bench-kernel] t3dmix2_geo[salt tnu2=0] {dtype}: the salt's "
+              f"t_nnew bitwise unchanged: {same}", flush=True)
+        check(same, "t3dmix2_geo changed a tracer with tnu2 = 0")
+
+
+BENCH_FIELDS = ("zeta", "ubar", "vbar", "u", "v", "t", "Akv", "Akt",
+                "hsbl")
+
+
+def bench_equivalence(device, cfg, grid, s0, ffn):
+    """Phase 8: three float64 BENCHMARK1 steps from s0 with the kernels on
+    against cfg.pallas2d=False; returns the launch counts of the kernels-on
+    run."""
+    import torch
+    from roms_tpu_torch import stepping
+
+    table = {k: getattr(mod, attr) for k, (mod, attr, _) in
+             wrappers().items()}
+    nsteps = 3
+    for w in table.values():
+        w.launches = 0
+    s_on = stepping.run(cfg, grid, s0, nsteps, ffn)
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in table.items()}
+    s_off = stepping.run(cfg.replace(pallas2d=False), grid, s0, nsteps, ffn)
+    print(f"[bench-equiv] {nsteps} float64 BENCHMARK1 steps, kernels on: "
+          f"launches {launches}", flush=True)
+    check(all(n == nsteps for n in launches.values()),
+          f"a kernel did not launch once a step: {launches}")
+    worst = 0.0
+    for name in BENCH_FIELDS:
+        a, b = getattr(s_on, name), getattr(s_off, name)
+        err = float((a - b).abs().max())
+        tol = BENCH_EQUIV_RTOL * max(float(b.abs().max()), 1e-300)
+        finite = bool(torch.isfinite(a).all())
+        ok = finite and err <= tol
+        worst = max(worst, err / tol)
+        print(f"[bench-equiv] {name:5s}: |kernels on - off| = {err:.3e}, "
+              f"{err / tol * BENCH_EQUIV_RTOL:.3e} x max|field| (bound "
+              f"{BENCH_EQUIV_RTOL:g}) finite={finite} "
+              f"{'OK' if ok else 'FAIL'}", flush=True)
+        check(ok, f"BENCHMARK1 {name}: kernels on and off disagree")
+    return launches
+
+
+def fixture_script():
+    """scripts/torch_benchmark_fixture.py as a module: its CASE, NSTEPS
+    and errors() (importing it imports no jax)."""
+    import importlib.util
+    path = os.path.join(ROOT, "scripts", "torch_benchmark_fixture.py")
+    spec = importlib.util.spec_from_file_location("torch_benchmark_fixture",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def bench_fixture(device):
+    """Phase 9: the small BENCHMARK with the kernels on against the
+    fixture, at CARD_FACTOR times the CPU test's bounds."""
+    import numpy as np
+    from roms_tpu_torch import stepping
+    from roms_tpu_torch.models import benchmark
+
+    fx = fixture_script()
+    ref = np.load(BENCH_FIXTURE)
+    cfg, grid, s0, ffn = benchmark.build(benchmark.make_config(**fx.CASE),
+                                         device=device)
+    s = stepping.run(cfg, grid, s0, fx.NSTEPS, ffn)
+    errors = fx.errors(cfg, s0, s, ref, factor=CARD_FACTOR)
+    for key, (err, lim) in sorted(errors.items(), key=lambda kv: kv[0]):
+        print(f"[bench-fixture] {key:16s} {err:.3e} x max|field| (bound "
+              f"{lim:g}) {'OK' if err <= lim else 'FAIL'}")
+    bad = {k: e for k, e in errors.items() if not e[0] <= e[1]}
+    check(not bad, f"the small BENCHMARK misses its fixture: {bad}")
+
+
+def bench_long_run(device, name):
+    """Phase 10: BENCH_STEPS float32 BENCHMARK1 steps with the kernels on;
+    returns the launch counts of the run."""
+    import torch
+    from roms_tpu_torch import stepping
+    from roms_tpu_torch.models import benchmark
+
+    cfg, grid, s, ffn = benchmark.build(
+        benchmark.make_config(dtype="float32"), device=device)
+    s = stepping.run(cfg, grid, s, 2, ffn)       # warm-up
+    table = {k: getattr(mod, attr) for k, (mod, attr, _) in
+             wrappers().items()}
+    for w in table.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s = stepping.run(cfg, grid, s, BENCH_STEPS, ffn)
+    torch.cuda.synchronize()
+    ms_step = (time.perf_counter() - t0) * 1000.0 / BENCH_STEPS
+    launches = {k: w.launches for k, w in table.items()}
+    finite = all(bool(torch.isfinite(getattr(s, k)).all())
+                 for k in BENCH_FIELDS)
+    umax = float(interior(cfg, s.u).abs().max())
+    fmax = float(grid.f.max())
+    usurf = float(interior(cfg, s.u[-1]).mean())
+    pts = cfg.Lm * cfg.Mm * cfg.N
+    hours = (BENCH_STEPS + 2) * cfg.dt / 3600.0
+    print(f"[bench-run] {BENCH_STEPS} float32 BENCHMARK1 steps ({hours:.1f} "
+          f"model hours): {ms_step:.3f} ms/step on {name}, "
+          f"{pts / ms_step * 1e3:.4e} grid-points/s; finite={finite} "
+          f"umax {umax:.3f} m/s, max f {fmax:.3e}, mean surface u "
+          f"{usurf:.3e} m/s; launches {launches}", flush=True)
+    check(finite, "non-finite fields in the BENCHMARK1 run")
+    check(umax < 2.0, f"BENCHMARK1 umax {umax} m/s")
+    check(fmax < 0.0, "Coriolis not negative everywhere")
+    check(usurf > 0.0, "the wind jet did not drive an eastward current")
+    check(all(n == BENCH_STEPS for n in launches.values()),
+          f"a kernel of the BENCHMARK1 path did not launch once a step: "
+          f"{launches}")
+    return launches
 
 
 def main() -> int:
@@ -653,9 +866,10 @@ def main() -> int:
         print(f"chip_smoke: roms_tpu_torch is not importable beside this "
               f"script ({exc})", file=sys.stderr)
         return 2
-    if not os.path.exists(ANCHOR):
-        print(f"chip_smoke: missing {ANCHOR}", file=sys.stderr)
-        return 2
+    for path in (ANCHOR, BENCH_FIXTURE):
+        if not os.path.exists(path):
+            print(f"chip_smoke: missing {path}", file=sys.stderr)
+            return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda:0")
@@ -679,15 +893,23 @@ def main() -> int:
 
         results = {}
         kernel_checks(results, device)
-        launches = main_path(device)
+        main_path(device)
         long_run(device, name)
         profile(device)
+        bench = {}
+        cfg64, grid64, s64, ffn = bench_developed(device)
+        bench_kernel_checks(bench, device, s64)
+        bench_equivalence(device, cfg64, grid64, s64, ffn)
+        del cfg64, grid64, s64
+        bench_fixture(device)
+        launches = bench_long_run(device, name)
+        profile(device, "benchmark")
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
     kernels = []
     for k, (src, rep, _) in KERNELS.items():
-        r = results[k]["float64"]
+        r = bench[k]["float32"]
         kernels.append({"name": k, "route": "cuda", "source": src,
                         "replaces": rep, "launches": launches[k],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],

@@ -142,6 +142,190 @@ __device__ void uv3dmix2_column(const MixParams& P, const MixPtrs<T>& A,
   A.rfrc[d][p] = A.rfrc[d][p] + sum;
 }
 
+// ---------------------------------------------------------------------------
+// Harmonic tracer diffusion rotated to geopotential surfaces, t3dmix2_geo
+// (t3dmix2_geo.h), for one padded (j,i) point and tracer per thread,
+// looping over k upwards.
+//
+// Replaces the TPU kernel roms_tpu/ops/mix3d_pallas.py::t3dmix2_geo_fused.
+// Like it, the kernel adds into t_nnew in place (the Pallas kernel donates
+// it), and recomputes on_u and om_v from pn and pm (its _grid_lite).
+// Bound on the H100: bandwidth.  It must read t, Hz, z_r and t_nnew (4
+// (N,Ny,Nx) planes a tracer, Hz and z_r shared), pm and pn, and write
+// t_nnew: ~35 MB for BENCHMARK1's two tracers in float32, ~0.010 ms.
+// Design: thread (p, y) owns padded point p and the y-th tracer with
+// tnu2 != 0 (the others are not touched).  The triad fluxes of the port's
+// ops/mix3d.py::_triad_fluxes_geo are recomputed where the thread needs
+// them rather than staged through device memory: FX at its two xi faces
+// and FE at its two eta faces of each level, and FS at the interface above
+// the level; FS at the interface below is carried from the level under it
+// as a rolling value, and is 0 at the bottom and top interfaces.
+// Neighbours wrap modulo the padded extent, as torch.roll does, so every
+// padded point is computed, halo included.  Each expression keeps the
+// plain version's operation order.
+struct GeoParams {
+  Geom g;
+  int N, ntr;
+  int itrc[kMaxTr];     // tracer index of each blockIdx.y
+  double c_h[kMaxTr];   // 0.25 * (2 tnu2): the FX/FE coefficient
+  double c_s[kMaxTr];   // 0.5 tnu2: the FS coefficient
+  double dt;
+};
+
+template <typename T>
+struct GeoPtrs {
+  const T *t, *Hz, *z_r, *pm, *pn;
+  T* t_nnew;   // read and written in place
+};
+
+// One tracer's fields and the stencil pieces of _triad_fluxes_geo.
+template <typename T>
+struct Geo {
+  const Geom& g;
+  int S, N;
+  const T *q, *Hz, *z_r, *pm, *pn;
+
+  __device__ __forceinline__ int at(int j, int i) const {
+    return at_ji(g, j, i);
+  }
+  // dZdx, dTdx at u point (j, i) of level k: 0.5 (pm + pm[i-1]) * diff
+  __device__ __forceinline__ T cffu(int j, int i) const {
+    return T(0.5) * (pm[at(j, i)] + pm[at(j, i - 1)]);
+  }
+  __device__ __forceinline__ T cffv(int j, int i) const {
+    return T(0.5) * (pn[at(j, i)] + pn[at(j - 1, i)]);
+  }
+  __device__ __forceinline__ T dZdx(int k, int j, int i) const {
+    const int o = k * S;
+    return cffu(j, i) * (z_r[o + at(j, i)] - z_r[o + at(j, i - 1)]);
+  }
+  __device__ __forceinline__ T dTdx(int k, int j, int i) const {
+    const int o = k * S;
+    return cffu(j, i) * (q[o + at(j, i)] - q[o + at(j, i - 1)]);
+  }
+  __device__ __forceinline__ T dZde(int k, int j, int i) const {
+    const int o = k * S;
+    return cffv(j, i) * (z_r[o + at(j, i)] - z_r[o + at(j - 1, i)]);
+  }
+  __device__ __forceinline__ T dTde(int k, int j, int i) const {
+    const int o = k * S;
+    return cffv(j, i) * (q[o + at(j, i)] - q[o + at(j - 1, i)]);
+  }
+  // dT/dz at interface kw (0 at kw = 0 and kw = N)
+  __device__ __forceinline__ T dTdz(int kw, int j, int i) const {
+    if (kw <= 0 || kw >= N) return T(0);
+    const int q1 = kw * S + at(j, i);
+    const int q0 = q1 - S;
+    return (q[q1] - q[q0]) / (z_r[q1] - z_r[q0]);
+  }
+  // FX at u point (j, i) of level k, without its coefficient c_h
+  __device__ T FX(T c_h, int k, int j, int i) const {
+    const T dz = dZdx(k, j, i);
+    const T m = fmin(dz, T(0));
+    const T pp = fmax(dz, T(0));
+    const T on_u = T(1) / (pn[at(j, i - 1)] + pn[at(j, i)]) * T(2);
+    const int o = k * S;
+    const T cfx = c_h * on_u * (Hz[o + at(j, i)] + Hz[o + at(j, i - 1)]);
+    return cfx * (dTdx(k, j, i) -
+                  T(0.5) * (m * (dTdz(k, j, i - 1) + dTdz(k + 1, j, i)) +
+                            pp * (dTdz(k + 1, j, i - 1) + dTdz(k, j, i))));
+  }
+  __device__ T FE(T c_h, int k, int j, int i) const {
+    const T dz = dZde(k, j, i);
+    const T m = fmin(dz, T(0));
+    const T pp = fmax(dz, T(0));
+    const T om_v = T(1) / (pm[at(j - 1, i)] + pm[at(j, i)]) * T(2);
+    const int o = k * S;
+    const T cfe = c_h * om_v * (Hz[o + at(j, i)] + Hz[o + at(j - 1, i)]);
+    return cfe * (dTde(k, j, i) -
+                  T(0.5) * (m * (dTdz(k, j - 1, i) + dTdz(k + 1, j, i)) +
+                            pp * (dTdz(k + 1, j - 1, i) + dTdz(k, j, i))));
+  }
+  // FS at interior interface kw (1..N-1) of rho point (j, i)
+  __device__ T FS(T c_s, int kw, int j, int i) const {
+    const int kd = kw - 1;
+    const T dtz = dTdz(kw, j, i);
+    const T c1 = fmin(dZdx(kd, j, i), T(0));
+    const T c2 = fmin(dZdx(kw, j, i + 1), T(0));
+    const T c3 = fmax(dZdx(kw, j, i), T(0));
+    const T c4 = fmax(dZdx(kd, j, i + 1), T(0));
+    const T sx = c1 * (c1 * dtz - dTdx(kd, j, i)) +
+                 c2 * (c2 * dtz - dTdx(kw, j, i + 1)) +
+                 c3 * (c3 * dtz - dTdx(kw, j, i)) +
+                 c4 * (c4 * dtz - dTdx(kd, j, i + 1));
+    const T e1 = fmin(dZde(kd, j, i), T(0));
+    const T e2 = fmin(dZde(kw, j + 1, i), T(0));
+    const T e3 = fmax(dZde(kw, j, i), T(0));
+    const T e4 = fmax(dZde(kd, j + 1, i), T(0));
+    const T se = e1 * (e1 * dtz - dTde(kd, j, i)) +
+                 e2 * (e2 * dtz - dTde(kw, j + 1, i)) +
+                 e3 * (e3 * dtz - dTde(kw, j, i)) +
+                 e4 * (e4 * dtz - dTde(kd, j + 1, i));
+    return c_s * sx + c_s * se;
+  }
+};
+
+template <typename T>
+__device__ void t3dmix2_geo_column(const GeoParams& P, const GeoPtrs<T>& A,
+                                   int p, int y) {
+  const Geom& g = P.g;
+  const int S = g.Ny * g.Nx;
+  const int j = p / g.Nx;
+  const int i = p - j * g.Nx;
+  const int N = P.N;
+  const size_t plane = static_cast<size_t>(N) * S;
+  const int itrc = P.itrc[y];
+  const Geo<T> G{g, S, N, A.t + itrc * plane, A.Hz, A.z_r, A.pm, A.pn};
+  T* tn = A.t_nnew + itrc * plane;
+  const T c_h = T(P.c_h[y]);
+  const T c_s = T(P.c_s[y]);
+  const T dt = T(P.dt);
+  const T pmn = A.pm[p] * A.pn[p];
+  T FS_lo = T(0);
+  for (int k = 0; k < N; ++k) {
+    const T FS_hi = k + 1 < N ? G.FS(c_s, k + 1, j, i) : T(0);
+    const T dx = G.FX(c_h, k, j, i + 1) - G.FX(c_h, k, j, i);
+    const T de = G.FE(c_h, k, j + 1, i) - G.FE(c_h, k, j, i);
+    const T div = pmn * (dx + de) + (FS_hi - FS_lo);
+    tn[k * S + p] = tn[k * S + p] + dt * div;
+    FS_lo = FS_hi;
+  }
+}
+
+// the caller has checked 1 <= ip[8] <= kMaxTr
+inline GeoParams geo_params(const int* ip, const double* dp) {
+  GeoParams P;
+  int n = 0;
+  P.N = ip[n++];
+  P.g.Ny = ip[n++];
+  P.g.Nx = ip[n++];
+  P.g.H = ip[n++];
+  P.g.L = ip[n++];
+  P.g.M = ip[n++];
+  P.g.ew_per = ip[n++];
+  P.g.ns_per = ip[n++];
+  P.ntr = ip[n++];
+  P.dt = dp[0];
+  for (int y = 0; y < P.ntr; ++y) {
+    P.itrc[y] = ip[n++];
+    P.c_h[y] = dp[1 + 2 * y];
+    P.c_s[y] = dp[2 + 2 * y];
+  }
+  return P;
+}
+
+template <typename T>
+GeoPtrs<T> geo_ptrs(void* const* ptr) {
+  GeoPtrs<T> A;
+  A.t = static_cast<const T*>(ptr[0]);
+  A.Hz = static_cast<const T*>(ptr[1]);
+  A.z_r = static_cast<const T*>(ptr[2]);
+  A.pm = static_cast<const T*>(ptr[3]);
+  A.pn = static_cast<const T*>(ptr[4]);
+  A.t_nnew = static_cast<T*>(ptr[5]);
+  return A;
+}
+
 inline MixParams mix_params(const int* ip, const double* dp) {
   MixParams P;
   int n = 0;

@@ -1,4 +1,4 @@
-"""Grid container and the analytic Cartesian grid builder.
+"""Grid container and the analytic Cartesian and spherical grid builders.
 
 Counterpart of ``roms_tpu/grid.py``.  Grids are built in float64 numpy at
 set-up time (the fast-filter weights with longdouble sums, as the reference's
@@ -253,6 +253,38 @@ def build_grid(
 
     return _assemble(cfg, h, f, pm, pn, xr, yr, rmask, umask, vmask, pmask,
                      device)
+
+
+def build_spherical_grid(
+    cfg: Config,
+    lon_size: float,
+    lat_min: float,
+    lat_size: float,
+    depth_fn: Callable,   # (lonr, latr, i, j, cfg) -> h  (numpy, padded)
+    device: torch.device | str = torch.device("cuda"),
+):
+    """Spherical strip grid (the BENCHMARK path, ana_grid.h:460-479,
+    676-686): lonr = dx*(i-0.5), latr = lat_min + dy*(j-0.5);
+    pm = Lm/(2 pi Eradius cos(lat)), pn = Mm*360/(2 pi Eradius lat_size);
+    f = 2 Omega sin(lat) with the sidereal Omega (ana_grid.h:867-872).
+    All points wet.  Returns (grid, cfg) with hmin and nfast set."""
+    dx = lon_size / cfg.Lm
+    dy = lat_size / cfg.Mm
+    i, j = _padded_index_grids(cfg)
+    lonr = dx * (i - 0.5)
+    latr = lat_min + dy * (j - 0.5)
+    val1 = cfg.Lm / (2.0 * np.pi * C.Eradius)
+    val2 = cfg.Mm * 360.0 / (2.0 * np.pi * C.Eradius * lat_size)
+    pm = val1 / np.cos(latr * C.deg2rad)
+    pn = np.full_like(latr, val2)
+    f = C.omega_benchmark * np.sin(latr * C.deg2rad)
+
+    h = np.asarray(depth_fn(lonr, latr, i, j, cfg), dtype=np.float64)
+    for a in (h, f, pm, pn):
+        a[...] = _fill_periodic(cfg, a)
+    rmask = np.ones_like(h)
+    return _assemble(cfg, h, f, pm, pn, lonr, latr, rmask, rmask.copy(),
+                     rmask.copy(), rmask.copy(), device)
 
 
 def torch_dtype(cfg: Config) -> torch.dtype:

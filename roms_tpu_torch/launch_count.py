@@ -1,10 +1,14 @@
-"""Count the device launches one UPWELLING step of roms_tpu_torch makes on a
-card, from a CPU run: the step's aten operations under a TorchDispatchMode,
-less views and other operations that launch nothing, plus one launch for
-each kernel-wrapper call (whose plain version then runs uncounted).  The
+"""Count the device launches one step of roms_tpu_torch makes on a card,
+from a CPU run: the step's aten operations under a TorchDispatchMode, less
+views and other operations that launch nothing, plus one launch for each
+kernel-wrapper call (whose plain version then runs uncounted).  The
 momentum phase takes the chain it takes on the card.
 
-    python roms_tpu_torch/launch_count.py [--root CHECKOUT]
+    python roms_tpu_torch/launch_count.py [--case upwelling|benchmark]
+                                          [--root CHECKOUT]
+
+--case benchmark counts a BENCHMARK1 step at 64x32 instead of 512x64 (the
+count depends on N, not on the horizontal size), float32 as on the card.
 
 --root counts the roms_tpu_torch of another checkout (an older tree has
 fewer kernel wrappers; the ones it lacks are skipped).  Prints the count
@@ -33,19 +37,23 @@ WRAPPERS = {
     "prsgrd_cuda": ("prsgrd32",),
     "step3d_cuda": ("tracer_predictor", "uv_corrector", "tracer_corrector"),
     "rhs3d_cuda": ("rhs3d",),
-    "mix3d_cuda": ("uv3dmix2",),
+    "mix3d_cuda": ("uv3dmix2", "t3dmix2_geo"),
 }
 # plain stages the step calls by name, counted op by op
 STAGES = {"stepping": ("set_vbc", "momentum_init", "rhs3d_momentum",
-                       "uv3dmix2", "t3dmix2"),
+                       "uv3dmix2", "t3dmix2", "bulk_flux", "lmd_vmix",
+                       "swfrac"),
           "vgrid": ("set_depth",)}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--case", choices=("upwelling", "benchmark"),
+                    default="upwelling")
     ap.add_argument("--root", default=os.path.dirname(
         os.path.dirname(os.path.abspath(__file__))))
-    root = ap.parse_args().root
+    args = ap.parse_args()
+    root = args.root
     sys.path.insert(0, root)
     import torch
     from torch.utils._python_dispatch import (TorchDispatchMode,
@@ -82,6 +90,8 @@ def main() -> int:
         except ImportError:
             continue
         for name in names:
+            if not hasattr(mod, name):
+                continue
             plain = getattr(mod, name + "_plain")
             setattr(mod, name, span(name, plain, True))
         if mod_name == "rhs3d_cuda":
@@ -93,8 +103,14 @@ def main() -> int:
             if hasattr(mod, name):
                 setattr(mod, name, span(name, getattr(mod, name), False))
 
-    cfg, grid, s, ffn = upwelling.build(
-        upwelling.make_config(dtype="float32"), device="cpu")
+    if args.case == "benchmark":
+        from roms_tpu_torch.models import benchmark
+        cfg, grid, s, ffn = benchmark.build(
+            benchmark.make_config(Lm=64, Mm=32, dtype="float32"),
+            device="cpu")
+    else:
+        cfg, grid, s, ffn = upwelling.build(
+            upwelling.make_config(dtype="float32"), device="cpu")
     s = stepping.run(cfg, grid, s, 3, ffn)
     counts.clear()
     with Count():

@@ -36,7 +36,7 @@ NVCC_FLAGS = _ARCH + ("-std=c++17", "-O3", "--fmad=false", "-Xptxas", "-v",
 _ENTRY_POINTS = ("roms_grid_flux", "roms_omega", "roms_eos",
                  "roms_fast_loop", "roms_prsgrd32", "roms_tracer_predictor",
                  "roms_tracer_corrector", "roms_uv_corrector", "roms_rhs3d",
-                 "roms_uv3dmix2")
+                 "roms_uv3dmix2", "roms_t3dmix2_geo")
 
 
 def _nvcc() -> str:

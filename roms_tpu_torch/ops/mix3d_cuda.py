@@ -1,13 +1,19 @@
-"""The harmonic viscosity uv3dmix2: its CUDA kernel and its plain version.
+"""The horizontal mixing kernels and their plain versions.
 
-Replaces the TPU kernel roms_tpu/ops/mix3d_pallas.py::uv3dmix2_fused.
-``uv3dmix2_plain`` is the port's ops/mix3d.py::uv3dmix2.  ``uv3dmix2``
-takes it for CPU tensors only; for CUDA tensors it launches the kernel of
-csrc/mix3d.cu, both directions in one launch, or raises.  On the card the
-kernel adds into u_nnew, v_nnew, rufrc and rvfrc in place and returns
-them, as the Pallas kernel donates them: a caller does not read those
+uv3dmix2    - harmonic viscosity along s-surfaces.  Replaces the TPU kernel
+              roms_tpu/ops/mix3d_pallas.py::uv3dmix2_fused; its plain
+              version is the port's ops/mix3d.py::uv3dmix2.
+t3dmix2_geo - harmonic tracer diffusion rotated to geopotential surfaces.
+              Replaces mix3d_pallas.t3dmix2_geo_fused; its plain version
+              is ops/mix3d.py::t3dmix2_geo.
+
+Each wrapper takes its plain version for CPU tensors only; for CUDA tensors
+it launches its kernel of csrc/mix3d.cu, one launch for both directions or
+for every tracer with tnu2 != 0, or raises.  On the card the kernels add
+into their outputs in place and return them, as the Pallas kernels donate
+them (u_nnew, v_nnew, rufrc, rvfrc; t_nnew): a caller does not read those
 inputs again, and they must not alias each other or the other arguments.
-``uv3dmix2.launches`` counts kernel launches.
+``wrapper.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -17,7 +23,10 @@ import torch
 from ..config import Config
 from ..grid import Grid
 from ._kernels import check_tensors, column_ints, launch, on_card
+from .mix3d import t3dmix2_geo as t3dmix2_geo_plain
 from .mix3d import uv3dmix2 as uv3dmix2_plain
+
+MAX_TRACERS = 16                 # csrc/column.cuh kMaxTr
 
 
 def supported(cfg: Config) -> bool:
@@ -27,8 +36,8 @@ def supported(cfg: Config) -> bool:
 
 
 def use_kernels(cfg: Config) -> bool:
-    """The kernel's gate (mix3d_pallas.use_pallas without its environment
-    switches)."""
+    """The gate of both kernels (mix3d_pallas.use_pallas without its
+    environment switches, which the JAX step asks for both)."""
     return cfg.pallas2d and supported(cfg)
 
 
@@ -62,3 +71,41 @@ def uv3dmix2(cfg: Config, grid: Grid, u, v, Hz, u_nnew, v_nnew, rufrc,
 
 
 uv3dmix2.launches = 0
+
+
+def t3dmix2_geo(cfg: Config, grid: Grid, t, Hz, z_r, t_nnew, dt: float):
+    """Returns the updated t_nnew (NT,N,Ny,Nx); tracers with tnu2 = 0 are
+    left as they are."""
+    if not on_card(t):
+        return t3dmix2_geo_plain(cfg, grid, t, Hz, z_r, t_nnew, dt)
+    if not supported(cfg):
+        raise ValueError("t3dmix2_geo kernel: the sponge is not in it")
+    ints = column_ints(cfg, "t3dmix2_geo")
+    nt = cfg.ntracers
+    active = [k for k in range(nt)
+              if k < len(cfg.tnu2) and cfg.tnu2[k] != 0.0]
+    if len(active) > MAX_TRACERS:
+        raise ValueError(f"t3dmix2_geo kernel: {len(active)} mixed tracers, "
+                         f"more than {MAX_TRACERS}")
+    s2 = (cfg.ny_tot, cfg.nx_tot)
+    s3 = (cfg.N,) + s2
+    ins = dict(t=t, Hz=Hz, z_r=z_r, pm=grid.pm, pn=grid.pn, t_nnew=t_nnew)
+    shapes = dict(t=(nt,) + s3, Hz=s3, z_r=s3, pm=s2, pn=s2,
+                  t_nnew=(nt,) + s3)
+    f64 = check_tensors(ins, shapes, t.dtype, t.device)
+    reads = {x.data_ptr() for x in (t, Hz, z_r, grid.pm, grid.pn)}
+    if t_nnew.data_ptr() in reads:
+        raise ValueError("t3dmix2_geo kernel updates t_nnew in place: it "
+                         "must not alias its other arguments")
+    if not active:
+        return t_nnew
+    coefs = [c for k in active
+             for c in (0.25 * (2.0 * cfg.tnu2[k]), 0.5 * cfg.tnu2[k])]
+    launch("roms_t3dmix2_geo", f64, list(ins.values()),
+           ints + [len(active)] + active, [dt] + coefs,
+           torch.cuda.current_stream(t.device))
+    t3dmix2_geo.launches += 1
+    return t_nnew
+
+
+t3dmix2_geo.launches = 0

@@ -3,10 +3,12 @@ main3d.F:183-868).
 
 One call advances the State by one slow step, the nfast-substep barotropic
 loop included, in main3d's order.  Ported here: the branches the UPWELLING
-configuration takes (analytic surface stress, linear or quadratic drag,
-constant mixing coefficients, prsgrd32, U3/C4/SPLINES advection, harmonic
-viscosity and diffusion).  Every other branch raises NotImplementedError
-naming the missing feature.
+and BENCHMARK configurations take (analytic surface stress or COARE bulk
+fluxes from an analytic atmosphere, linear or quadratic drag, constant
+mixing coefficients or the KPP surface layer, prsgrd32, U3/C4/SPLINES
+advection, harmonic viscosity, harmonic tracer diffusion along s-surfaces
+or rotated to geopotential surfaces).  Every other branch raises
+NotImplementedError naming the missing feature.
 
 Kernels: with ``cfg.pallas2d`` true (the default), the kernel stages go
 through their wrappers (ops/diag_cuda.py, prsgrd_cuda.py, rhs3d_cuda.py,
@@ -15,9 +17,11 @@ dispatch: where ``rhs3d_cuda.use_kernels`` holds (as the JAX gate
 ``rhs3d_pallas.use_pallas``), the momentum phase is one
 ``rhs3d_cuda.momentum_rhs`` call (prsgrd32, rhs3d with the momentum start,
 uv3dmix2); otherwise its stages run one by one, uv3dmix2 as kernel or
-plain by ``mix3d_cuda.use_kernels``.  The wrappers launch the CUDA kernels
-for CUDA tensors and take the plain versions for CPU tensors.
-``cfg.pallas2d=False`` runs the plain versions on any device.
+plain by ``mix3d_cuda.use_kernels``, which also sends the geopotential
+tracer diffusion to ``mix3d_cuda.t3dmix2_geo`` or its plain version.  The
+wrappers launch the CUDA kernels for CUDA tensors and take the plain
+versions for CPU tensors.  ``cfg.pallas2d=False`` runs the plain versions
+on any device.
 """
 
 from __future__ import annotations
@@ -32,13 +36,18 @@ from .state import State
 from . import vgrid
 from .ops import diag_cuda, mix3d_cuda, prsgrd, prsgrd_cuda, rhs3d_cuda, \
     step2d_cuda, step3d_cuda
+from .ops.bulk_flux import bulk_flux
 from .ops.mix3d import t3dmix2
+from .ops.vmix import lmd_vmix, swfrac
 from .ops.pre_step3d import ab3_start_coefs, momentum_init
 from .ops.rhs3d import rhs3d_momentum
 from .ops.step2d import Fast2DState
 from .ops.vbc import set_vbc
 
 _FORCING_KEYS = {"sustr", "svstr", "stflux", "btflux"}
+# the analytic atmosphere that feeds the bulk fluxes (cfg.bulk_fluxes)
+_BULK_KEYS = {"Uwind", "Vwind", "Tair", "Pair", "Hair", "cloud", "rain",
+              "srflx", "btflux"}
 
 
 def _check_slice(cfg: Config, grid: Grid, frc: dict, collect_diags: bool):
@@ -47,8 +56,6 @@ def _check_slice(cfg: Config, grid: Grid, frc: dict, collect_diags: bool):
     missing = []
     if collect_diags:
         missing.append("budget diagnostics (collect_diags)")
-    if cfg.bulk_fluxes:
-        missing.append("COARE bulk fluxes (BULK_FLUXES)")
     if grid.zice is not None:
         missing.append("ice shelf (ICESHELF)")
     if cfg.sediment or cfg.sed_params is not None:
@@ -57,13 +64,16 @@ def _check_slice(cfg: Config, grid: Grid, frc: dict, collect_diags: bool):
         missing.append(f"nearshore radiation stress ({cfg.nearshore})")
     if cfg.bbl is not None:
         missing.append(f"bottom boundary layer ({cfg.bbl})")
-    if cfg.vmix is not None:
+    if cfg.vmix not in (None, "kpp"):
         missing.append(f"vertical mixing closure ({cfg.vmix})")
+    if cfg.vmix == "kpp" and cfg.kpp_bottom:
+        missing.append("KPP bottom boundary layer (LMD_BKPP)")
+    if cfg.vmix == "kpp" and cfg.lmd_ddmix and cfg.ntracers >= 2:
+        missing.append("KPP double-diffusive mixing (LMD_DDMIX)")
     if cfg.tide_gen_forces:
         missing.append("tide-generating forces")
-    if any(x != 0.0 for x in cfg.tnu2) and (cfg.ts_mix_iso
-                                            or cfg.ts_mix_geo):
-        missing.append("rotated harmonic tracer mixing (MIX_ISO/GEO_TS)")
+    if any(x != 0.0 for x in cfg.tnu2) and cfg.ts_mix_iso:
+        missing.append("isopycnal harmonic tracer mixing (MIX_ISO_TS)")
     if cfg.ts_dif4 and any(x != 0.0 for x in cfg.tnu4):
         missing.append("biharmonic tracer mixing (TS_DIF4)")
     if cfg.uv_vis4 and cfg.visc4 != 0.0:
@@ -77,7 +87,7 @@ def _check_slice(cfg: Config, grid: Grid, frc: dict, collect_diags: bool):
     if not step2d_cuda.supported(cfg):
         missing.append("the general fast loop (wetting-drying, volume "
                        "conservation, open boundaries, other BC kinds)")
-    extra = set(frc) - _FORCING_KEYS
+    extra = set(frc) - (_BULK_KEYS if cfg.bulk_fluxes else _FORCING_KEYS)
     if extra:
         missing.append(f"forcing fields {sorted(extra)}")
     if missing:
@@ -89,18 +99,36 @@ def step(cfg: Config, grid: Grid, state: State,
          collect_diags: bool = False) -> State:
     """One slow (baroclinic) step.  forcing_fn(cfg, grid, time) returns a
     dict with sustr, svstr (kinematic wind stress, m2/s2) and stflux,
-    btflux ((NT,Ny,Nx) surface/bottom tracer fluxes)."""
+    btflux ((NT,Ny,Nx) surface/bottom tracer fluxes); with cfg.bulk_fluxes
+    it returns the atmosphere instead (Uwind, Vwind, Tair, Pair, Hair,
+    cloud, rain, srflx), from which the COARE fluxes give the stress and
+    the surface heat flux."""
     frc = forcing_fn(cfg, grid, state.time) if forcing_fn is not None else {}
     _check_slice(cfg, grid, frc, collect_diags)
     hc = hc_of(cfg)
     iic = state.iic
     zero2 = torch.zeros_like(state.zeta)
     nt = max(cfg.ntracers, 1)
-    sustr = frc.get("sustr", zero2)
-    svstr = frc.get("svstr", zero2)
-    stflux = frc.get("stflux", torch.zeros((nt,) + zero2.shape,
-                                           dtype=zero2.dtype,
-                                           device=zero2.device))
+    zero_nt = torch.zeros((nt,) + zero2.shape, dtype=zero2.dtype,
+                          device=zero2.device)
+    srflx = None
+    if cfg.bulk_fluxes:
+        # COARE air-sea fluxes from the atmosphere and the SST
+        # (main3d.F:386)
+        srflx = frc.get("srflx", zero2)
+        blk = bulk_flux(
+            cfg, grid, state.t[0, -1], srflx,
+            frc.get("Uwind", zero2), frc.get("Vwind", zero2),
+            frc.get("Tair", zero2), frc.get("Pair", zero2 + 1013.0),
+            frc.get("Hair", zero2), frc.get("cloud", zero2),
+            frc.get("rain", zero2))
+        sustr = blk["sustr"]
+        svstr = blk["svstr"]
+        stflux = torch.cat([blk["stflux_temp"][None], zero_nt[1:]], dim=0)
+    else:
+        sustr = frc.get("sustr", zero2)
+        svstr = frc.get("svstr", zero2)
+        stflux = frc.get("stflux", zero_nt)
     btflux = frc.get("btflux", torch.zeros_like(stflux))
 
     # --- vertical grid, mass fluxes and omega at time n (main3d.F:307,474)
@@ -110,13 +138,27 @@ def step(cfg: Config, grid: Grid, state: State,
     rho_eos = diag_cuda.eos if kernels else diag_cuda.eos_plain
     z_r, z_w, Hz, Huon, Hvom, W = grid_flux(cfg, grid, state.zeta, state.u,
                                             state.v, hc)
-    rho, pden = rho_eos(cfg, state.t, z_r, z_w, want_bvf=False)
+    kpp = cfg.vmix == "kpp"
+    rho, pden, *bvf = rho_eos(cfg, state.t, z_r, z_w, want_bvf=kpp)
 
     # --- surface/bottom fluxes (main3d.F:386-396) ---
     bustr, bvstr, stflx, btflx = set_vbc(cfg, grid, state.u, state.v,
                                          state.t, stflux, btflux)
-    # constant background mixing coefficients (vmix None)
-    Akv, Akt = state.Akv, state.Akt
+
+    # --- vertical mixing coefficients (main3d.F:465-469): KPP, or the
+    #     constant background values (vmix None) ---
+    hsbl, hbbl = state.hsbl, state.hbbl
+    ghats = swdk_w = None
+    if kpp:
+        Akv, Akt, hsbl, hbbl, ghats = lmd_vmix(
+            cfg, grid, state.u, state.v, state.t, rho, pden, bvf[0], Hz,
+            z_r, z_w, sustr, svstr, bustr, bvstr, stflx,
+            srflx if srflx is not None else zero2, hsbl, btflx=btflx,
+            hbbl_prev=hbbl)
+        if srflx is not None:
+            swdk_w = swfrac(z_w[-1][None] - z_w)
+    else:
+        Akv, Akt = state.Akv, state.Akt
 
     # --- rhs3d phase (main3d.F:563): pre_step3d, prsgrd, t3dmix, rhs,
     #     uv3dmix ---
@@ -124,7 +166,8 @@ def step(cfg: Config, grid: Grid, state: State,
     tracer_predictor = step3d_cuda.tracer_predictor if tr_kernels \
         else step3d_cuda.tracer_predictor_plain
     t3, t_nnew = tracer_predictor(cfg, grid, iic, state.t, state.t_prev, Hz,
-                                  Huon, Hvom, W, Akt, stflx, btflx)
+                                  Huon, Hvom, W, Akt, stflx, btflx,
+                                  srflx=srflx, ghats=ghats, swdk_w=swdk_w)
     if rhs3d_cuda.use_kernels(cfg):
         # momentum_init -> prsgrd32 -> rhs3d -> uv3dmix2 as one phase
         u_nnew, v_nnew, ru, rv, rufrc, rvfrc = rhs3d_cuda.momentum_rhs(
@@ -150,7 +193,13 @@ def step(cfg: Config, grid: Grid, state: State,
                 cfg, grid, state.u, state.v, Hz, u_nnew, v_nnew, rufrc,
                 rvfrc, cfg.dt)
     if any(x != 0.0 for x in cfg.tnu2):
-        t_nnew = t3dmix2(cfg, grid, state.t, Hz, t_nnew, cfg.dt)
+        if cfg.ts_mix_geo:
+            t3dmix2_geo = mix3d_cuda.t3dmix2_geo \
+                if mix3d_cuda.use_kernels(cfg) \
+                else mix3d_cuda.t3dmix2_geo_plain
+            t_nnew = t3dmix2_geo(cfg, grid, state.t, Hz, z_r, t_nnew, cfg.dt)
+        else:
+            t_nnew = t3dmix2(cfg, grid, state.t, Hz, t_nnew, cfg.dt)
 
     # --- fast barotropic loop (main3d.F:592-713).  Every field is its own
     #     tensor: the kernel updates them in place ---
@@ -201,7 +250,7 @@ def step(cfg: Config, grid: Grid, state: State,
         rufrc0_prev=rufrc_c, rufrc0_prev2=state.rufrc0_prev,
         rvfrc0_prev=rvfrc_c, rvfrc0_prev2=state.rvfrc0_prev,
         rzeta=fs.rzeta_n, rubar=fs.rubar_n, rvbar=fs.rvbar_n,
-        Akv=Akv, Akt=Akt,
+        Akv=Akv, Akt=Akt, hsbl=hsbl, hbbl=hbbl,
         tke_prev=state.tke, gls_prev=state.gls,
         DU_avg1=fs.DU_avg1, DV_avg1=fs.DV_avg1,
         DU_avg2=fs.DU_avg2, DV_avg2=fs.DV_avg2)

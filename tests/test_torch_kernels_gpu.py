@@ -1,7 +1,9 @@
 """roms_tpu_torch CUDA kernels against their plain PyTorch versions, on the
 card, in float32 and float64, on UPWELLING and on closed, gradient and
 masked (an island) variants of it (the momentum kernels also on a
-curvilinear one); and the UPWELLING anchor with all ten kernels on.
+curvilinear one), the geopotential tracer diffusion on a small BENCHMARK;
+the UPWELLING anchor with ten kernels on, and the small-BENCHMARK fixture
+(tests/data/torch_benchmark_small.npz) with all eleven on.
 
 Marked ``gpu``; each test skips without a CUDA device.  This file imports
 no jax, so it also runs where jax is absent:
@@ -16,10 +18,11 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import CARD_FACTOR, fixture_script
 from roms_tpu_torch import stepping
 from roms_tpu_torch.config import LBC, BC_CLOSED, BC_GRADIENT
 from roms_tpu_torch.grid import hc_of
-from roms_tpu_torch.models import upwelling
+from roms_tpu_torch.models import benchmark, upwelling
 from roms_tpu_torch.ops import diag_cuda, mix3d_cuda, prsgrd_cuda, \
     rhs3d_cuda, step2d_cuda, step3d_cuda
 from roms_tpu_torch.ops.pre_step3d import ab3_start_coefs, momentum_init
@@ -34,6 +37,8 @@ RTOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 FAST_RTOL = {torch.float64: 1e-10, torch.float32: 1e-4}
 _ANCHOR = os.path.join(os.path.dirname(__file__), "data",
                        "upwelling_anchor.npz")
+_BENCH_FIXTURE = os.path.join(os.path.dirname(__file__), "data",
+                              "torch_benchmark_small.npz")
 
 
 @pytest.fixture(scope="module")
@@ -368,3 +373,64 @@ def test_anchor_with_kernels(device):
     np.testing.assert_allclose(inter(s.v), ref["v_full"], rtol=0, atol=1e-11)
     np.testing.assert_allclose(inter(s.t)[0], ref["temp_full"], rtol=0,
                                atol=1e-8)
+
+
+@pytest.fixture(scope="module", params=["float64", "float32"])
+def bench_developed(request, device):
+    """A small BENCHMARK and its state after 3 plain steps, on the card."""
+    cfg, grid, s0, ffn = benchmark.build(benchmark.make_config(
+        Lm=24, Mm=16, N=8, ndtfast=10, dtype=request.param), device=device)
+    s = stepping.run(cfg.replace(pallas2d=False), grid, s0, 3, ffn)
+    return cfg, grid, s
+
+
+@pytest.mark.parametrize("tnu2", [(500.0, 500.0), (500.0, 0.0),
+                                  (0.0, 300.0)])
+def test_t3dmix2_geo_kernel(bench_developed, tnu2):
+    """Against its plain version; a tracer with tnu2 = 0 is not touched."""
+    cfg, grid, s = bench_developed
+    cfg = cfg.replace(tnu2=tnu2)
+    z_r, _, Hz, *_ = diag_cuda.grid_flux_plain(cfg, grid, s.zeta, s.u, s.v,
+                                               hc_of(cfg))
+    t_nnew = s.t * Hz[None]
+    before = mix3d_cuda.t3dmix2_geo.launches
+    got = mix3d_cuda.t3dmix2_geo(cfg, grid, s.t, Hz, z_r, t_nnew.clone(),
+                                 cfg.dt)
+    assert mix3d_cuda.t3dmix2_geo.launches == before + 1
+    ref = mix3d_cuda.t3dmix2_geo_plain(cfg, grid, s.t, Hz, z_r,
+                                       t_nnew.clone(), cfg.dt)
+    _close([got], [ref], RTOL[s.u.dtype], "t3dmix2_geo")
+    for k, d in enumerate(tnu2):
+        if d == 0.0:
+            assert torch.equal(got[k], t_nnew[k]), k
+
+
+def test_t3dmix2_geo_kernel_refuses_aliased_t_nnew(bench_developed):
+    cfg, grid, s = bench_developed
+    z_r, _, Hz, *_ = diag_cuda.grid_flux_plain(cfg, grid, s.zeta, s.u, s.v,
+                                               hc_of(cfg))
+    t = s.t.clone()
+    with pytest.raises(ValueError, match="alias"):
+        mix3d_cuda.t3dmix2_geo(cfg, grid, t, Hz, z_r, t, cfg.dt)
+
+
+def test_benchmark_fixture_with_kernels(device):
+    """3 float64 steps of the small BENCHMARK with all eleven kernels on
+    (one launch a step each) hold tests/data/torch_benchmark_small.npz at
+    100x the CPU test's bounds."""
+    fixture = fixture_script()
+    ref = np.load(_BENCH_FIXTURE)
+    cfg, grid, s0, ffn = benchmark.build(
+        benchmark.make_config(**fixture.CASE), device=device)
+    wrappers = (diag_cuda.grid_flux, diag_cuda.eos, diag_cuda.omega,
+                step2d_cuda.fast_loop, prsgrd_cuda.prsgrd32,
+                rhs3d_cuda.rhs3d, mix3d_cuda.uv3dmix2,
+                mix3d_cuda.t3dmix2_geo, step3d_cuda.tracer_predictor,
+                step3d_cuda.uv_corrector, step3d_cuda.tracer_corrector)
+    before = [w.launches for w in wrappers]
+    s = stepping.run(cfg, grid, s0, fixture.NSTEPS, ffn)
+    assert [w.launches - b for w, b in zip(wrappers, before)] == \
+        [fixture.NSTEPS] * len(wrappers)
+    errors = fixture.errors(cfg, s0, s, ref, factor=CARD_FACTOR)
+    bad = {k: e for k, e in errors.items() if not e[0] <= e[1]}
+    assert not bad, bad

@@ -101,8 +101,10 @@ def _constancy_error(cfg, s):
 
 @pytest.mark.parametrize("change, feature", [
     (dict(wetdry=True), "general fast loop"),
-    (dict(vmix="kpp"), "vertical mixing closure"),
-    (dict(bulk_fluxes=True), "COARE bulk fluxes"),
+    (dict(vmix="kpp", kpp_bottom=True), "KPP bottom boundary layer"),
+    (dict(vmix="kpp", lmd_ddmix=True), "KPP double-diffusive mixing"),
+    (dict(vmix="gls"), "vertical mixing closure"),
+    (dict(ts_mix_iso=True, tnu2=(5.0, 5.0)), "isopycnal"),
 ])
 def test_step_raises_for_unported_branches(upw, change, feature):
     cfg, grid, s0, ffn = upw
