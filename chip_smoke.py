@@ -12,10 +12,16 @@ Phases, one or more lines each; any failure exits non-zero:
      float64 and float32, plus the branches the main path does not take
      (eq_tide, KPP/solar terms, the Thomas solve, SPLINES vertical tracer
      advection, JM95 + bvf, closed E-W walls, land points, the curvilinear
-     terms, the first step's momentum start): max abs
-     error, tolerance, the time a call of kernel and plain version (CUDA
+     terms, the first step's momentum start; t3dmix2_geo, which UPWELLING
+     with tnu2 = 0 does not call, on its tracers and depths): max abs
+     error, tolerance, whether a second launch on the same input is bitwise
+     equal to the first, the time a call of kernel and plain version (CUDA
      events around 10 calls back to back, median of 5 such batches), and
-     the kernel's bound (bytes and operations);
+     the kernel's bound (bytes and operations); and the fast loop's launch
+     at 128, 256 and 512 threads a block: blocks, the co-resident limit,
+     barriers, its time, the time of one grid barrier (an empty kernel of
+     as many barriers at the same launch) and of one phase, each block
+     size's result bitwise equal to the default's;
   4. the main path: 10 float64 steps of full-size UPWELLING through
      stepping.step, with every kernel's launch count (one a step each),
      checked against the pinned anchor (tests/data/upwelling_anchor.npz)
@@ -29,8 +35,9 @@ of the spherical grid, COARE bulk fluxes, KPP and the geopotential tracer
 diffusion (queue 2 row 5, t3dmix2_geo):
   7. each of the eleven kernels against its plain version on the arguments
      the BENCHMARK1 step gives it (one step from a state three plain
-     float64 steps from rest), in float64 and float32, with the times and
-     bounds of phase 3; and t3dmix2_geo with one tracer at tnu2 = 0, which
+     float64 steps from rest), in float64 and float32, with the checks,
+     times, bounds and fast-loop launches of phase 3; t3dmix2_geo's tile
+     and shared memory; and t3dmix2_geo with one tracer at tnu2 = 0, which
      must come back bitwise unchanged;
   8. three float64 steps from that state with the kernels on against
      cfg.pallas2d=False (every stage plain), each State field the step
@@ -76,6 +83,8 @@ CARD_FACTOR = 100.0
 KERNEL_RTOL = {"float64": 1e-12, "float32": 1e-5}
 FAST_RTOL = {"float64": 1e-10, "float32": 1e-4}
 NRUNS, NBATCH = 10, 5
+# the fast loop's block sizes that phases 3 and 7 time
+FAST_THREADS_SWEEP = (128, 256, 512)
 # H100 SXM peaks (NVIDIA's data sheet, 700 W): HBM3 bandwidth, and the
 # non-tensor-core rate of each type (the kernels use no tensor cores)
 PEAK_BYTES_PER_S = 3.35e12
@@ -453,7 +462,22 @@ def variants(cfg, grid, calls):
     args, kw = calls["uv3dmix2"]
     out.append(("uv3dmix2[masked]", "uv3dmix2",
                 (args[0], island(grid)) + args[2:], kw))
+    if "t3dmix2_geo" not in calls:
+        out.append(("t3dmix2_geo[both tracers]", "t3dmix2_geo",
+                    geo_args(cfg, grid, calls), {}))
     return out
+
+
+def geo_args(cfg, grid, calls):
+    """t3dmix2_geo's arguments on a step that does not call it: the
+    step's tracers, its time-n depths (grid_flux's plain version on the
+    step's own arguments), t_nnew = t Hz, and tnu2 = 500 m2/s for both
+    tracers as in BENCHMARK1."""
+    from roms_tpu_torch.ops import diag_cuda
+    z_r, _, Hz, *_ = diag_cuda.grid_flux_plain(*calls["grid_flux"][0])
+    t = calls["tracer_predictor"][0][3]
+    return (cfg.replace(tnu2=(500.0, 500.0)), grid, t, Hz, z_r,
+            t * Hz[None], cfg.dt)
 
 
 def island(grid):
@@ -482,21 +506,82 @@ def check_variants(tag, grid, cases, dtype, results):
         finite = all(bool(torch.isfinite(a).all())
                      for a in tensors_of(out_k))
         err, ratio = max_err(out_k, out_p, rtol[dtype])
+        repeat = same(kern(*fresh(args), **kw), out_k)
         ms = device_ms(kern, args, kw)
         plain_ms = device_ms(plain, args, kw)
         ops = count_ops(plain, args, kw)
         b_ms, b_by = bound(name, grid, args, kw, out_k, ops, dtype)
-        ok = finite and ratio <= 1.0
+        ok = finite and ratio <= 1.0 and repeat
         print(f"[{tag}] {label:30s} {dtype}: max_abs_err={err:.3e} "
               f"tol={rtol[dtype]:g}*max|field| (worst err/tol "
-              f"{ratio:.3e}) finite={finite} kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, bound {b_ms:.5f} ms by {b_by} "
-              f"({ops:.4e} ops)  {'OK' if ok else 'FAIL'}", flush=True)
+              f"{ratio:.3e}) finite={finite} repeat bitwise={repeat} "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{b_ms:.5f} ms by {b_by} ({ops:.4e} ops)  "
+              f"{'OK' if ok else 'FAIL'}", flush=True)
         check(ok, f"{label} {dtype}: kernel disagrees with its plain "
-                  "version")
+                  "version or with its own second launch")
         results.setdefault(label, {})[dtype] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
             bound_by=b_by)
+        if label == "fast_loop":
+            fast_loop_launches(tag, args, kw, dtype, out_k)
+
+
+def same(outs_a, outs_b) -> bool:
+    """Whether two results are bitwise equal, tensor for tensor."""
+    import torch
+    torch.cuda.synchronize()
+    return all(torch.equal(a, b) for a, b in
+               zip(tensors_of(outs_a), tensors_of(outs_b)))
+
+
+def grid_barriers(blocks, threads, nbar):
+    """One cooperative launch of blocks x threads that runs nbar grid
+    barriers and nothing else."""
+    import ctypes
+    import torch
+    from roms_tpu_torch.ops import _kernels
+    err = _kernels.library().roms_grid_barriers(
+        blocks, threads, nbar,
+        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    check(err == 0, f"roms_grid_barriers: CUDA error {err}")
+
+
+def fast_loop_launches(tag, args, kw, dtype, out_ref):
+    """The fast loop at each block size of FAST_THREADS_SWEEP: its launch
+    (blocks, co-resident limit), its barriers (10 nfast + 2) and phases (one
+    more), its time, the time of an empty kernel of as many grid barriers
+    at the same launch; each size's result bitwise equal to out_ref, the
+    default size's."""
+    import torch
+    from roms_tpu_torch.ops import step2d_cuda
+    cfg = args[0]
+    points = cfg.ny_tot * cfg.nx_tot
+    nbar = 10 * cfg.nfast + 2
+    default = step2d_cuda.FAST_THREADS
+    try:
+        for threads in FAST_THREADS_SWEEP:
+            step2d_cuda.FAST_THREADS = threads
+            plan = step2d_cuda.launch_plan(getattr(torch, dtype), points)
+            equal = same(step2d_cuda.fast_loop(*fresh(args), **kw), out_ref)
+            ms = device_ms(step2d_cuda.fast_loop, args, kw)
+            bar_ms = device_ms(grid_barriers,
+                               (plan["blocks"], threads, nbar), {})
+            mark = " (the default)" if threads == default else ""
+            print(f"[{tag}] fast_loop launch {dtype}: {points} points, "
+                  f"{plan['blocks']} blocks x {threads} threads{mark} "
+                  f"(co-resident limit {plan['per_sm']} a SM x "
+                  f"{plan['sms']} SMs), "
+                  f"{nbar} grid barriers: kernel {ms:.4f} ms = "
+                  f"{ms / (nbar + 1) * 1e3:.3f} us a phase; empty kernel of "
+                  f"{nbar} barriers {bar_ms:.4f} ms = "
+                  f"{bar_ms / nbar * 1e3:.3f} us a barrier; bitwise equal "
+                  f"to the default size's result: {equal}", flush=True)
+            check(plan["blocks"] > 1, "the fast loop runs on one block")
+            check(equal, f"the fast loop at {threads} threads a block "
+                         "differs from the default size's result")
+    finally:
+        step2d_cuda.FAST_THREADS = default
 
 
 def kernel_checks(results, device):
@@ -723,6 +808,16 @@ def bench_kernel_checks(results, device, s):
         args, kw = calls["t3dmix2_geo"]
         one = (args[0].replace(tnu2=(500.0, 0.0)),) + args[1:]
         cases.append(("t3dmix2_geo[salt tnu2=0]", "t3dmix2_geo", one, kw))
+        layout = mix3d_cuda.geo_layout(grid.h.dtype)
+        tx, ty = layout["tile"]
+        blocks = [-(-cfg.nx_tot // tx), -(-cfg.ny_tot // ty),
+                  len(_geo_active(cfg))]
+        print(f"[bench-kernel] t3dmix2_geo tile {dtype}: {tx}x{ty} points "
+              f"a block (xi x eta), {layout['shared_bytes']} bytes of "
+              f"shared memory, {layout['registers']} registers a thread; "
+              f"{blocks[0]}x{blocks[1]}x{blocks[2]} blocks for "
+              f"{cfg.nx_tot}x{cfg.ny_tot} padded points and "
+              f"{blocks[2]} tracers", flush=True)
         check_variants("bench-kernel", grid, cases, dtype, results)
         a = fresh(one)
         salt_in = a[5][1].clone()

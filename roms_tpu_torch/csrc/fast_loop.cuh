@@ -1,23 +1,32 @@
 // The fast barotropic loop of one slow step (step2d_LF_AM3.h under the
-// main3d.F:592-713 loop) in ONE launch of ONE thread block.
+// main3d.F:592-713 loop) in ONE cooperative launch over many SMs.
 //
 // Replaces the TPU kernel roms_tpu/ops/step2d_pallas.py::fast_loop_fused
 // (its math core _core, :92-245) on the same configuration subset
-// (supported() in ops/step2d_cuda.py).  It is bound by memory traffic and
-// by synchronization, not by arithmetic: each substep is ~10 stencil sweeps
-// of a few flops per point over the 2-D state, with a barrier between
-// sweeps.  Design: the whole nfast loop runs inside one block, so each
-// barrier is a __syncthreads() and no launch is paid per substep; the 2-D
-// state (a few hundred KB at the UPWELLING size) stays in device memory and
-// is served from L1/L2.  Nothing more is done about bandwidth yet: the
-// choice between this single block, a persistent cooperative grid and
-// per-substep launches in a CUDA graph is a later measurement.
+// (supported() in ops/step2d_cuda.py).  The TPU kernel keeps the 2-D state
+// in VMEM for the whole loop, on a grid that runs in order.  Here the loop
+// is bound by synchronization and latency, not by bytes or arithmetic: each
+// substep is ten stencil sweeps of a few flops a point over the 2-D state
+// (a few hundred KB, served from L2), with a barrier between sweeps, so
+// 10 nfast + 2 barriers a call (292 at nfast 29).  Design: one persistent
+// grid launched with cudaLaunchCooperativeKernel runs the whole nfast loop;
+// each phase is a grid-stride map over the padded points, with about one
+// point a thread, and each barrier is a grid-wide cooperative_groups sync.
+// A phase then costs one grid barrier and a few dependent L2 loads.  The
+// launch takes no more blocks than the points need (a block with no point
+// still pays every barrier) and no more than can be co-resident, which the
+// occupancy of fast_loop_kernel sets (fast_loop.cu).
 //
-// Every phase is a pointwise map over all padded points (thread-strided
-// loop); neighbours wrap modulo the padded extent like torch.roll, and the
-// boundary writes and halo fills are gathers (bc.cuh), so each phase reads
-// only arrays completed before the preceding barrier.
+// Every phase is a pointwise map over all padded points; neighbours wrap
+// modulo the padded extent like torch.roll, and the boundary writes and
+// halo fills are gathers (bc.cuh), so each phase reads only arrays
+// completed before the preceding barrier, by whichever block wrote them.
+// The arrays the kernel writes (the fast state, rufrc_c/rvfrc_c and the
+// scratch planes) are read with plain loads, never through the read-only
+// cache, which a grid barrier does not make coherent.
 #pragma once
+
+#include <cooperative_groups.h>
 
 #include "bc.cuh"
 
@@ -419,10 +428,17 @@ struct Fast {
   }
 };
 
-#define ROMS_FOR_POINTS(p) \
-  for (int p = threadIdx.x; p < f.S; p += blockDim.x)
+// a grid-stride loop over the padded points
+#define ROMS_FOR_POINTS(p)                                         \
+  for (int p = blockIdx.x * blockDim.x + threadIdx.x; p < f.S;     \
+       p += gridDim.x * blockDim.x)
 
-// One substep half: predictor (FE or LF) or corrector, five phases.
+__device__ __forceinline__ void grid_sync() {
+  cooperative_groups::this_grid().sync();
+}
+
+// One substep half: predictor (FE or LF) or corrector, five phases.  Every
+// thread of every block reaches every grid_sync: no early return.
 template <typename T>
 __device__ void half_step(const Fast<T>& f, Mode mode, T cff1, T cff2) {
   T* const* fs = f.A.fs;
@@ -431,27 +447,29 @@ __device__ void half_step(const Fast<T>& f, Mode mode, T cff1, T cff2) {
   const T* U = pred ? fs[UBAR_N] : f.sc(S_UP);
   const T* V = pred ? fs[VBAR_N] : f.sc(S_VP);
   ROMS_FOR_POINTS(p) f.depth(p, mode, Z, U, V, cff1, cff2);
-  __syncthreads();
+  grid_sync();
   ROMS_FOR_POINTS(p) f.zeta_update(p, mode, U, V);
-  __syncthreads();
+  grid_sync();
   ROMS_FOR_POINTS(p) f.fluxes(p, mode, U, V);
-  __syncthreads();
+  grid_sync();
   ROMS_FOR_POINTS(p) f.momentum(p, mode);
-  __syncthreads();
+  grid_sync();
   ROMS_FOR_POINTS(p) f.uv_bcs(p, mode);
-  __syncthreads();
+  grid_sync();
 }
 
-constexpr int kFastThreads = 512;
+constexpr int kFastMaxThreads = 512;   // most threads a block (the launch
+                                       // picks its own count up to this)
 
+// Launched with cudaLaunchCooperativeKernel only (grid_sync needs it).
 template <typename T>
-__global__ void __launch_bounds__(kFastThreads)
+__global__ void __launch_bounds__(kFastMaxThreads)
     fast_loop_kernel(FastParams P, FastPtrs<T> A) {
   const Fast<T> f{P, A, P.g.Ny * P.g.Nx};
   const T* w1 = A.w1;
   const T* w2 = A.w2;
   ROMS_FOR_POINTS(p) f.metrics(p);
-  __syncthreads();
+  grid_sync();
 
   // fast step 1: forward-Euler predictor, then the first corrector
   half_step(f, FE_PRED, T(0), T(-1.0 / 12.0) * w2[1]);
@@ -468,8 +486,14 @@ __global__ void __launch_bounds__(kFastThreads)
   const T cff2 = T(8.0 / 12.0) * w2[it - 1] - T(1.0 / 12.0) * w2[it];
   ROMS_FOR_POINTS(p)
       f.depth(p, AUX, A.fs[ZETA_N], A.fs[UBAR_N], A.fs[VBAR_N], cff1, cff2);
-  __syncthreads();
+  grid_sync();
   ROMS_FOR_POINTS(p) f.final_fill(p);
+}
+
+// nbar grid barriers and nothing else: the cost of one barrier at a given
+// launch shape (chip_smoke.py times it beside the fast loop).
+__global__ void grid_barrier_kernel(int nbar) {
+  for (int b = 0; b < nbar; ++b) grid_sync();
 }
 
 #undef ROMS_FOR_POINTS

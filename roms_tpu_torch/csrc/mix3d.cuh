@@ -144,8 +144,8 @@ __device__ void uv3dmix2_column(const MixParams& P, const MixPtrs<T>& A,
 
 // ---------------------------------------------------------------------------
 // Harmonic tracer diffusion rotated to geopotential surfaces, t3dmix2_geo
-// (t3dmix2_geo.h), for one padded (j,i) point and tracer per thread,
-// looping over k upwards.
+// (t3dmix2_geo.h), for one tile of padded (j,i) points and one tracer per
+// block, walking k upwards.
 //
 // Replaces the TPU kernel roms_tpu/ops/mix3d_pallas.py::t3dmix2_geo_fused.
 // Like it, the kernel adds into t_nnew in place (the Pallas kernel donates
@@ -153,20 +153,26 @@ __device__ void uv3dmix2_column(const MixParams& P, const MixPtrs<T>& A,
 // Bound on the H100: bandwidth.  It must read t, Hz, z_r and t_nnew (4
 // (N,Ny,Nx) planes a tracer, Hz and z_r shared), pm and pn, and write
 // t_nnew: ~35 MB for BENCHMARK1's two tracers in float32, ~0.010 ms.
-// Design: thread (p, y) owns padded point p and the y-th tracer with
-// tnu2 != 0 (the others are not touched).  The triad fluxes of the port's
-// ops/mix3d.py::_triad_fluxes_geo are recomputed where the thread needs
-// them rather than staged through device memory: FX at its two xi faces
-// and FE at its two eta faces of each level, and FS at the interface above
-// the level; FS at the interface below is carried from the level under it
-// as a rolling value, and is 0 at the bottom and top interfaces.
-// Neighbours wrap modulo the padded extent, as torch.roll does, so every
-// padded point is computed, halo included.  Each expression keeps the
-// plain version's operation order.
+// Design: block (x, y, z) owns a kGeoTX x kGeoTY tile of rho points and the
+// z-th tracer with tnu2 != 0 (the others are not touched), one thread a
+// point.  It keeps in shared memory a rolling window of the planes that
+// level k needs, each with a one-point halo and loaded once, neighbouring
+// threads on neighbouring addresses: the tracer and z_r at levels k and
+// k+1, dT/dz at interfaces k and k+1 and Hz at level k.  At each level it
+// computes the triad fluxes of the port's ops/mix3d.py::_triad_fluxes_geo
+// once: FX on the tile's u faces and FE on its v faces into shared memory,
+// FS at the interface above each point in a register (FS below is carried
+// from the level under it, and is 0 at the bottom and top interfaces);
+// then the divergence and the update of t_nnew, while the next level's
+// planes load.  Halo points take the wrapped indices of at_ji, so
+// neighbours wrap modulo the padded extent as torch.roll does, and every
+// padded point is computed, halo included.  Each FX, FE, FS and dT/dz
+// keeps the plain version's expression and operation order, so the result
+// is the plain version's bitwise.
 struct GeoParams {
   Geom g;
   int N, ntr;
-  int itrc[kMaxTr];     // tracer index of each blockIdx.y
+  int itrc[kMaxTr];     // tracer index of each blockIdx.z
   double c_h[kMaxTr];   // 0.25 * (2 tnu2): the FX/FE coefficient
   double c_s[kMaxTr];   // 0.5 tnu2: the FS coefficient
   double dt;
@@ -178,117 +184,208 @@ struct GeoPtrs {
   T* t_nnew;   // read and written in place
 };
 
-// One tracer's fields and the stencil pieces of _triad_fluxes_geo.
-template <typename T>
-struct Geo {
-  const Geom& g;
-  int S, N;
-  const T *q, *Hz, *z_r, *pm, *pn;
+constexpr int kGeoTX = 32, kGeoTY = 8;            // the tile, in points
+constexpr int kGeoThreads = kGeoTX * kGeoTY;      // one thread a point
+constexpr int kGeoHX = kGeoTX + 2, kGeoHY = kGeoTY + 2;   // with its halo
+constexpr int kGeoHalo = kGeoHX * kGeoHY;
+constexpr int kGeoPer = (kGeoHalo + kGeoThreads - 1) / kGeoThreads;
+constexpr int kGeoUF = kGeoTY * (kGeoTX + 1);    // u faces of a tile
+constexpr int kGeoVF = (kGeoTY + 1) * kGeoTX;    // v faces of a tile
 
-  __device__ __forceinline__ int at(int j, int i) const {
-    return at_ji(g, j, i);
+// A tile's shared memory.  Halo planes are [row][column] with the tile's
+// point (ty, tx) at [ty + 1][tx + 1]; u face fi of row ty lies between
+// halo columns fi and fi + 1, v face fj of column tx between halo rows fj
+// and fj + 1.  A level's or interface's plane sits in slot (index % 2).
+template <typename T>
+struct GeoShared {
+  T q[2][kGeoHY][kGeoHX];       // the tracer at levels k, k+1
+  T zr[2][kGeoHY][kGeoHX];      // z_r at levels k, k+1
+  T dz[2][kGeoHY][kGeoHX];      // dT/dz at interfaces k, k+1
+  T Hz[kGeoHY][kGeoHX];         // Hz at level k
+  T FX[kGeoTY][kGeoTX + 1];     // FX at level k
+  T FE[kGeoTY + 1][kGeoTX];     // FE at level k
+  T cffu[kGeoTY][kGeoTX + 1];   // 0.5 (pm + pm[i-1])
+  T chu[kGeoTY][kGeoTX + 1];    // c_h on_u
+  T cffv[kGeoTY + 1][kGeoTX];   // 0.5 (pn + pn[j-1])
+  T chv[kGeoTY + 1][kGeoTX];    // c_h om_v
+};
+
+// The stencil pieces of _triad_fluxes_geo on a tile's shared planes.
+template <typename T>
+struct GeoTile {
+  GeoShared<T>& s;
+  using Plane = const T (*)[kGeoHX];
+
+  // dZdx or dTdx of plane f at u face fi of row ty
+  __device__ __forceinline__ T ddx(Plane f, int ty, int fi) const {
+    return s.cffu[ty][fi] * (f[ty + 1][fi + 1] - f[ty + 1][fi]);
   }
-  // dZdx, dTdx at u point (j, i) of level k: 0.5 (pm + pm[i-1]) * diff
-  __device__ __forceinline__ T cffu(int j, int i) const {
-    return T(0.5) * (pm[at(j, i)] + pm[at(j, i - 1)]);
+  // dZde or dTde of plane f at v face fj of column tx
+  __device__ __forceinline__ T dde(Plane f, int fj, int tx) const {
+    return s.cffv[fj][tx] * (f[fj + 1][tx + 1] - f[fj][tx + 1]);
   }
-  __device__ __forceinline__ T cffv(int j, int i) const {
-    return T(0.5) * (pn[at(j, i)] + pn[at(j - 1, i)]);
-  }
-  __device__ __forceinline__ T dZdx(int k, int j, int i) const {
-    const int o = k * S;
-    return cffu(j, i) * (z_r[o + at(j, i)] - z_r[o + at(j, i - 1)]);
-  }
-  __device__ __forceinline__ T dTdx(int k, int j, int i) const {
-    const int o = k * S;
-    return cffu(j, i) * (q[o + at(j, i)] - q[o + at(j, i - 1)]);
-  }
-  __device__ __forceinline__ T dZde(int k, int j, int i) const {
-    const int o = k * S;
-    return cffv(j, i) * (z_r[o + at(j, i)] - z_r[o + at(j - 1, i)]);
-  }
-  __device__ __forceinline__ T dTde(int k, int j, int i) const {
-    const int o = k * S;
-    return cffv(j, i) * (q[o + at(j, i)] - q[o + at(j - 1, i)]);
-  }
-  // dT/dz at interface kw (0 at kw = 0 and kw = N)
-  __device__ __forceinline__ T dTdz(int kw, int j, int i) const {
-    if (kw <= 0 || kw >= N) return T(0);
-    const int q1 = kw * S + at(j, i);
-    const int q0 = q1 - S;
-    return (q[q1] - q[q0]) / (z_r[q1] - z_r[q0]);
-  }
-  // FX at u point (j, i) of level k, without its coefficient c_h
-  __device__ T FX(T c_h, int k, int j, int i) const {
-    const T dz = dZdx(k, j, i);
+  // FX at u face fi of row ty, level in slot c (its upper interface in
+  // slot 1 - c), without the dt
+  __device__ T FX(int c, int ty, int fi) const {
+    const int n = 1 - c, h = ty + 1;
+    const T dz = ddx(s.zr[c], ty, fi);
     const T m = fmin(dz, T(0));
     const T pp = fmax(dz, T(0));
-    const T on_u = T(1) / (pn[at(j, i - 1)] + pn[at(j, i)]) * T(2);
-    const int o = k * S;
-    const T cfx = c_h * on_u * (Hz[o + at(j, i)] + Hz[o + at(j, i - 1)]);
-    return cfx * (dTdx(k, j, i) -
-                  T(0.5) * (m * (dTdz(k, j, i - 1) + dTdz(k + 1, j, i)) +
-                            pp * (dTdz(k + 1, j, i - 1) + dTdz(k, j, i))));
+    const T cfx = s.chu[ty][fi] * (s.Hz[h][fi + 1] + s.Hz[h][fi]);
+    return cfx * (ddx(s.q[c], ty, fi) -
+                  T(0.5) * (m * (s.dz[c][h][fi] + s.dz[n][h][fi + 1]) +
+                            pp * (s.dz[n][h][fi] + s.dz[c][h][fi + 1])));
   }
-  __device__ T FE(T c_h, int k, int j, int i) const {
-    const T dz = dZde(k, j, i);
+  __device__ T FE(int c, int fj, int tx) const {
+    const int n = 1 - c, h = tx + 1;
+    const T dz = dde(s.zr[c], fj, tx);
     const T m = fmin(dz, T(0));
     const T pp = fmax(dz, T(0));
-    const T om_v = T(1) / (pm[at(j - 1, i)] + pm[at(j, i)]) * T(2);
-    const int o = k * S;
-    const T cfe = c_h * om_v * (Hz[o + at(j, i)] + Hz[o + at(j - 1, i)]);
-    return cfe * (dTde(k, j, i) -
-                  T(0.5) * (m * (dTdz(k, j - 1, i) + dTdz(k + 1, j, i)) +
-                            pp * (dTdz(k + 1, j - 1, i) + dTdz(k, j, i))));
+    const T cfe = s.chv[fj][tx] * (s.Hz[fj + 1][h] + s.Hz[fj][h]);
+    return cfe * (dde(s.q[c], fj, tx) -
+                  T(0.5) * (m * (s.dz[c][fj][h] + s.dz[n][fj + 1][h]) +
+                            pp * (s.dz[n][fj][h] + s.dz[c][fj + 1][h])));
   }
-  // FS at interior interface kw (1..N-1) of rho point (j, i)
-  __device__ T FS(T c_s, int kw, int j, int i) const {
-    const int kd = kw - 1;
-    const T dtz = dTdz(kw, j, i);
-    const T c1 = fmin(dZdx(kd, j, i), T(0));
-    const T c2 = fmin(dZdx(kw, j, i + 1), T(0));
-    const T c3 = fmax(dZdx(kw, j, i), T(0));
-    const T c4 = fmax(dZdx(kd, j, i + 1), T(0));
-    const T sx = c1 * (c1 * dtz - dTdx(kd, j, i)) +
-                 c2 * (c2 * dtz - dTdx(kw, j, i + 1)) +
-                 c3 * (c3 * dtz - dTdx(kw, j, i)) +
-                 c4 * (c4 * dtz - dTdx(kd, j, i + 1));
-    const T e1 = fmin(dZde(kd, j, i), T(0));
-    const T e2 = fmin(dZde(kw, j + 1, i), T(0));
-    const T e3 = fmax(dZde(kw, j, i), T(0));
-    const T e4 = fmax(dZde(kd, j + 1, i), T(0));
-    const T se = e1 * (e1 * dtz - dTde(kd, j, i)) +
-                 e2 * (e2 * dtz - dTde(kw, j + 1, i)) +
-                 e3 * (e3 * dtz - dTde(kw, j, i)) +
-                 e4 * (e4 * dtz - dTde(kd, j + 1, i));
+  // FS at the interface between the levels in slots c (below) and 1 - c
+  // (above) at point (ty, tx)
+  __device__ T FS(T c_s, int c, int ty, int tx) const {
+    const int n = 1 - c;
+    const T dtz = s.dz[n][ty + 1][tx + 1];
+    const T c1 = fmin(ddx(s.zr[c], ty, tx), T(0));
+    const T c2 = fmin(ddx(s.zr[n], ty, tx + 1), T(0));
+    const T c3 = fmax(ddx(s.zr[n], ty, tx), T(0));
+    const T c4 = fmax(ddx(s.zr[c], ty, tx + 1), T(0));
+    const T sx = c1 * (c1 * dtz - ddx(s.q[c], ty, tx)) +
+                 c2 * (c2 * dtz - ddx(s.q[n], ty, tx + 1)) +
+                 c3 * (c3 * dtz - ddx(s.q[n], ty, tx)) +
+                 c4 * (c4 * dtz - ddx(s.q[c], ty, tx + 1));
+    const T e1 = fmin(dde(s.zr[c], ty, tx), T(0));
+    const T e2 = fmin(dde(s.zr[n], ty + 1, tx), T(0));
+    const T e3 = fmax(dde(s.zr[n], ty, tx), T(0));
+    const T e4 = fmax(dde(s.zr[c], ty + 1, tx), T(0));
+    const T se = e1 * (e1 * dtz - dde(s.q[c], ty, tx)) +
+                 e2 * (e2 * dtz - dde(s.q[n], ty + 1, tx)) +
+                 e3 * (e3 * dtz - dde(s.q[n], ty, tx)) +
+                 e4 * (e4 * dtz - dde(s.q[c], ty + 1, tx));
     return c_s * sx + c_s * se;
+  }
+  // dT/dz at the interface between the levels in slots lo and 1 - lo, at
+  // halo element (hy, hx)
+  __device__ __forceinline__ T dTdz(int lo, int hy, int hx) const {
+    const int up = 1 - lo;
+    return (s.q[up][hy][hx] - s.q[lo][hy][hx]) /
+           (s.zr[up][hy][hx] - s.zr[lo][hy][hx]);
   }
 };
 
+// The body of the kernel (mix3d.cu): block (bx, by) of the tile grid and
+// mixed tracer y, thread tid of kGeoThreads.  Every thread reaches every
+// barrier.
 template <typename T>
-__device__ void t3dmix2_geo_column(const GeoParams& P, const GeoPtrs<T>& A,
-                                   int p, int y) {
+__device__ void t3dmix2_geo_tile(const GeoParams& P, const GeoPtrs<T>& A,
+                                 GeoShared<T>& s, int bx, int by, int y,
+                                 int tid) {
   const Geom& g = P.g;
   const int S = g.Ny * g.Nx;
-  const int j = p / g.Nx;
-  const int i = p - j * g.Nx;
   const int N = P.N;
+  const int i0 = bx * kGeoTX, j0 = by * kGeoTY;
+  const int tx = tid % kGeoTX, ty = tid / kGeoTX;
+  const int j = j0 + ty, i = i0 + tx;
+  const bool mine = j < g.Ny && i < g.Nx;   // the tile's ragged edge
+  const int p = j * g.Nx + i;
   const size_t plane = static_cast<size_t>(N) * S;
-  const int itrc = P.itrc[y];
-  const Geo<T> G{g, S, N, A.t + itrc * plane, A.Hz, A.z_r, A.pm, A.pn};
-  T* tn = A.t_nnew + itrc * plane;
+  const T* q = A.t + P.itrc[y] * plane;
+  T* tn = A.t_nnew + P.itrc[y] * plane;
+  const T* pm = A.pm;
+  const T* pn = A.pn;
   const T c_h = T(P.c_h[y]);
   const T c_s = T(P.c_s[y]);
   const T dt = T(P.dt);
-  const T pmn = A.pm[p] * A.pn[p];
+  const GeoTile<T> G{s};
+
+  // this thread's halo elements: (row, column) and padded index
+  int hy[kGeoPer], hx[kGeoPer], off[kGeoPer];
+  for (int r = 0; r < kGeoPer; ++r) {
+    const int e = tid + r * kGeoThreads;
+    hy[r] = e / kGeoHX;
+    hx[r] = e - hy[r] * kGeoHX;
+    off[r] = e < kGeoHalo ? at_ji(g, j0 - 1 + hy[r], i0 - 1 + hx[r]) : -1;
+  }
+  auto load = [&](T (*dst)[kGeoHX], const T* src, int k) {
+    for (int r = 0; r < kGeoPer; ++r)
+      if (off[r] >= 0) dst[hy[r]][hx[r]] = src[k * S + off[r]];
+  };
+
+  // the 2-D face coefficients, as Geo's cffu/cffv and FX/FE's on_u/om_v
+  for (int e = tid; e < kGeoUF; e += kGeoThreads) {
+    const int fy = e / (kGeoTX + 1), fi = e - fy * (kGeoTX + 1);
+    const int qi = at_ji(g, j0 + fy, i0 + fi);
+    const int qw = at_ji(g, j0 + fy, i0 + fi - 1);
+    s.cffu[fy][fi] = T(0.5) * (pm[qi] + pm[qw]);
+    const T on_u = T(1) / (pn[qw] + pn[qi]) * T(2);
+    s.chu[fy][fi] = c_h * on_u;
+  }
+  for (int e = tid; e < kGeoVF; e += kGeoThreads) {
+    const int fj = e / kGeoTX, fx = e - fj * kGeoTX;
+    const int qj = at_ji(g, j0 + fj, i0 + fx);
+    const int qs = at_ji(g, j0 + fj - 1, i0 + fx);
+    s.cffv[fj][fx] = T(0.5) * (pn[qj] + pn[qs]);
+    const T om_v = T(1) / (pm[qs] + pm[qj]) * T(2);
+    s.chv[fj][fx] = c_h * om_v;
+  }
+  // levels 0 and 1, Hz at level 0 (N >= 3)
+  load(s.q[0], q, 0);
+  load(s.zr[0], A.z_r, 0);
+  load(s.q[1], q, 1);
+  load(s.zr[1], A.z_r, 1);
+  load(s.Hz, A.Hz, 0);
+  __syncthreads();
+  // dT/dz at interfaces 0 (zero) and 1
+  for (int r = 0; r < kGeoPer; ++r) {
+    if (off[r] < 0) continue;
+    s.dz[0][hy[r]][hx[r]] = T(0);
+    s.dz[1][hy[r]][hx[r]] = G.dTdz(0, hy[r], hx[r]);
+  }
+  __syncthreads();
+
+  const T pmn = mine ? pm[p] * pn[p] : T(0);
   T FS_lo = T(0);
   for (int k = 0; k < N; ++k) {
-    const T FS_hi = k + 1 < N ? G.FS(c_s, k + 1, j, i) : T(0);
-    const T dx = G.FX(c_h, k, j, i + 1) - G.FX(c_h, k, j, i);
-    const T de = G.FE(c_h, k, j + 1, i) - G.FE(c_h, k, j, i);
-    const T div = pmn * (dx + de) + (FS_hi - FS_lo);
-    tn[k * S + p] = tn[k * S + p] + dt * div;
+    const int c = k & 1;
+    // FX and FE on the tile's faces, FS above the thread's point
+    for (int e = tid; e < kGeoUF; e += kGeoThreads) {
+      const int fy = e / (kGeoTX + 1), fi = e - fy * (kGeoTX + 1);
+      s.FX[fy][fi] = G.FX(c, fy, fi);
+    }
+    for (int e = tid; e < kGeoVF; e += kGeoThreads) {
+      const int fj = e / kGeoTX, fx = e - fj * kGeoTX;
+      s.FE[fj][fx] = G.FE(c, fj, fx);
+    }
+    const T FS_hi = k + 1 < N ? G.FS(c_s, c, ty, tx) : T(0);
+    __syncthreads();
+    // level k+2's planes and level k+1's Hz into the slots level k used,
+    // and the update of t_nnew at level k
+    if (k + 2 < N) {
+      load(s.q[c], q, k + 2);
+      load(s.zr[c], A.z_r, k + 2);
+    }
+    if (k + 1 < N) load(s.Hz, A.Hz, k + 1);
+    if (mine) {
+      const T dx = s.FX[ty][tx + 1] - s.FX[ty][tx];
+      const T de = s.FE[ty + 1][tx] - s.FE[ty][tx];
+      const T div = pmn * (dx + de) + (FS_hi - FS_lo);
+      tn[k * S + p] = tn[k * S + p] + dt * div;
+    }
     FS_lo = FS_hi;
+    __syncthreads();
+    // dT/dz at interface k+2 (zero at the top interface N)
+    if (k + 2 <= N) {
+      for (int r = 0; r < kGeoPer; ++r)
+        if (off[r] >= 0)
+          s.dz[c][hy[r]][hx[r]] =
+              k + 2 < N ? G.dTdz(1 - c, hy[r], hx[r]) : T(0);
+      __syncthreads();
+    }
   }
 }
 

@@ -116,6 +116,14 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.roms_fast_loop_scratch_planes.argtypes = []
     lib.roms_fast_loop_scratch_planes.restype = ctypes.c_int
+    lib.roms_fast_loop_plan.argtypes = [ctypes.c_int] * 3 + [
+        ctypes.POINTER(ctypes.c_int)]
+    lib.roms_fast_loop_plan.restype = ctypes.c_int
+    lib.roms_grid_barriers.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.roms_grid_barriers.restype = ctypes.c_int
+    lib.roms_t3dmix2_geo_layout.argtypes = [ctypes.c_int,
+                                            ctypes.POINTER(ctypes.c_int)]
+    lib.roms_t3dmix2_geo_layout.restype = ctypes.c_int
     return lib
 
 

@@ -9,7 +9,9 @@ t3dmix2_geo - harmonic tracer diffusion rotated to geopotential surfaces.
 
 Each wrapper takes its plain version for CPU tensors only; for CUDA tensors
 it launches its kernel of csrc/mix3d.cu, one launch for both directions or
-for every tracer with tnu2 != 0, or raises.  On the card the kernels add
+for every tracer with tnu2 != 0, or raises.  t3dmix2_geo's kernel gives
+each block a tile of points whose planes it stages in shared memory
+(``geo_layout`` reports the tile and the bytes).  On the card the kernels add
 into their outputs in place and return them, as the Pallas kernels donate
 them (u_nnew, v_nnew, rufrc, rvfrc; t_nnew): a caller does not read those
 inputs again, and they must not alias each other or the other arguments.
@@ -18,11 +20,13 @@ inputs again, and they must not alias each other or the other arguments.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ..config import Config
 from ..grid import Grid
-from ._kernels import check_tensors, column_ints, launch, on_card
+from ._kernels import check_tensors, column_ints, launch, library, on_card
 from .mix3d import t3dmix2_geo as t3dmix2_geo_plain
 from .mix3d import uv3dmix2 as uv3dmix2_plain
 
@@ -109,3 +113,15 @@ def t3dmix2_geo(cfg: Config, grid: Grid, t, Hz, z_r, t_nnew, dt: float):
 
 
 t3dmix2_geo.launches = 0
+
+
+def geo_layout(dtype) -> dict:
+    """t3dmix2_geo's kernel on the current card: {"tile": (points along
+    xi, along eta), "shared_bytes": its static shared memory a block,
+    "registers": a thread}."""
+    out = (ctypes.c_int * 4)()
+    err = library().roms_t3dmix2_geo_layout(int(dtype == torch.float64), out)
+    if err != 0:
+        raise RuntimeError(f"roms_t3dmix2_geo_layout: CUDA error {err}")
+    return dict(tile=(out[0], out[1]), shared_bytes=out[2],
+                registers=out[3])

@@ -6,12 +6,17 @@ corrector of fast step 1, nfast-1 LF/AM3 substeps, the auxiliary averaging
 step, and the AB3 coupling of the depth-integrated slow forcing.
 
 ``fast_loop_plain`` is that core in plain PyTorch.  ``fast_loop`` takes it
-for CPU tensors only; for CUDA tensors it launches the one-block kernel of
-csrc/fast_loop.cu or raises.  ``fast_loop.launches`` counts kernel
-launches.
+for CPU tensors only; for CUDA tensors it launches the kernel of
+csrc/fast_loop.cu, one cooperative grid of FAST_THREADS-thread blocks that
+runs the whole loop with a grid barrier between its phases, or raises on a
+launch error: nothing falls back to one block or to the plain version.
+``fast_loop.launches`` counts kernel launches; ``launch_plan`` says how
+many blocks a launch takes.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -26,6 +31,9 @@ from .step2d import (FS_FIELDS, Fast2DState, depth_fluxes, _g,
 
 GRID_FIELDS = ("h", "f", "pm", "pn", "dndx", "dmde",
                "rmask", "umask", "vmask", "pmask")
+# threads a block of the kernel (a multiple of 32, at most 512): the
+# fastest of 128, 256 and 512 on BENCHMARK1 (PERF.md)
+FAST_THREADS = 512
 
 
 def supported(cfg: Config, bry=None, sources=None, clm=None) -> bool:
@@ -241,7 +249,7 @@ def fast_loop(cfg: Config, grid: Grid, fs: Fast2DState, rufrc, rvfrc,
              for code in bc_kinds(lbc)]
     ints = geometry(cfg) + kinds + [
         int(cfg.uv_adv), int(cfg.uv_cor), int(cfg.curvgrid),
-        int(cfg.uv_vis2 and cfg.visc2 != 0.0), cfg.nfast]
+        int(cfg.uv_vis2 and cfg.visc2 != 0.0), cfg.nfast, FAST_THREADS]
     doubles = [cfg.dtfast, _g(cfg), cfg.visc2, cfg.gamma2,
                *ab3_coupling_weights(iic)]
     launch("roms_fast_loop", f64,
@@ -252,3 +260,17 @@ def fast_loop(cfg: Config, grid: Grid, fs: Fast2DState, rufrc, rvfrc,
 
 
 fast_loop.launches = 0
+
+
+def launch_plan(dtype, points: int, threads: int | None = None) -> dict:
+    """The kernel's launch on the current card for `points` padded points:
+    {"blocks", "threads", "per_sm", "sms"}, where blocks is the smaller of
+    the blocks the points need at one a thread and the blocks that can be
+    co-resident (per_sm on each of sms SMs)."""
+    threads = threads or FAST_THREADS
+    out = (ctypes.c_int * 3)()
+    err = library().roms_fast_loop_plan(int(dtype == torch.float64),
+                                        threads, points, out)
+    if err != 0:
+        raise RuntimeError(f"roms_fast_loop_plan: CUDA error {err}")
+    return dict(blocks=out[0], threads=threads, per_sm=out[1], sms=out[2])

@@ -136,9 +136,8 @@ def test_eos_kernel(developed, eos, want_bvf):
            RTOL[s.u.dtype], "eos")
 
 
-@pytest.mark.parametrize("iic", [0, 1, 5])
-def test_fast_loop_kernel(developed, iic):
-    cfg, grid, s = developed
+def _fast_loop_inputs(s, iic):
+    """Fast-state fields from state s, and random slow forcing."""
     rng = np.random.default_rng(iic)
     fields = {k: getattr(s, src) for k, src in (
         ("zeta_n", "zeta"), ("zeta_nm1", "zeta"), ("ubar_n", "ubar"),
@@ -149,15 +148,54 @@ def test_fast_loop_kernel(developed, iic):
     frc = [1e-4 * torch.tensor(rng.standard_normal(s.zeta.shape),
                                dtype=s.zeta.dtype, device=s.zeta.device)
            for _ in range(6)]
+    return fields, frc
+
+
+def _check_fast_loop(cfg, grid, s, iic):
+    """The kernel against its plain version, and a second launch on a copy
+    of the same input bitwise equal to the first (a race between blocks
+    would show as a difference)."""
+    fields, frc = _fast_loop_inputs(s, iic)
     fresh = lambda: Fast2DState(**{k: a.clone() for k, a in fields.items()})
     before = step2d_cuda.fast_loop.launches
     fs_k, ruc_k, rvc_k = step2d_cuda.fast_loop(cfg, grid, fresh(), *frc, iic)
     assert step2d_cuda.fast_loop.launches == before + 1
     fs_p, ruc_p, rvc_p = step2d_cuda.fast_loop_plain(cfg, grid, fresh(),
                                                      *frc, iic)
-    _close([getattr(fs_k, k) for k in FS_FIELDS] + [ruc_k, rvc_k],
-           [getattr(fs_p, k) for k in FS_FIELDS] + [ruc_p, rvc_p],
+    got = [getattr(fs_k, k) for k in FS_FIELDS] + [ruc_k, rvc_k]
+    _close(got, [getattr(fs_p, k) for k in FS_FIELDS] + [ruc_p, rvc_p],
            FAST_RTOL[s.u.dtype], "fast_loop")
+    fs_2, ruc_2, rvc_2 = step2d_cuda.fast_loop(cfg, grid, fresh(), *frc, iic)
+    again = [getattr(fs_2, k) for k in FS_FIELDS] + [ruc_2, rvc_2]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("iic", [0, 1, 5])
+def test_fast_loop_kernel(developed, iic):
+    cfg, grid, s = developed
+    _check_fast_loop(cfg, grid, s, iic)
+
+
+@pytest.fixture(scope="module", params=["float64", "float32"])
+def fixture_case(request, device):
+    """The small BENCHMARK of the fixture (70x38 padded points, spherical:
+    curvilinear terms and a varying f) after 3 plain steps, on the card."""
+    cfg, grid, s0, ffn = benchmark.build(benchmark.make_config(
+        **fixture_script().CASE, dtype=request.param), device=device)
+    s = stepping.run(cfg.replace(pallas2d=False), grid, s0, 3, ffn)
+    return cfg, grid, s
+
+
+@pytest.mark.parametrize("iic", [0, 5])
+def test_fast_loop_kernel_on_many_blocks(fixture_case, iic):
+    """A grid of several blocks whose last is ragged (the padded points are
+    not a multiple of the block)."""
+    cfg, grid, s = fixture_case
+    points = cfg.ny_tot * cfg.nx_tot
+    plan = step2d_cuda.launch_plan(s.u.dtype, points)
+    assert plan["blocks"] > 1 and points % plan["threads"] != 0, plan
+    _check_fast_loop(cfg, grid, s, iic)
 
 
 def test_fast_loop_kernel_rejects_aliased_fields(developed):
@@ -375,11 +413,27 @@ def test_anchor_with_kernels(device):
                                atol=1e-8)
 
 
-@pytest.fixture(scope="module", params=["float64", "float32"])
+# small BENCHMARK cases of the geopotential mixing: smaller than one tile
+# of the kernel along xi; the same with closed E-W walls; several tiles
+# along both axes, the last of each ragged (76 x 27 padded points)
+GEO_CASES = {"one tile": dict(Lm=24, Mm=16),
+             "closed E-W": dict(Lm=24, Mm=16),
+             "ragged tiles": dict(Lm=70, Mm=21)}
+
+
+@pytest.fixture(scope="module", params=[
+    (kind, dtype) for kind in GEO_CASES for dtype in ("float64", "float32")])
 def bench_developed(request, device):
     """A small BENCHMARK and its state after 3 plain steps, on the card."""
-    cfg, grid, s0, ffn = benchmark.build(benchmark.make_config(
-        Lm=24, Mm=16, N=8, ndtfast=10, dtype=request.param), device=device)
+    kind, dtype = request.param
+    cfg = benchmark.make_config(N=8, ndtfast=10, dtype=dtype,
+                                **GEO_CASES[kind])
+    if kind == "closed E-W":
+        closed = LBC()
+        cfg = cfg.replace(ew_periodic=False, lbc_zeta=closed,
+                          lbc_ubar=closed, lbc_vbar=closed, lbc_u=closed,
+                          lbc_v=closed, lbc_t=closed)
+    cfg, grid, s0, ffn = benchmark.build(cfg, device=device)
     s = stepping.run(cfg.replace(pallas2d=False), grid, s0, 3, ffn)
     return cfg, grid, s
 
@@ -387,7 +441,8 @@ def bench_developed(request, device):
 @pytest.mark.parametrize("tnu2", [(500.0, 500.0), (500.0, 0.0),
                                   (0.0, 300.0)])
 def test_t3dmix2_geo_kernel(bench_developed, tnu2):
-    """Against its plain version; a tracer with tnu2 = 0 is not touched."""
+    """Against its plain version; a tracer with tnu2 = 0 is not touched; a
+    second launch on a copy of the same input is bitwise equal."""
     cfg, grid, s = bench_developed
     cfg = cfg.replace(tnu2=tnu2)
     z_r, _, Hz, *_ = diag_cuda.grid_flux_plain(cfg, grid, s.zeta, s.u, s.v,
@@ -403,6 +458,9 @@ def test_t3dmix2_geo_kernel(bench_developed, tnu2):
     for k, d in enumerate(tnu2):
         if d == 0.0:
             assert torch.equal(got[k], t_nnew[k]), k
+    again = mix3d_cuda.t3dmix2_geo(cfg, grid, s.t, Hz, z_r, t_nnew.clone(),
+                                   cfg.dt)
+    assert torch.equal(got, again)
 
 
 def test_t3dmix2_geo_kernel_refuses_aliased_t_nnew(bench_developed):
