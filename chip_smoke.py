@@ -3,6 +3,8 @@ each against its plain PyTorch version, drives the UPWELLING and the
 BENCHMARK1 steps through them, and checks the results.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --column-times TREE    # rows 8-10's times only,
+                                                 # roms_tpu_torch from TREE
 
 Phases, one or more lines each; any failure exits non-zero:
   1. device: card name and power limit (nvidia-smi), torch and CUDA versions;
@@ -14,14 +16,17 @@ Phases, one or more lines each; any failure exits non-zero:
      advection, JM95 + bvf, closed E-W walls, land points, the curvilinear
      terms, the first step's momentum start; t3dmix2_geo, which UPWELLING
      with tnu2 = 0 does not call, on its tracers and depths): max abs
-     error, tolerance, whether a second launch on the same input is bitwise
-     equal to the first, the time a call of kernel and plain version (CUDA
-     events around 10 calls back to back, median of 5 such batches), and
-     the kernel's bound (bytes and operations); and the fast loop's launch
-     at 128, 256 and 512 threads a block: blocks, the co-resident limit,
-     barriers, its time, the time of one grid barrier (an empty kernel of
-     as many barriers at the same launch) and of one phase, each block
-     size's result bitwise equal to the default's;
+     error, tolerance (none for the tracer kernels, held bitwise), whether
+     a second launch on the same input is bitwise equal to the first, the
+     time a call of kernel and plain version (CUDA events around 10 calls
+     back to back, median of 5 such batches; for the tracer kernels also
+     their device time alone, under torch.profiler), and the kernel's bound
+     (bytes and operations); the tracer kernels' tiles (points, blocks,
+     threads, shared memory, registers, stack frame); and the fast loop's
+     launch at 128, 256 and 512 threads a block: blocks, the co-resident
+     limit, barriers, its time, the time of one grid barrier (an empty
+     kernel of as many barriers at the same launch) and of one phase, each
+     block size's result bitwise equal to the default's;
   4. the main path: 10 float64 steps of full-size UPWELLING through
      stepping.step, with every kernel's launch count (one a step each),
      checked against the pinned anchor (tests/data/upwelling_anchor.npz)
@@ -36,9 +41,9 @@ diffusion (queue 2 row 5, t3dmix2_geo):
   7. each of the eleven kernels against its plain version on the arguments
      the BENCHMARK1 step gives it (one step from a state three plain
      float64 steps from rest), in float64 and float32, with the checks,
-     times, bounds and fast-loop launches of phase 3; t3dmix2_geo's tile
-     and shared memory; and t3dmix2_geo with one tracer at tnu2 = 0, which
-     must come back bitwise unchanged;
+     times, bounds and fast-loop launches of phase 3; t3dmix2_geo's and
+     the tracer kernels' tiles; and t3dmix2_geo with one tracer at tnu2 =
+     0, which must come back bitwise unchanged;
   8. three float64 steps from that state with the kernels on against
      cfg.pallas2d=False (every stage plain), each State field the step
      writes within 1e-9 x max|field|;
@@ -82,6 +87,9 @@ CARD_FACTOR = 100.0
 # round-off, except the fast loop, which compounds it over nfast substeps
 KERNEL_RTOL = {"float64": 1e-12, "float32": 1e-5}
 FAST_RTOL = {"float64": 1e-10, "float32": 1e-4}
+# kernels held to their plain versions bitwise (no column sums in another
+# order than torch's)
+BITWISE = ("tracer_predictor", "tracer_corrector")
 NRUNS, NBATCH = 10, 5
 # the fast loop's block sizes that phases 3 and 7 time
 FAST_THREADS_SWEEP = (128, 256, 512)
@@ -399,6 +407,27 @@ def device_ms(fn, args, kw) -> float:
     return sorted(batches)[NBATCH // 2]
 
 
+def profiled_ms(fn, args, kw) -> float:
+    """The device time of fn's one launch a call: torch.profiler over
+    NRUNS calls after two warm-up calls, the mean over the device events
+    it recorded (it can drop some; nan if it recorded none).  Unlike
+    device_ms it leaves out the host's time between launches."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    a = fresh(args)
+    for _ in range(2):
+        fn(*a, **kw)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        for _ in range(NRUNS):
+            fn(*a, **kw)
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    return sum(us) / len(us) / 1e3 if us else float("nan")
+
+
 def max_err(outs_k, outs_p, rtol):
     """(max abs error, worst error/tolerance) over paired outputs, each
     held to rtol * max|plain field|."""
@@ -511,13 +540,16 @@ def check_variants(tag, grid, cases, dtype, results):
         plain_ms = device_ms(plain, args, kw)
         ops = count_ops(plain, args, kw)
         b_ms, b_by = bound(name, grid, args, kw, out_k, ops, dtype)
-        ok = finite and ratio <= 1.0 and repeat
+        exact = name in BITWISE
+        ok = finite and repeat and (err == 0.0 if exact else ratio <= 1.0)
+        bar = "bitwise" if exact else f"tol={rtol[dtype]:g}*max|field|"
+        dev = f" (device {profiled_ms(kern, args, kw):.4f} ms)" if exact \
+            else ""
         print(f"[{tag}] {label:30s} {dtype}: max_abs_err={err:.3e} "
-              f"tol={rtol[dtype]:g}*max|field| (worst err/tol "
-              f"{ratio:.3e}) finite={finite} repeat bitwise={repeat} "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-              f"{b_ms:.5f} ms by {b_by} ({ops:.4e} ops)  "
-              f"{'OK' if ok else 'FAIL'}", flush=True)
+              f"{bar} (worst err/tol {ratio:.3e}) finite={finite} repeat "
+              f"bitwise={repeat} kernel {ms:.4f} ms{dev}, plain "
+              f"{plain_ms:.4f} ms, bound {b_ms:.5f} ms by {b_by} "
+              f"({ops:.4e} ops)  {'OK' if ok else 'FAIL'}", flush=True)
         check(ok, f"{label} {dtype}: kernel disagrees with its plain "
                   "version or with its own second launch")
         results.setdefault(label, {})[dtype] = dict(
@@ -584,6 +616,24 @@ def fast_loop_launches(tag, args, kw, dtype, out_ref):
         step2d_cuda.FAST_THREADS = default
 
 
+def tracer_tiles(tag, cfg, dtype):
+    """Rows 8 and 9's launch on this case: tile, blocks, threads, shared
+    memory, and the registers and stack frame of the loaded kernel."""
+    import torch
+    from roms_tpu_torch.ops import step3d_cuda
+    for name in ("tracer_predictor", "tracer_corrector"):
+        plan = step3d_cuda.tracer_plan(name, getattr(torch, dtype), cfg.N,
+                                       cfg.ntracers, cfg.ny_tot, cfg.nx_tot)
+        lay = step3d_cuda.tracer_layout(name, getattr(torch, dtype))
+        print(f"[{tag}] {name} tile {dtype}: {plan['tile']} padded points "
+              f"a block, {plan['blocks']} blocks x {plan['threads']} "
+              f"threads for {cfg.ny_tot}x{cfg.nx_tot} padded points and "
+              f"{cfg.ntracers} tracers, {plan['smem_bytes']} bytes of "
+              f"shared memory, {lay['registers']} registers and "
+              f"{lay['stack_bytes']} bytes of stack frame a thread",
+              flush=True)
+
+
 def kernel_checks(results, device):
     """Phase 3: every kernel of the UPWELLING path (all but t3dmix2_geo:
     tnu2 = 0) against its plain version, f64 and f32."""
@@ -604,6 +654,7 @@ def kernel_checks(results, device):
         calls = captured_calls(cfg, grid, state, ffn)
         check(set(calls) == set(table) - {"t3dmix2_geo"},
               f"the main path called {sorted(calls)}, not every kernel")
+        tracer_tiles("kernel", cfg, dtype)
         check_variants("kernel", grid, variants(cfg, grid, calls), dtype,
                        results)
 
@@ -818,6 +869,7 @@ def bench_kernel_checks(results, device, s):
               f"{blocks[0]}x{blocks[1]}x{blocks[2]} blocks for "
               f"{cfg.nx_tot}x{cfg.ny_tot} padded points and "
               f"{blocks[2]} tracers", flush=True)
+        tracer_tiles("bench-kernel", cfg, dtype)
         check_variants("bench-kernel", grid, cases, dtype, results)
         a = fresh(one)
         salt_in = a[5][1].clone()
@@ -942,6 +994,42 @@ def bench_long_run(device, name):
     return launches
 
 
+def column_times(device):
+    """`--column-times TREE`: the time a call of rows 8-10, with the host's
+    time (device_ms) and on the device alone (profiled_ms), on the
+    arguments the UPWELLING and BENCHMARK1 steps give them, f64 and f32,
+    with roms_tpu_torch imported from TREE, so that two trees' kernels can
+    be timed in turn in one run."""
+    import roms_tpu_torch
+    from roms_tpu_torch import stepping
+    from roms_tpu_torch.models import benchmark, upwelling
+    from roms_tpu_torch.state import TENSOR_FIELDS
+
+    print(f"[column-times] roms_tpu_torch from "
+          f"{os.path.dirname(os.path.abspath(roms_tpu_torch.__file__))}",
+          flush=True)
+    table = wrappers()
+    cfg, grid, s, ffn = upwelling.build(upwelling.make_config(),
+                                        device=device)
+    developed = {
+        "upwelling": (upwelling, stepping.run(cfg.replace(pallas2d=False),
+                                              grid, s, 3, ffn)),
+        "benchmark1": (benchmark, bench_developed(device)[2])}
+    for case, (model, s) in developed.items():
+        for dtype in ("float64", "float32"):
+            cfg, grid, _, ffn = model.build(model.make_config(dtype=dtype),
+                                            device=device)
+            state = s.replace(**{k: getattr(s, k).to(grid.h.dtype)
+                                 for k in TENSOR_FIELDS})
+            calls = captured_calls(cfg, grid, state, ffn)
+            for name in ("tracer_predictor", "tracer_corrector",
+                         "uv_corrector"):
+                fn = getattr(*table[name][:2])
+                print(f"[column-times] {case} {name} {dtype}: kernel "
+                      f"{device_ms(fn, *calls[name]):.4f} ms, device "
+                      f"{profiled_ms(fn, *calls[name]):.4f} ms", flush=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -953,7 +1041,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this smoke run needs the card",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, ROOT)
+    timing = sys.argv[1:2] == ["--column-times"]
+    sys.path.insert(0, os.path.abspath(sys.argv[2]) if timing else ROOT)
     try:
         import roms_tpu_torch  # noqa: F401
         from roms_tpu_torch.ops import _kernels
@@ -969,6 +1058,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda:0")
     name = torch.cuda.get_device_name(0)
+    if timing:
+        print(f"[device] {name}; {nvidia_smi()}", flush=True)
+        column_times(device)
+        return 0
     try:
         smi = nvidia_smi()
         print(f"[device] {name}; torch {torch.__version__}, CUDA "

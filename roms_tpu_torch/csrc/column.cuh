@@ -1,12 +1,16 @@
-// Per-water-column pieces shared by the 3-D predictor/corrector kernels
-// (step3d.cuh): the tracer advection fluxes and the vertical solves of
-// roms_tpu_torch/ops/advection.py and ops/tridiag.py, written for one
-// thread that owns one (j,i) column and loops over k.
+// Per-water-column pieces shared by the 3-D column kernels (step3d.cuh,
+// prsgrd.cuh): the tracer advection fluxes and the vertical solves of
+// roms_tpu_torch/ops/advection.py and ops/tridiag.py.
+//
+// The vertical helpers take their columns as accessors: a plain pointer
+// into thread-local storage (uv_corrector) or a Col over a block's shared
+// memory (the tracer kernels), so one solve serves both.  The horizontal
+// advection takes a Line, the wrapped neighbours of one column along xi or
+// eta, worked out once per thread and reused at every level and tracer.
 //
 // Every expression keeps the plain version's operation order (and the
 // library is built with --fmad=false), so a kernel rounds like its plain
 // PyTorch version; a Python `c / x` is torch's reciprocal(x) * c.
-// Column arrays live in thread-local storage of kMaxN levels.
 #pragma once
 
 #include "bc.cuh"
@@ -24,87 +28,124 @@ __host__ __device__ __forceinline__ int clampi(int a, int lo, int hi) {
   return a < lo ? lo : (a > hi ? hi : a);
 }
 
-// A column read from a (k, j, i) array: element k at p[k * s].
+// A column of a [k][column] array: element k at p[k * s].
 template <typename T>
 struct Col {
-  const T* p;
+  T* p;
   int s;
-  __device__ __forceinline__ T operator[](int k) const { return p[k * s]; }
+  __device__ __forceinline__ T& operator[](int k) const { return p[k * s]; }
 };
 
-// Horizontal advective flux (advection.hadv_fluxes) at face a of one grid
-// line of n points: q[b * st] and the mass flux F[b * st] (Huon along xi,
-// Hvom along eta).  Neighbours wrap modulo n, as torch.roll does; at a
-// non-periodic edge the first differences at lo and hi are extrapolated
-// (bc.extrap_west/east or south/north).
+// One grid line through a column at index a of n points along xi or eta:
+// the plane offsets of its wrapped neighbours a-2, a-1, a+1, a+2 (o) and
+// a-3, a+3 (far), and, two bits for each j = 0..3, which raw first
+// difference the plain version's dq at b = a-1+j takes.  dq = q - im1(q),
+// then extrapolated at lo and hi on a non-periodic edge (bc.extrap_*:
+// dq[lo] = dq[lo+1], dq[hi] = dq[hi-1]), so dq(b) is the raw difference at
+// b-1, b or b+1 (sel 0, 1, 2).
+struct Line {
+  int o[4];
+  int far[2];
+  int sel;
+};
+
+// base: offset of the line's point 0; st: its stride
+__device__ __forceinline__ Line make_line(int a, int n, int base, int st,
+                                          int per, int lo, int hi) {
+  Line L;
+  L.o[0] = base + wrap(a - 2, n) * st;
+  L.o[1] = base + wrap(a - 1, n) * st;
+  L.o[2] = base + wrap(a + 1, n) * st;
+  L.o[3] = base + wrap(a + 2, n) * st;
+  L.far[0] = base + wrap(a - 3, n) * st;
+  L.far[1] = base + wrap(a + 3, n) * st;
+  L.sel = 0;
+  for (int j = 0; j < 4; ++j) {
+    const int b = wrap(a - 1 + j, n);
+    L.sel |= (extrap_src(b, per, lo, hi) - b + 1) << (2 * j);
+  }
+  return L;
+}
+
+// the xi line and the eta line through column (J, I)
+__device__ __forceinline__ Line x_line(const Geom& g, int J, int I) {
+  return make_line(I, g.Nx, J * g.Nx, 1, g.ew_per, g.H - 1, g.H + g.L + 1);
+}
+
+__device__ __forceinline__ Line y_line(const Geom& g, int J, int I) {
+  return make_line(J, g.Ny, I, g.Nx, g.ns_per, g.H - 1, g.H + g.M + 1);
+}
+
+// Horizontal advective flux (advection.hadv_fluxes) at one face: the
+// tracer on either side (qm, qa), the mass flux there, and dq at the face
+// before it, at it and after it.
 template <typename T>
-__device__ __forceinline__ T hadv_flux(const T* q, const T* F, int st, int n,
-                                       int a, int per, int lo, int hi,
-                                       int scheme) {
-  auto dq = [&](int b) {
-    b = extrap_src(b, per, lo, hi);
-    return q[b * st] - q[wrap(b - 1, n) * st];
-  };
-  const int am = wrap(a - 1, n);
-  const int ap = wrap(a + 1, n);
-  const T qa = q[a * st];
-  const T qm = q[am * st];
-  const T Fa = F[a * st];
-  const T dq_a = dq(a);
+__device__ __forceinline__ T hadv_face(int scheme, T qm, T qa, T Fa, T dq_m,
+                                       T dq_a, T dq_p) {
   if (scheme == H_U3) {
-    const T curv = dq(ap) - dq_a;
-    const T curv_m = dq_a - dq(am);
+    const T curv = dq_p - dq_a;
+    const T curv_m = dq_a - dq_m;
     const T Fpos = Fa > T(0) ? Fa : T(0);
     const T Fneg = Fa < T(0) ? Fa : T(0);
     return Fa * T(0.5) * (qm + qa) -
            T(1.0 / 6.0) * (curv_m * Fpos + curv * Fneg);
   }
-  const T grad = T(0.5) * (dq(ap) + dq_a);
-  const T grad_m = T(0.5) * (dq_a + dq(am));
+  const T grad = T(0.5) * (dq_p + dq_a);
+  const T grad_m = T(0.5) * (dq_a + dq_m);
   return Fa * T(0.5) * (qm + qa - T(1.0 / 3.0) * (grad - grad_m));
 }
 
-// The two flux differences of a tracer at column (J, I) of level plane q
-// (advection.hadv_fluxes, then (ip1(FX) - FX) + (jp1(FE) - FE)).
+// The flux difference along one line at the column (ip1(FX) - FX, or
+// jp1(FE) - FE): q is the tracer's level plane, v its values at the
+// column's neighbours a-2, a-1, a+1, a+2 (Line order), qc at the column,
+// Fw and Fe the mass flux at the column's own face and the next.
 template <typename T>
-__device__ __forceinline__ T hadv_div(const Geom& g, const T* q,
-                                      const T* Huon, const T* Hvom, int J,
-                                      int I, int scheme) {
-  const int row = J * g.Nx;
-  const T FXe = hadv_flux(q + row, Huon + row, 1, g.Nx, wrap(I + 1, g.Nx),
-                          g.ew_per, g.H - 1, g.H + g.L + 1, scheme);
-  const T FXw = hadv_flux(q + row, Huon + row, 1, g.Nx, I, g.ew_per,
-                          g.H - 1, g.H + g.L + 1, scheme);
-  const T FEn = hadv_flux(q + I, Hvom + I, g.Nx, g.Ny, wrap(J + 1, g.Ny),
-                          g.ns_per, g.H - 1, g.H + g.M + 1, scheme);
-  const T FEs = hadv_flux(q + I, Hvom + I, g.Nx, g.Ny, J, g.ns_per, g.H - 1,
-                          g.H + g.M + 1, scheme);
-  return (FXe - FXw) + (FEn - FEs);
+__device__ __forceinline__ T line_div(const T* __restrict__ q, const Line& L,
+                                      const T (&v)[4], T qc, T Fw, T Fe,
+                                      int scheme) {
+  // raw first differences at a-2 .. a+3 (r[0] and r[5] only where an edge
+  // extrapolation reaches them)
+  T r[6];
+  r[0] = T(0);
+  r[1] = v[1] - v[0];
+  r[2] = qc - v[1];
+  r[3] = v[2] - qc;
+  r[4] = v[3] - v[2];
+  r[5] = T(0);
+  if ((L.sel & 3) == 0) r[0] = v[0] - __ldg(q + L.far[0]);
+  if (((L.sel >> 6) & 3) == 2) r[5] = __ldg(q + L.far[1]) - v[3];
+  T dq[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int s = (L.sel >> (2 * j)) & 3;
+    dq[j] = s == 0 ? r[j] : (s == 2 ? r[j + 2] : r[j + 1]);
+  }
+  const T west = hadv_face(scheme, v[1], qc, Fw, dq[0], dq[1], dq[2]);
+  const T east = hadv_face(scheme, qc, v[2], Fe, dq[1], dq[2], dq[3]);
+  return east - west;
 }
 
-// Vertical advective flux at interfaces 0..N into FC (advection.vadv_flux,
-// FC[0] = FC[N] = 0): C4 with reduced-order end interfaces, or the
-// parabolic-spline interpolation (tridiag.spline_interp_flux) with end
-// conditions (c_bot, cf1, c_top, d_top).  q is the tracer column (local),
-// Hz and W columns of the layer thickness and the vertical velocity.
-template <typename T>
-__device__ void vadv_flux(int scheme, const T* q, Col<T> Hz, Col<T> W,
-                          int N, double c_bot, double cf1, double c_top,
-                          double d_top, T* FC, T* CFs) {
+// Vertical C4 advective flux (advection.vadv_flux "C4") at interface k,
+// 1 <= k <= N-1, with reduced-order end interfaces; q the tracer column
+// and W the vertical velocity's.
+template <typename T, class Q, class V>
+__device__ __forceinline__ T c4_flux(Q q, V W, int N, int k) {
+  const T c1 = T(0.5), c2 = T(7.0 / 12.0), c3 = T(1.0 / 12.0);
+  if (k == 1) return W[1] * (c1 * q[0] + c2 * q[1] - c3 * q[2]);
+  if (k == N - 1)
+    return W[N - 1] * (c1 * q[N - 1] + c2 * q[N - 2] - c3 * q[N - 3]);
+  return W[k] * (c2 * (q[k - 1] + q[k]) - c3 * (q[k - 2] + q[k + 1]));
+}
+
+// Vertical SPLINES advective flux at interfaces 0..N into FC
+// (tridiag.spline_interp_flux, FC[0] = FC[N] = 0) with end conditions
+// (c_bot, cf1, c_top, d_top); CFs: N scratch.
+template <typename T, class Q, class A>
+__device__ void spline_interp_flux(Q q, Q Hz, Q W, int N, double c_bot,
+                                   double cf1, double c_top, double d_top,
+                                   A FC, A CFs) {
   FC[0] = T(0);
   FC[N] = T(0);
-  if (scheme == V_C4) {
-    const T c1 = T(0.5), c2 = T(7.0 / 12.0), c3 = T(1.0 / 12.0);
-    for (int k = 1; k < N; ++k) {
-      if (k == 1)
-        FC[k] = W[1] * (c1 * q[0] + c2 * q[1] - c3 * q[2]);
-      else if (k == N - 1)
-        FC[k] = W[N - 1] * (c1 * q[N - 1] + c2 * q[N - 2] - c3 * q[N - 3]);
-      else
-        FC[k] = W[k] * (c2 * (q[k - 1] + q[k]) - c3 * (q[k - 2] + q[k + 1]));
-    }
-    return;
-  }
   T FCm1 = T(c_bot) * q[0];
   T CFk = T(cf1);
   for (int k = 0; k < N - 1; ++k) {
@@ -124,30 +165,46 @@ __device__ void vadv_flux(int scheme, const T* q, Col<T> Hz, Col<T> W,
 }
 
 // Parabolic-spline implicit vertical diffusion (tridiag.spline_vdiff_flux):
-// interface flux AK * dq/dz into flux[0..N], flux[0] = flux[N] = 0.
-template <typename T>
-__device__ void spline_vdiff_flux(T dt, const T* Hz, const T* oHz,
-                                  const T* AK, const T* q, int N, T* flux,
-                                  T* CFs) {
+// interface flux AK * dq/dz into flux[0..N], flux[0] = flux[N] = 0.  Each
+// step reads the next step's operands before it stores, so that the loads
+// stay off the recurrence.
+template <typename T, class C, class A>
+__device__ void spline_vdiff_flux(T dt, C Hz, C oHz, C AK, C q, int N,
+                                  A flux, A CFs) {
   const T sixth = T(1.0 / 6.0);
   const T third = T(1.0 / 3.0);
   T CFp = T(0);
   T DCp = T(0);
+  T Hz0 = Hz[0], Hz1 = Hz[1], oHz0 = oHz[0], oHz1 = oHz[1];
+  T AK0 = AK[0], AK1 = AK[1], AK2 = AK[2], q0 = q[0], q1 = q[1];
   for (int k = 0; k < N - 1; ++k) {
-    const T FC = sixth * Hz[k] - dt * AK[k] * oHz[k];
-    const T CF = sixth * Hz[k + 1] - dt * AK[k + 2] * oHz[k + 1];
-    const T BC = third * (Hz[k] + Hz[k + 1]) +
-                 dt * AK[k + 1] * (oHz[k] + oHz[k + 1]);
+    const bool more = k + 2 < N;
+    const T Hz2 = more ? Hz[k + 2] : T(0);
+    const T oHz2 = more ? oHz[k + 2] : T(0);
+    const T AK3 = more ? AK[k + 3] : T(0);
+    const T q2 = more ? q[k + 2] : T(0);
+    const T FC = sixth * Hz0 - dt * AK0 * oHz0;
+    const T CF = sixth * Hz1 - dt * AK2 * oHz1;
+    const T BC = third * (Hz0 + Hz1) + dt * AK1 * (oHz0 + oHz1);
     const T cff = T(1) / (BC - FC * CFp);
     CFp = cff * CF;
-    DCp = cff * ((q[k + 1] - q[k]) - FC * DCp);
+    DCp = cff * ((q1 - q0) - FC * DCp);
     CFs[k] = CFp;
     flux[k + 1] = DCp;
+    Hz0 = Hz1, Hz1 = Hz2, oHz0 = oHz1, oHz1 = oHz2;
+    AK0 = AK1, AK1 = AK2, AK2 = AK3, q0 = q1, q1 = q2;
   }
   T Dnext = T(0);
-  for (int k = N - 2; k >= 0; --k) {
-    Dnext = flux[k + 1] - CFs[k] * Dnext;
-    flux[k + 1] = AK[k + 1] * Dnext;
+  if (N >= 2) {
+    T f = flux[N - 1], cf = CFs[N - 2], ak = AK[N - 1];
+    for (int k = N - 2; k >= 0; --k) {
+      const T f_next = k > 0 ? flux[k] : T(0);
+      const T cf_next = k > 0 ? CFs[k - 1] : T(0);
+      const T ak_next = k > 0 ? AK[k] : T(0);
+      Dnext = f - cf * Dnext;
+      flux[k + 1] = ak * Dnext;
+      f = f_next, cf = cf_next, ak = ak_next;
+    }
   }
   flux[0] = T(0);
   flux[N] = T(0);
@@ -156,9 +213,9 @@ __device__ void spline_vdiff_flux(T dt, const T* Hz, const T* oHz,
 // Standard implicit vertical diffusion (tridiag.thomas_implicit with
 // lambda = 1): q holds the mass-weighted right-hand side on entry and the
 // solution on exit.  FC: N+1 scratch, CFs: N scratch.
-template <typename T>
-__device__ void thomas_implicit(double dt, const T* Hz, Col<T> z_r,
-                                Col<T> AK, T* q, int N, T* FC, T* CFs) {
+template <typename T, class A>
+__device__ void thomas_implicit(double dt, A Hz, A z_r, A AK, A q, int N,
+                                A FC, A CFs) {
   FC[0] = T(0);
   FC[N] = T(0);
   for (int k = 1; k < N; ++k)

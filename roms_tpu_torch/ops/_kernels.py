@@ -124,6 +124,9 @@ def library() -> ctypes.CDLL:
     lib.roms_t3dmix2_geo_layout.argtypes = [ctypes.c_int,
                                             ctypes.POINTER(ctypes.c_int)]
     lib.roms_t3dmix2_geo_layout.restype = ctypes.c_int
+    lib.roms_tracer_layout.argtypes = [ctypes.c_int, ctypes.c_int,
+                                       ctypes.POINTER(ctypes.c_int)]
+    lib.roms_tracer_layout.restype = ctypes.c_int
     return lib
 
 
@@ -176,7 +179,7 @@ def geometry(cfg) -> list:
             int(cfg.ew_periodic), int(cfg.ns_periodic)]
 
 
-MAX_N = 64      # csrc/column.cuh kMaxN: levels a column kernel's thread holds
+MAX_N = 64      # csrc/column.cuh kMaxN: most levels a column kernel takes
 
 
 def column_ints(cfg, name: str) -> list:

@@ -11,7 +11,10 @@ tracer_corrector - step3d_t -> the new tracers.  Replaces
 Each wrapper takes its plain version (``*_plain``: the port's stage
 functions) for CPU tensors only.  For CUDA tensors it launches the kernel of
 csrc/step3d.cu, one launch for all tracers or both directions, or raises;
-it never falls back.  ``wrapper.launches`` counts kernel launches.  The
+it never falls back.  The tracer kernels run on tiles of padded points
+whose columns a block keeps in shared memory; ``tracer_plan`` sizes the
+tile and the block, ``tracer_layout`` reports a kernel's registers and
+stack frame on the card.  ``wrapper.launches`` counts kernel launches.  The
 gates ``use_tracer`` and ``use_uv`` decide, as the JAX step's
 ``use_tracer_pallas`` / ``use_uv_pallas`` do, whether the step calls the
 wrappers at all.  The TPU kernel's folded harmonic mixing
@@ -20,12 +23,15 @@ wrappers at all.  The TPU kernel's folded harmonic mixing
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ..config import Config
 from ..grid import Grid
 from . import bc
-from ._kernels import bc_kinds, check_tensors, column_ints, launch, on_card
+from ._kernels import bc_kinds, check_tensors, column_ints, launch, \
+    library, on_card
 from .pre_step3d import predictor_coefs, tracer_phase as tracer_predictor_plain
 from .step3d_t import step3d_t as tracer_corrector_plain
 from .step3d_uv import corrector_cff, step3d_uv as uv_corrector_plain
@@ -35,6 +41,46 @@ _OK_SCHEMES = {"C2", "U1", "U3", "C4", "A4", "SPLINES"}
 _HADV_CODE = {"U3": 0, "C4": 1}           # csrc/column.cuh HScheme
 _VADV_CODE = {"C4": 0, "SPLINES": 1}      # csrc/column.cuh VScheme
 MAX_TRACERS = 16                          # column.cuh kMaxTr
+TILE = 32                # padded points a tracer tile holds, at most
+TILE_THREADS = 256       # threads a tracer block (step3d.cu kTileThreads)
+SMEM_MAX = 232448        # shared memory a block can take on the H100
+
+
+def tracer_plan(name: str, dtype, N: int, NT: int, ny: int, nx: int) -> dict:
+    """The launch of tracer kernel `name` ("tracer_predictor" or
+    "tracer_corrector") on a padded ny x nx grid: {"tile": padded points a
+    block, "blocks", "threads": a block, "smem_bytes": its dynamic shared
+    memory}.  A tile column holds step3d.cuh tracer_rows words.  The tile
+    is the largest power of two up to TILE whose columns leave room for
+    three blocks an SM, and at least one column; the block's threads are a
+    multiple of it (one per column and level slot)."""
+    if name == "tracer_predictor":
+        rows = 7 * N + 1 + NT * (4 * N + 1)
+    else:
+        rows = 8 * N + 1 + min(NT, 2) * (N + 1) + NT * (4 * N + 1)
+    col_bytes = rows * (8 if dtype == torch.float64 else 4)
+    tile = TILE
+    while tile > 1 and tile * col_bytes > SMEM_MAX // 3:
+        tile //= 2
+    return dict(tile=tile, blocks=-(-ny * nx // tile), threads=TILE_THREADS,
+                smem_bytes=tile * col_bytes)
+
+
+def _plan_ints(name: str, cfg: Config, dtype) -> list:
+    plan = tracer_plan(name, dtype, cfg.N, cfg.ntracers, cfg.ny_tot,
+                       cfg.nx_tot)
+    return [plan["tile"], plan["threads"], plan["smem_bytes"]]
+
+
+def tracer_layout(name: str, dtype) -> dict:
+    """Tracer kernel `name` on the current card: {"registers": a thread,
+    "stack_bytes": its local memory (stack frame) a thread}."""
+    out = (ctypes.c_int * 2)()
+    err = library().roms_tracer_layout(int(dtype == torch.float64),
+                                       int(name == "tracer_corrector"), out)
+    if err != 0:
+        raise RuntimeError(f"roms_tracer_layout: CUDA error {err}")
+    return dict(registers=out[0], stack_bytes=out[1])
 
 
 def use_tracer(cfg: Config, bry=None, clm=None, sources=None,
@@ -118,8 +164,9 @@ def tracer_predictor(cfg: Config, grid: Grid, iic: int, t, t_prev, Hz,
            [t, t_prev, Hz, Huon, Hvom, W, Akt, grid.pm, grid.pn, stflx,
             btflx, ghats, srflx if sol else None, swdk_w if sol else None,
             t3, t_nnew],
-           ints + [nt, ng, int(sol)] + bc_kinds(cfg.lbc_t) + schemes,
-           [cfg.dt] + coefs, torch.cuda.current_stream(t.device))
+           ints + [nt, ng, int(sol)] + bc_kinds(cfg.lbc_t) + schemes +
+           _plan_ints(name, cfg, t.dtype), [cfg.dt] + coefs,
+           torch.cuda.current_stream(t.device))
     tracer_predictor.launches += 1
     return t3, t_nnew
 
@@ -150,7 +197,8 @@ def tracer_corrector(cfg: Config, grid: Grid, t_nnew, t3, Huon, Hvom, W,
            [t_nnew, t3, Huon, Hvom, W, Hz_new, z_r_new if thomas else None,
             Akt, grid.pm, grid.pn, out],
            ints + [nt] + bc_kinds(cfg.lbc_t) + [int(cfg.splines_vdiff)] +
-           schemes, [cfg.dt], torch.cuda.current_stream(t_nnew.device))
+           schemes + _plan_ints(name, cfg, t_nnew.dtype), [cfg.dt],
+           torch.cuda.current_stream(t_nnew.device))
     tracer_corrector.launches += 1
     return out
 

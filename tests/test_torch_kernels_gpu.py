@@ -1,7 +1,9 @@
 """roms_tpu_torch CUDA kernels against their plain PyTorch versions, on the
 card, in float32 and float64, on UPWELLING and on closed, gradient and
 masked (an island) variants of it (the momentum kernels also on a
-curvilinear one), the geopotential tracer diffusion on a small BENCHMARK;
+curvilinear one), the geopotential tracer diffusion on a small BENCHMARK,
+the tracer kernels bitwise, also on the small BENCHMARK with 1-3 tracers
+and at their largest shared-memory plans;
 the UPWELLING anchor with ten kernels on, and the small-BENCHMARK fixture
 (tests/data/torch_benchmark_small.npz) with all eleven on.
 
@@ -56,8 +58,8 @@ def _close(got, ref, rtol, name=""):
         assert err <= rtol * scale, f"{name}: {err:.3e} > {rtol}*{scale:.3e}"
 
 
-def _config(kind, dtype):
-    cfg = upwelling.make_config(Lm=20, Mm=16, N=6, ndtfast=8, dtype=dtype)
+def _config(kind, dtype, N=6):
+    cfg = upwelling.make_config(Lm=20, Mm=16, N=N, ndtfast=8, dtype=dtype)
     if kind in ("closed", "masked"):
         cfg = dataclasses.replace(
             cfg, ew_periodic=False, gamma2=-1.0,
@@ -218,20 +220,38 @@ def test_prsgrd32_kernel(developed, tide):
            "prsgrd32")
 
 
-@pytest.mark.parametrize("vadv", ["C4", "SPLINES"])
-@pytest.mark.parametrize("iic,extra", [(0, False), (1, False), (5, False),
-                                       (5, True)])
-def test_tracer_predictor_kernel(developed, iic, extra, vadv):
-    """Each rung of the AB3 start-up; `extra` adds the KPP nonlocal flux
-    and the penetrating shortwave terms; `vadv` is the vertical tracer
-    advection of both tracers."""
-    cfg, grid, s = developed
-    cfg = cfg.replace(t_vadv=(vadv, vadv))
-    f = _stage_inputs(cfg, grid, s)
+def _equal(got, ref, name):
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b), \
+            f"{name}: differs by {(a - b).abs().max().item():.3e}"
+
+
+def _with_tracers(cfg, s, nt):
+    """The case with nt tracers: the first nt of the state's, and random
+    passive ones beyond two (C4 and U3 horizontal, SPLINES and C4 vertical
+    advection in turn)."""
+    t, t_prev = s.t[:nt], s.t_prev[:nt]
+    if nt > t.shape[0]:
+        rng = np.random.default_rng(29)
+        extra = torch.tensor(
+            rng.standard_normal((nt - t.shape[0],) + t.shape[1:]),
+            dtype=t.dtype, device=t.device)
+        t, t_prev = torch.cat([t, extra]), torch.cat([t_prev, 0.9 * extra])
+    hadv = cfg.t_hadv[:2] + ("C4", "U3") * nt
+    vadv = cfg.t_vadv[:2] + ("SPLINES", "C4") * nt
+    cfg = cfg.replace(ntracers=nt, t_hadv=hadv[:nt], t_vadv=vadv[:nt])
+    return cfg, s.replace(t=t.contiguous(), t_prev=t_prev.contiguous())
+
+
+def _check_predictor(cfg, grid, s, f, iic, extra):
+    """tracer_predictor on state s and stage inputs f, bitwise equal to its
+    plain version, as is a second launch; `extra` adds the KPP nonlocal
+    flux and the penetrating shortwave terms.  Returns (t3, t_nnew)."""
     kw = {}
     if extra:
         sw = f["W"].shape
-        kw = dict(ghats=f["R"]((2,) + sw, 1e-3),
+        kw = dict(ghats=f["R"]((min(cfg.ntracers, 2),) + sw, 1e-3),
                   srflx=f["R"](s.zeta.shape, 1e-4).abs(),
                   swdk_w=torch.rand(sw, dtype=s.u.dtype, device=s.u.device))
     args = (cfg, grid, iic, s.t, s.t_prev, f["Hz"], f["Huon"], f["Hvom"],
@@ -239,27 +259,96 @@ def test_tracer_predictor_kernel(developed, iic, extra, vadv):
     before = step3d_cuda.tracer_predictor.launches
     got = step3d_cuda.tracer_predictor(*args, **kw)
     assert step3d_cuda.tracer_predictor.launches == before + 1
-    _close(got, step3d_cuda.tracer_predictor_plain(*args, **kw),
-           RTOL[s.u.dtype], "tracer_predictor")
+    ref = step3d_cuda.tracer_predictor_plain(*args, **kw)
+    _equal(got, ref, "tracer_predictor")
+    _equal(step3d_cuda.tracer_predictor(*args, **kw), got,
+           "tracer_predictor, second launch")
+    return ref
+
+
+def _check_corrector(cfg, grid, s, f, t3, t_nnew):
+    """tracer_corrector (spline or Thomas vertical diffusion, as cfg says)
+    from (t3, t_nnew), bitwise equal to its plain version, as is a second
+    launch."""
+    args = (cfg, grid, t_nnew, t3, f["Huon"], f["Hvom"], f["W"],
+            f["Hz"] * 1.001, f["z_r"] + 0.01, s.Akt + 1e-3)
+    before = step3d_cuda.tracer_corrector.launches
+    got = step3d_cuda.tracer_corrector(*args)
+    assert step3d_cuda.tracer_corrector.launches == before + 1
+    _equal([got], [step3d_cuda.tracer_corrector_plain(*args)],
+           "tracer_corrector")
+    _equal([step3d_cuda.tracer_corrector(*args)], [got],
+           "tracer_corrector, second launch")
+
+
+def _ragged_tiles(cfg, dtype):
+    """Whether both tracer kernels run on several tiles, the last ragged,
+    with tiles that straddle rows of the padded grid."""
+    points = cfg.ny_tot * cfg.nx_tot
+    plans = [step3d_cuda.tracer_plan(name, dtype, cfg.N, cfg.ntracers,
+                                     cfg.ny_tot, cfg.nx_tot)
+             for name in ("tracer_predictor", "tracer_corrector")]
+    return all(p["blocks"] > 1 and points % p["tile"] != 0 and
+               cfg.nx_tot % p["tile"] != 0 for p in plans)
+
+
+@pytest.mark.parametrize("vadv", ["C4", "SPLINES"])
+@pytest.mark.parametrize("iic,extra", [(0, False), (1, False), (5, False),
+                                       (5, True)])
+def test_tracer_predictor_kernel(developed, iic, extra, vadv):
+    """Each rung of the AB3 start-up; `extra` adds the KPP nonlocal flux
+    and the penetrating shortwave terms; `vadv` is the vertical tracer
+    advection of both tracers.  On ragged tiles."""
+    cfg, grid, s = developed
+    cfg = cfg.replace(t_vadv=(vadv, vadv))
+    assert _ragged_tiles(cfg, s.u.dtype)
+    _check_predictor(cfg, grid, s, _stage_inputs(cfg, grid, s), iic, extra)
 
 
 @pytest.mark.parametrize("vadv", ["C4", "SPLINES"])
 @pytest.mark.parametrize("splines", [True, False])
 def test_tracer_corrector_kernel(developed, splines, vadv):
+    """On ragged tiles."""
     cfg, grid, s = developed
     cfg = cfg.replace(splines_vdiff=splines, t_vadv=(vadv, vadv))
+    assert _ragged_tiles(cfg, s.u.dtype)
     f = _stage_inputs(cfg, grid, s)
-    Akt = s.Akt + 1e-3
     t3, t_nnew = step3d_cuda.tracer_predictor_plain(
         cfg, grid, 3, s.t, s.t_prev, f["Hz"], f["Huon"], f["Hvom"], f["W"],
-        Akt, f["stflx"], f["btflx"])
-    args = (cfg, grid, t_nnew, t3, f["Huon"], f["Hvom"], f["W"],
-            f["Hz"] * 1.001, f["z_r"] + 0.01, Akt)
-    before = step3d_cuda.tracer_corrector.launches
-    got = step3d_cuda.tracer_corrector(*args)
-    assert step3d_cuda.tracer_corrector.launches == before + 1
-    _close([got], [step3d_cuda.tracer_corrector_plain(*args)],
-           RTOL[s.u.dtype], "tracer_corrector")
+        s.Akt + 1e-3, f["stflx"], f["btflx"])
+    _check_corrector(cfg, grid, s, f, t3, t_nnew)
+
+
+@pytest.mark.parametrize("splines", [True, False])
+@pytest.mark.parametrize("nt", [1, 2, 3])
+def test_tracer_kernels_on_ragged_tiles(fixture_case, nt, splines):
+    """The small BENCHMARK (spherical, E-W periodic, 70 x 38 padded points:
+    several tiles, the last ragged, tiles straddling rows) with 1, 2 or 3
+    tracers, the KPP and shortwave terms on."""
+    cfg, grid, s = fixture_case
+    cfg, s = _with_tracers(cfg.replace(splines_vdiff=splines), s, nt)
+    assert _ragged_tiles(cfg, s.u.dtype)
+    f = _stage_inputs(cfg, grid, s)
+    _check_corrector(cfg, grid, s, f,
+                     *_check_predictor(cfg, grid, s, f, 5, True))
+
+
+@pytest.mark.parametrize("nt", [2, 16])
+def test_tracer_kernels_at_the_largest_plan(device, nt):
+    """N = 64 in float64 on a small gradient-walled plane: the largest
+    columns the kernels take, so the fewest a tile (8, and 2 with 16
+    tracers), in more than 48 KB of shared memory a block."""
+    cfg, grid, s0, ffn = upwelling.build(
+        _config("gradient", "float64", N=64), device=device)
+    s = stepping.run(cfg.replace(pallas2d=False), grid, s0, 1, ffn)
+    cfg, s = _with_tracers(cfg, s, nt)
+    for name in ("tracer_predictor", "tracer_corrector"):
+        plan = step3d_cuda.tracer_plan(name, torch.float64, 64, nt,
+                                       cfg.ny_tot, cfg.nx_tot)
+        assert plan["tile"] <= 8 and plan["smem_bytes"] > 48 * 1024, plan
+    f = _stage_inputs(cfg, grid, s)
+    _check_corrector(cfg, grid, s, f,
+                     *_check_predictor(cfg, grid, s, f, 5, True))
 
 
 @pytest.mark.parametrize("iic", [0, 1, 5])
