@@ -3,7 +3,7 @@ each against its plain PyTorch version, drives the UPWELLING and the
 BENCHMARK1 steps through them, and checks the results.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --column-times TREE    # rows 8-10's times only,
+    python3 chip_smoke.py --column-times TREE    # rows 6-10's times only,
                                                  # roms_tpu_torch from TREE
 
 Phases, one or more lines each; any failure exits non-zero:
@@ -16,13 +16,15 @@ Phases, one or more lines each; any failure exits non-zero:
      advection, JM95 + bvf, closed E-W walls, land points, the curvilinear
      terms, the first step's momentum start; t3dmix2_geo, which UPWELLING
      with tnu2 = 0 does not call, on its tracers and depths): max abs
-     error, tolerance (none for the tracer kernels, held bitwise), whether
+     error, tolerance (none for the tracer kernels and prsgrd32, held
+     bitwise, nor for rhs3d's ru, rv, u_nnew and v_nnew), whether
      a second launch on the same input is bitwise equal to the first, the
      time a call of kernel and plain version (CUDA events around 10 calls
-     back to back, median of 5 such batches; for the tracer kernels also
-     their device time alone, under torch.profiler), and the kernel's bound
-     (bytes and operations); the tracer kernels' tiles (points, blocks,
-     threads, shared memory, registers, stack frame); and the fast loop's
+     back to back, median of 5 such batches; for the kernels held bitwise
+     also their device time alone, under torch.profiler), and the kernel's
+     bound (bytes and operations); the tiles of the tracer kernels,
+     prsgrd32 and rhs3d (points, level slots, blocks, threads, shared
+     memory, registers, stack frame); and the fast loop's
      launch at 128, 256 and 512 threads a block: blocks, the co-resident
      limit, barriers, its time, the time of one grid barrier (an empty
      kernel of as many barriers at the same launch) and of one phase, each
@@ -87,9 +89,11 @@ CARD_FACTOR = 100.0
 # round-off, except the fast loop, which compounds it over nfast substeps
 KERNEL_RTOL = {"float64": 1e-12, "float32": 1e-5}
 FAST_RTOL = {"float64": 1e-10, "float32": 1e-4}
-# kernels held to their plain versions bitwise (no column sums in another
-# order than torch's)
-BITWISE = ("tracer_predictor", "tracer_corrector")
+# kernels held to their plain versions bitwise: the outputs that have no
+# column sum in another order than torch's (None: every output); rhs3d's
+# rufrc and rvfrc are column sums
+BITWISE = {"tracer_predictor": None, "tracer_corrector": None,
+           "prsgrd32": None, "rhs3d": (0, 1, 4, 5)}
 NRUNS, NBATCH = 10, 5
 # the fast loop's block sizes that phases 3 and 7 time
 FAST_THREADS_SWEEP = (128, 256, 512)
@@ -428,16 +432,21 @@ def profiled_ms(fn, args, kw) -> float:
     return sum(us) / len(us) / 1e3 if us else float("nan")
 
 
-def max_err(outs_k, outs_p, rtol):
-    """(max abs error, worst error/tolerance) over paired outputs, each
-    held to rtol * max|plain field|."""
-    worst_abs, worst_ratio = 0.0, 0.0
-    for a, b in zip(tensors_of(outs_k), tensors_of(outs_p)):
+def max_err(outs_k, outs_p, rtol, exact=()):
+    """(max abs error, worst error/tolerance, whether the outputs of index
+    `exact` are bitwise equal) over paired outputs, each held to rtol *
+    max|plain field| (the worst ratio over the others only)."""
+    worst_abs, worst_ratio, equal = 0.0, 0.0, True
+    pairs = zip(tensors_of(outs_k), tensors_of(outs_p))
+    for n, (a, b) in enumerate(pairs):
         err = (a - b).abs().max().item()
-        tol = rtol * max(b.abs().max().item(), 1e-30)
         worst_abs = max(worst_abs, err)
-        worst_ratio = max(worst_ratio, err / tol)
-    return worst_abs, worst_ratio
+        if n in exact:
+            equal = equal and err == 0.0
+        else:
+            tol = rtol * max(b.abs().max().item(), 1e-30)
+            worst_ratio = max(worst_ratio, err / tol)
+    return worst_abs, worst_ratio, equal
 
 
 def variants(cfg, grid, calls):
@@ -534,15 +543,22 @@ def check_variants(tag, grid, cases, dtype, results):
         out_p = plain(*fresh(args), **kw)
         finite = all(bool(torch.isfinite(a).all())
                      for a in tensors_of(out_k))
-        err, ratio = max_err(out_k, out_p, rtol[dtype])
+        nout = len(tensors_of(out_k))
+        exact = BITWISE.get(name, ())
+        exact = range(nout) if exact is None else \
+            tuple(n for n in exact if n < nout)
+        err, ratio, equal = max_err(out_k, out_p, rtol[dtype], exact)
         repeat = same(kern(*fresh(args), **kw), out_k)
         ms = device_ms(kern, args, kw)
         plain_ms = device_ms(plain, args, kw)
         ops = count_ops(plain, args, kw)
         b_ms, b_by = bound(name, grid, args, kw, out_k, ops, dtype)
-        exact = name in BITWISE
-        ok = finite and repeat and (err == 0.0 if exact else ratio <= 1.0)
-        bar = "bitwise" if exact else f"tol={rtol[dtype]:g}*max|field|"
+        ok = finite and repeat and equal and ratio <= 1.0
+        bar = f"tol={rtol[dtype]:g}*max|field|"
+        if len(exact) == nout:
+            bar = "bitwise"
+        elif exact:
+            bar = f"outputs {','.join(map(str, exact))} bitwise, {bar}"
         dev = f" (device {profiled_ms(kern, args, kw):.4f} ms)" if exact \
             else ""
         print(f"[{tag}] {label:30s} {dtype}: max_abs_err={err:.3e} "
@@ -616,11 +632,27 @@ def fast_loop_launches(tag, args, kw, dtype, out_ref):
         step2d_cuda.FAST_THREADS = default
 
 
-def tracer_tiles(tag, cfg, dtype):
-    """Rows 8 and 9's launch on this case: tile, blocks, threads, shared
-    memory, and the registers and stack frame of the loaded kernel."""
+def column_tiles(tag, cfg, dtype):
+    """The launch of rows 6-9 on this case: tile, level slots, blocks,
+    threads, shared memory, and the registers and stack frame of the
+    loaded kernel."""
     import torch
-    from roms_tpu_torch.ops import step3d_cuda
+    from roms_tpu_torch.ops import prsgrd_cuda, rhs3d_cuda, step3d_cuda
+    t = getattr(torch, dtype)
+    shape = (cfg.N, cfg.ny_tot, cfg.nx_tot)
+    for name, plan, lay in (
+            ("prsgrd32", prsgrd_cuda.prsgrd_plan(t, *shape),
+             prsgrd_cuda.prsgrd_layout(t)),
+            ("rhs3d", rhs3d_cuda.rhs3d_plan(t, *shape),
+             rhs3d_cuda.rhs3d_layout(t))):
+        (tx, ty), slots = plan["tile"], plan.get("levels", 1)
+        print(f"[{tag}] {name} tile {dtype}: {tx}x{ty} points a block "
+              f"(xi x eta), {slots} level slot(s), {plan['blocks']} blocks "
+              f"x {plan['threads']} threads for {cfg.ny_tot}x{cfg.nx_tot} "
+              f"padded points and {cfg.N} levels, {plan['smem_bytes']} "
+              f"bytes of shared memory, {lay['registers']} registers and "
+              f"{lay['stack_bytes']} bytes of stack frame a thread",
+              flush=True)
     for name in ("tracer_predictor", "tracer_corrector"):
         plan = step3d_cuda.tracer_plan(name, getattr(torch, dtype), cfg.N,
                                        cfg.ntracers, cfg.ny_tot, cfg.nx_tot)
@@ -654,7 +686,7 @@ def kernel_checks(results, device):
         calls = captured_calls(cfg, grid, state, ffn)
         check(set(calls) == set(table) - {"t3dmix2_geo"},
               f"the main path called {sorted(calls)}, not every kernel")
-        tracer_tiles("kernel", cfg, dtype)
+        column_tiles("kernel", cfg, dtype)
         check_variants("kernel", grid, variants(cfg, grid, calls), dtype,
                        results)
 
@@ -869,7 +901,7 @@ def bench_kernel_checks(results, device, s):
               f"{blocks[0]}x{blocks[1]}x{blocks[2]} blocks for "
               f"{cfg.nx_tot}x{cfg.ny_tot} padded points and "
               f"{blocks[2]} tracers", flush=True)
-        tracer_tiles("bench-kernel", cfg, dtype)
+        column_tiles("bench-kernel", cfg, dtype)
         check_variants("bench-kernel", grid, cases, dtype, results)
         a = fresh(one)
         salt_in = a[5][1].clone()
@@ -995,7 +1027,7 @@ def bench_long_run(device, name):
 
 
 def column_times(device):
-    """`--column-times TREE`: the time a call of rows 8-10, with the host's
+    """`--column-times TREE`: the time a call of rows 6-10, with the host's
     time (device_ms) and on the device alone (profiled_ms), on the
     arguments the UPWELLING and BENCHMARK1 steps give them, f64 and f32,
     with roms_tpu_torch imported from TREE, so that two trees' kernels can
@@ -1022,8 +1054,8 @@ def column_times(device):
             state = s.replace(**{k: getattr(s, k).to(grid.h.dtype)
                                  for k in TENSOR_FIELDS})
             calls = captured_calls(cfg, grid, state, ffn)
-            for name in ("tracer_predictor", "tracer_corrector",
-                         "uv_corrector"):
+            for name in ("prsgrd32", "rhs3d", "tracer_predictor",
+                         "tracer_corrector", "uv_corrector"):
                 fn = getattr(*table[name][:2])
                 print(f"[column-times] {case} {name} {dtype}: kernel "
                       f"{device_ms(fn, *calls[name]):.4f} ms, device "

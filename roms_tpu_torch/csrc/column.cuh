@@ -28,6 +28,54 @@ __host__ __device__ __forceinline__ int clampi(int a, int lo, int hi) {
   return a < lo ? lo : (a > hi ? hi : a);
 }
 
+// The positions e = t, t + step, ... of a row-major array n wide, as
+// (y, x) = (e / n, e % n), stepped without a division.
+struct Walk {
+  int e, y, x, dy, dx, n, step;
+  __device__ Walk(int t, int step_, int n_)
+      : e(t), y(t / n_), x(t % n_), dy(step_ / n_), dx(step_ % n_), n(n_),
+        step(step_) {}
+  __device__ void next() {
+    e += step;
+    y += dy;
+    x += dx;
+    if (x >= n) x -= n, ++y;
+  }
+};
+
+// Copy one value from device memory into shared memory without passing
+// through a register (cp.async): a thread issues all its copies, commits
+// them as a group and waits once (copy_async_wait), so their loads are in
+// flight together.  Compiled for the host, where it never runs on device
+// memory, it is a plain copy.
+template <typename T>
+__device__ __forceinline__ void copy_async(T* dst, const T* src) {
+#ifdef __CUDA_ARCH__
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
+               "l"(src), "n"(sizeof(T)));
+#else
+  *dst = *src;
+#endif
+}
+
+// Close this thread's group of copy_async copies issued since the last
+// commit.
+__device__ __forceinline__ void copy_async_commit() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+#endif
+}
+
+// Wait until at most `pending` of this thread's committed groups are still
+// in flight; a barrier after it makes the copies visible to the others.
+template <int pending>
+__device__ __forceinline__ void copy_async_wait() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(pending) : "memory");
+#endif
+}
+
 // A column of a [k][column] array: element k at p[k * s].
 template <typename T>
 struct Col {

@@ -1,29 +1,48 @@
 // Baroclinic pressure gradient, prsgrd32 (splines density Jacobian,
-// prsgrd32.h:119-285), for one water column per thread.
+// prsgrd32.h:119-285), for one 2-D tile of padded points per block.
 //
 // Replaces the TPU kernel roms_tpu/ops/prsgrd_pallas.py::prsgrd32_fused.
-// Bound on the H100: its work is bandwidth-bound (it reads rho, z_r, Hz,
-// z_w, pm and pn once and writes ru and rv, about 6N planes, for ~110
-// operations a (k,j,i) point), but at UPWELLING size it has one thread per
-// water column, 4042 threads for 132 SMs, so the time is the latency of
-// one thread's serial walk down its columns, not bytes or operations.
-// Design: one thread per (j,i) column, looping over k, so neighbouring
-// threads read neighbouring xi addresses.  The downward pressure integral
-// P (prsgrd_pallas._scratch_rcumsum) runs in thread-local storage; the
-// thread integrates its own column and its west and south neighbours (the
-// xi and eta gradients need both), which triples that part of the work
-// instead of a second launch through a device-memory P.  Neighbours wrap
+// Bound on the H100: bandwidth.  It must read rho, z_r and Hz (3 (N,Ny,Nx)
+// planes), the surface plane of z_w, pm and pn, and write ru and rv: ~22 MB
+// at BENCHMARK1 in float32, 0.0066 ms at 3.35 TB/s, for ~110 operations a
+// (k,j,i) point.  The serial part is the downward pressure integral, N - 1
+// dependent additions a water column.
+// Design: block (bx, by) owns a tile of tx x ty points (the plan,
+// ops/prsgrd_cuda.prsgrd_plan) and its region: the tile's columns and one
+// more to the west and to the south, the columns whose pressure the xi and
+// eta gradients read.  Each region column is integrated once, from shared
+// memory, in three passes over [k][column] arrays:
+//   A1  a thread per (level, column) copies rho and z_r in (cp.async), so
+//       that a block has the loads of all its levels in flight at once;
+//   A2  a thread per (level, column) computes the pressure increment of
+//       prsgrd32.h:134-186 (the monotonized differences dRm and dZm at the
+//       two levels it needs, from the loaded columns);
+//   A3  a thread per column runs the sum from the top down, in k order
+//       (acc = acc + inc; P[k] = top + acc), the order in which torch's
+//       flip(cumsum(flip)) adds on the card.
+// Then a thread per (level, point) computes ru and rv from P, rho and z_r in
+// shared memory; the neighbours i-2, i+1, j-2 and j+1 that the region does
+// not hold (on the tile's edge) come from device memory.  Neighbours wrap
 // modulo the padded extent, as torch.roll does, so every padded point is
-// computed, halo included, with no boundary write (prsgrd32 has none).
+// computed, halo included, with no boundary write (prsgrd32 has none).  No
+// thread holds a column in its own storage: the kernel has no stack frame.
 #pragma once
 
 #include "column.cuh"
 
 namespace roms {
 
+// The launch, chosen by ops/prsgrd_cuda.prsgrd_plan: points of a tile
+// along xi and eta, threads a block and the dynamic shared memory, which
+// the entry point checks against prsgrd_smem.
+struct PrsPlan {
+  int tx, ty, threads, smem;
+};
+
 struct PrsParams {
   Geom g;
   int N;
+  PrsPlan plan;
   double grav, GRho, HalfGRho;
 };
 
@@ -33,6 +52,18 @@ struct PrsPtrs {
   T *ru, *rv;
 };
 
+// columns of a tile's region: the tile and one column west, one row south
+__host__ __device__ constexpr int prsgrd_columns(int tx, int ty) {
+  return (tx + 1) * (ty + 1);
+}
+
+// shared bytes of a block: rho, z_r and P of every region column and level,
+// then the columns' padded offsets
+__host__ __device__ constexpr int prsgrd_smem(int N, int tx, int ty,
+                                              int word) {
+  return prsgrd_columns(tx, ty) * (3 * N * word + 4);
+}
+
 // prsgrd._harm_clamped: 2ab/(a+b) where 2ab > 1e-10, else 0
 template <typename T>
 __device__ __forceinline__ T harm_clamped(T a, T b) {
@@ -40,119 +71,163 @@ __device__ __forceinline__ T harm_clamped(T a, T b) {
   return cff > T(1.0e-10) ? cff / (a + b) : T(0);
 }
 
-// P (N levels) of column q: the surface pressure and the downward integral
-// of the density-Jacobian increments (prsgrd32.h:134-186).  The sum runs
-// from the top down in k order, as the plain version's flipped cumsum.
+// The pressure increment between levels k and k+1 (0 <= k <= N-2) of a
+// column whose rho and z_r are r[m * s] and z[m * s] (prsgrd32.h:134-186):
+// the end-padded first differences dRp/dZp, their monotonized means dRm/dZm
+// at k and k+1, and the spline integral.
 template <typename T>
-__device__ void column_pressure(const PrsParams& P, const PrsPtrs<T>& A,
-                                int q, T* Pc, T* dRm, T* dZm) {
-  const int S = P.g.Ny * P.g.Nx;
-  const int N = P.N;
-  const T* rho = A.rho;
-  const T* zr = A.z_r;
-  auto dRp = [&](int m) {   // the end-padded first differences
+__device__ __forceinline__ T pressure_increment(T HalfGRho, const T* r,
+                                                const T* z, int s, int N,
+                                                int k) {
+  auto dp = [&](const T* f, int m) {
     const int a = clampi(m - 1, 0, N - 2);
-    return rho[(a + 1) * S + q] - rho[a * S + q];
+    return f[(a + 1) * s] - f[a * s];
   };
-  auto dZp = [&](int m) {
-    const int a = clampi(m - 1, 0, N - 2);
-    return zr[(a + 1) * S + q] - zr[a * S + q];
-  };
-  for (int k = 0; k < N; ++k) {
-    dRm[k] = harm_clamped(dRp(k + 1), dRp(k));
-    const T a = dZp(k + 1);
-    const T b = dZp(k);
-    dZm[k] = T(2) * a * b / (a + b);
-  }
-  const T g = T(P.grav);
-  const T GRho = T(P.GRho);
-  const T HalfGRho = T(P.HalfGRho);
+  const T dR0 = dp(r, k), dR1 = dp(r, k + 1), dR2 = dp(r, k + 2);
+  const T dZ0 = dp(z, k), dZ1 = dp(z, k + 1), dZ2 = dp(z, k + 2);
+  const T dRm0 = harm_clamped(dR1, dR0);
+  const T dRm1 = harm_clamped(dR2, dR1);
+  const T dZm0 = T(2) * dZ1 * dZ0 / (dZ1 + dZ0);
+  const T dZm1 = T(2) * dZ2 * dZ1 / (dZ2 + dZ1);
   const T OneFifth = T(0.2);
   const T OneTwelfth = T(1.0 / 12.0);
-  const T zwN = A.z_w[N * S + q];
-  const T rN = rho[(N - 1) * S + q];
-  const T rN1 = rho[(N - 2) * S + q];
-  const T zN = zr[(N - 1) * S + q];
-  const T zN1 = zr[(N - 2) * S + q];
-  const T cff2 = T(0.5) * (rN - rN1) * (zwN - zN) / (zN - zN1);
-  T top = g * zwN + GRho * (rN + cff2) * (zwN - zN);
-  if (A.eq_tide) top = top - g * A.eq_tide[q];
-  Pc[N - 1] = top;
-  T acc = T(0);
-  for (int k = N - 2; k >= 0; --k) {
-    const T r0 = rho[k * S + q];
-    const T r1 = rho[(k + 1) * S + q];
-    const T z0 = zr[k * S + q];
-    const T z1 = zr[(k + 1) * S + q];
-    const T inc =
-        HalfGRho *
-        ((r1 + r0) * (z1 - z0) -
-         OneFifth * ((dRm[k + 1] - dRm[k]) *
-                         (z1 - z0 - OneTwelfth * (dZm[k + 1] + dZm[k])) -
-                     (dZm[k + 1] - dZm[k]) *
-                         (r1 - r0 - OneTwelfth * (dRm[k + 1] + dRm[k]))));
-    acc = acc + inc;
-    Pc[k] = top + acc;
-  }
+  const T r0 = r[k * s], r1 = r[(k + 1) * s];
+  const T z0 = z[k * s], z1 = z[(k + 1) * s];
+  return HalfGRho *
+         ((r1 + r0) * (z1 - z0) -
+          OneFifth * ((dRm1 - dRm0) * (z1 - z0 - OneTwelfth * (dZm1 + dZm0)) -
+                      (dZm1 - dZm0) * (r1 - r0 - OneTwelfth * (dRm1 + dRm0))));
 }
 
-// One directional component at level k (prsgrd32.h:188-285) of point q,
-// with neighbours qm (i-1 or j-1), qmm (i-2 or j-2) and qp (i+1 or j+1);
-// metric = on_u or om_v at q, Pm = P of the qm column.
+// One directional component at one level (prsgrd32.h:188-285) at point q,
+// from rho (r*) and z_r (z*) at q, its neighbour behind (m: i-1 or j-1),
+// the one behind that (mm) and the one ahead (p); metric = on_u or om_v at
+// q, Hq/Hm = Hz at q and m, Pq/Pm = P at q and m.
 template <typename T>
-__device__ __forceinline__ T prsgrd_component(const PrsParams& P,
-                                              const PrsPtrs<T>& A, int o,
-                                              int q, int qm, int qmm, int qp,
-                                              T metric, T Pq, T Pm) {
-  const T HalfGRho = T(P.HalfGRho);
+__device__ __forceinline__ T prsgrd_component(T HalfGRho, T metric, T Hq,
+                                              T Hm, T Pq, T Pm, T rq, T rm,
+                                              T rmm, T rp, T zq, T zm, T zmm,
+                                              T zp) {
   const T OneFifth = T(0.2);
   const T OneTwelfth = T(1.0 / 12.0);
-  const T* r = A.rho + o;
-  const T* z = A.z_r + o;
-  const T dz = z[q] - z[qm];
-  const T dz_m = z[qm] - z[qmm];
-  const T dz_p = z[qp] - z[q];
-  const T dr = r[q] - r[qm];
-  const T dr_m = r[qm] - r[qmm];
-  const T dr_p = r[qp] - r[q];
+  const T dz = zq - zm;
+  const T dz_m = zm - zmm;
+  const T dz_p = zp - zq;
+  const T dr = rq - rm;
+  const T dr_m = rm - rmm;
+  const T dr_p = rp - rq;
   const T dZ = harm_clamped(dz, dz_p);
   const T dZ_m = harm_clamped(dz_m, dz);
   const T dR = harm_clamped(dr, dr_p);
   const T dR_m = harm_clamped(dr_m, dr);
-  return metric * T(0.5) * (A.Hz[o + q] + A.Hz[o + qm]) *
+  return metric * T(0.5) * (Hq + Hm) *
          (Pm - Pq -
-          HalfGRho * ((r[q] + r[qm]) * dz -
+          HalfGRho * ((rq + rm) * dz -
                       OneFifth * ((dR - dR_m) * (dz - OneTwelfth * (dZ + dZ_m)) -
                                   (dZ - dZ_m) * (dr - OneTwelfth * (dR + dR_m)))));
 }
 
+// The tile (bx, by) of block tid's thread; sm: prsgrd_smem bytes.  Every
+// thread reaches every barrier.
 template <typename T>
-__device__ void prsgrd32_column(const PrsParams& P, const PrsPtrs<T>& A,
-                                int p) {
+__device__ void prsgrd32_tile(const PrsParams& P, const PrsPtrs<T>& A,
+                              unsigned char* sm, int bx, int by, int tid) {
   const Geom& g = P.g;
   const int S = g.Ny * g.Nx;
-  const int j = p / g.Nx;
-  const int i = p - j * g.Nx;
-  const int row = j * g.Nx;
-  const int qw = row + wrap(i - 1, g.Nx);
-  const int qww = row + wrap(i - 2, g.Nx);
-  const int qe = row + wrap(i + 1, g.Nx);
-  const int qs = wrap(j - 1, g.Ny) * g.Nx + i;
-  const int qss = wrap(j - 2, g.Ny) * g.Nx + i;
-  const int qn = wrap(j + 1, g.Ny) * g.Nx + i;
-  T Pc[kMaxN], Pw[kMaxN], Ps[kMaxN], dRm[kMaxN], dZm[kMaxN];
-  column_pressure(P, A, p, Pc, dRm, dZm);
-  column_pressure(P, A, qw, Pw, dRm, dZm);
-  column_pressure(P, A, qs, Ps, dRm, dZm);
+  const int N = P.N;
+  const int tx = P.plan.tx, ty = P.plan.ty, nth = P.plan.threads;
+  const int cw = tx + 1;                    // region columns a row
+  const int nc = prsgrd_columns(tx, ty);
+  T* R = reinterpret_cast<T*>(sm);          // [k][column], column c is
+  T* Z = R + N * nc;                        // (cy, cx) = (c / cw, c % cw):
+  T* Pr = Z + N * nc;                       // padded point (j0-1+cy, i0-1+cx)
+  int* off = reinterpret_cast<int*>(Pr + N * nc);
+  const int i0 = bx * tx, j0 = by * ty;
+  const T HalfGRho = T(P.HalfGRho);
+
+  for (int c = tid; c < nc; c += nth) {
+    const int cy = c / cw;
+    off[c] = wrap(j0 - 1 + cy, g.Ny) * g.Nx + wrap(i0 - 1 + c - cy * cw, g.Nx);
+  }
+  __syncthreads();
+  // A1: rho and z_r of every region column (x) and level (y), all in
+  // flight
+  for (Walk w(tid, nth, nc); w.y < N; w.next()) {
+    const int q = w.y * S + off[w.x];
+    copy_async(R + w.e, A.rho + q);
+    copy_async(Z + w.e, A.z_r + q);
+  }
+  copy_async_commit();
+  copy_async_wait<0>();
+  __syncthreads();
+  // A2: the increments between levels k and k+1, into P's level k
+  for (Walk w(tid, nth, nc); w.y < N - 1; w.next())
+    Pr[w.e] = pressure_increment(HalfGRho, R + w.x, Z + w.x, nc, N, w.y);
+  __syncthreads();
+  // A3: the surface pressure and the sum from the top down
+  for (int c = tid; c < nc; c += nth) {
+    const T g0 = T(P.grav);
+    const T GRho = T(P.GRho);
+    const T zwN = __ldg(A.z_w + N * S + off[c]);
+    const T rN = R[(N - 1) * nc + c], rN1 = R[(N - 2) * nc + c];
+    const T zN = Z[(N - 1) * nc + c], zN1 = Z[(N - 2) * nc + c];
+    const T cff2 = T(0.5) * (rN - rN1) * (zwN - zN) / (zN - zN1);
+    T top = g0 * zwN + GRho * (rN + cff2) * (zwN - zN);
+    if (A.eq_tide) top = top - g0 * __ldg(A.eq_tide + off[c]);
+    T* pc = Pr + c;
+    pc[(N - 1) * nc] = top;
+    T acc = T(0);
+    for (int k = N - 2; k >= 0; --k) {
+      acc = acc + pc[k * nc];
+      pc[k * nc] = top + acc;
+    }
+  }
+  __syncthreads();
+
+  // B: a thread per (level, point); tx * ty divides the threads
+  const int npts = tx * ty;
+  const int pt = tid % npts;
+  const int dk = nth / npts;
+  const int ly = pt / tx, lx = pt - ly * tx;
+  const int j = j0 + ly, i = i0 + lx;
+  const bool live = j < g.Ny && i < g.Nx;   // the tile's ragged edge
+  const int jw = wrap(j, g.Ny) * g.Nx, iw = wrap(i, g.Nx);
+  const int p = jw + iw;
+  const int qw = jw + wrap(i - 1, g.Nx);
+  const int qs = wrap(j - 1, g.Ny) * g.Nx + iw;
+  // the neighbours the region lacks on the tile's edge: i-2, i+1, j-2, j+1
+  const int qww = jw + wrap(i - 2, g.Nx), qe = jw + wrap(i + 1, g.Nx);
+  const int qss = wrap(j - 2, g.Ny) * g.Nx + iw;
+  const int qn = wrap(j + 1, g.Ny) * g.Nx + iw;
+  const bool ww_in = lx >= 1, e_in = lx + 1 < tx;
+  const bool ss_in = ly >= 1, n_in = ly + 1 < ty;
+  const int c = (ly + 1) * cw + lx + 1;     // the point's region column
   // on_u = 2/(pn[i-1] + pn[i]), om_v = 2/(pm[j-1] + pm[j]) (grid.py)
-  const T on_u = T(1) / (A.pn[qw] + A.pn[p]) * T(2);
-  const T om_v = T(1) / (A.pm[qs] + A.pm[p]) * T(2);
-  for (int k = 0; k < P.N; ++k) {
+  const T on_u = T(1) / (__ldg(A.pn + qw) + __ldg(A.pn + p)) * T(2);
+  const T om_v = T(1) / (__ldg(A.pm + qs) + __ldg(A.pm + p)) * T(2);
+  for (int k = tid / npts; k < N; k += dk) {
     const int o = k * S;
-    A.ru[o + p] =
-        prsgrd_component(P, A, o, p, qw, qww, qe, on_u, Pc[k], Pw[k]);
-    A.rv[o + p] =
-        prsgrd_component(P, A, o, p, qs, qss, qn, om_v, Pc[k], Ps[k]);
+    const T* r = R + k * nc;
+    const T* z = Z + k * nc;
+    const T* pk = Pr + k * nc;
+    auto at = [&](const T* sh, const T* f, bool in, int cs, int q) {
+      return in ? sh[cs] : __ldg(f + o + q);
+    };
+    const T Hq = __ldg(A.Hz + o + p);
+    const T ru = prsgrd_component(
+        HalfGRho, on_u, Hq, __ldg(A.Hz + o + qw), pk[c], pk[c - 1], r[c],
+        r[c - 1], at(r, A.rho, ww_in, c - 2, qww),
+        at(r, A.rho, e_in, c + 1, qe), z[c], z[c - 1],
+        at(z, A.z_r, ww_in, c - 2, qww), at(z, A.z_r, e_in, c + 1, qe));
+    const T rv = prsgrd_component(
+        HalfGRho, om_v, Hq, __ldg(A.Hz + o + qs), pk[c], pk[c - cw], r[c],
+        r[c - cw], at(r, A.rho, ss_in, c - 2 * cw, qss),
+        at(r, A.rho, n_in, c + cw, qn), z[c], z[c - cw],
+        at(z, A.z_r, ss_in, c - 2 * cw, qss), at(z, A.z_r, n_in, c + cw, qn));
+    if (live) {
+      A.ru[o + p] = ru;
+      A.rv[o + p] = rv;
+    }
   }
 }
 
@@ -166,6 +241,10 @@ inline PrsParams prsgrd_params(const int* ip, const double* dp) {
   P.g.M = ip[5];
   P.g.ew_per = ip[6];
   P.g.ns_per = ip[7];
+  P.plan.tx = ip[8];
+  P.plan.ty = ip[9];
+  P.plan.threads = ip[10];
+  P.plan.smem = ip[11];
   P.grav = dp[0];
   P.GRho = dp[1];
   P.HalfGRho = dp[2];

@@ -127,7 +127,49 @@ def library() -> ctypes.CDLL:
     lib.roms_tracer_layout.argtypes = [ctypes.c_int, ctypes.c_int,
                                        ctypes.POINTER(ctypes.c_int)]
     lib.roms_tracer_layout.restype = ctypes.c_int
+    for name in ("roms_prsgrd32_layout", "roms_rhs3d_layout"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
     return lib
+
+
+def kernel_layout(name: str, dtype, *args) -> dict:
+    """The kernel of layout entry point `name` (roms_<kernel>_layout, with
+    any `args` after the dtype flag) on the current card: {"registers": a
+    thread, "stack_bytes": its local memory (stack frame) a thread}."""
+    out = (ctypes.c_int * 2)()
+    err = getattr(library(), name)(int(dtype == torch.float64), *args, out)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err}")
+    return dict(registers=out[0], stack_bytes=out[1])
+
+
+SMEM_MAX = 232448   # shared memory a block can take on the H100
+SMS = 132           # streaming multiprocessors of an H100 SXM
+
+
+def tile_plan(make) -> dict:
+    """The launch of a kernel on 2-D tiles of padded points.  make(tx, ty)
+    gives the plan of a tile tx points along xi by ty along eta (a dict
+    with "blocks" and "smem_bytes").  The tiles are 32 points along xi
+    (16, 8, ... where no 32-point tile fits) by 8, 4, 2 or 1 rows, those
+    whose shared memory leaves room for three blocks an SM; of these, the
+    one with the most rows that gives at least two blocks an SM, else one,
+    else the one with the most rows: a grid that small is one wave
+    whatever the tile."""
+    for tx in (32, 16, 8, 4, 2, 1):
+        plans = [p for p in (make(tx, ty) for ty in (8, 4, 2, 1))
+                 if p["smem_bytes"] <= SMEM_MAX // 3]
+        if plans:
+            break
+    else:
+        raise ValueError("no tile fits the shared memory")
+    for least in (2 * SMS, SMS):
+        for plan in plans:
+            if plan["blocks"] >= least:
+                return plan
+    return plans[0]
 
 
 def on_card(t) -> bool:

@@ -15,7 +15,10 @@ momentum_rhs - the momentum side of the rhs3d phase, as
 ``rhs3d`` and ``momentum_rhs`` take their plain versions (``*_plain``) for
 CPU tensors only.  For CUDA tensors ``rhs3d`` launches the kernel of
 csrc/rhs3d.cu, both directions in one launch, or raises; it never falls
-back.  ``rhs3d.launches`` counts kernel launches.  ``use_kernels`` decides,
+back.  The kernel runs on 2-D tiles of padded points whose level planes a
+block keeps in shared memory; ``rhs3d_plan`` sizes the tile and the block,
+``rhs3d_layout`` reports the kernel's registers and stack frame on the
+card.  ``rhs3d.launches`` counts kernel launches.  ``use_kernels`` decides,
 as the JAX step's ``rhs3d_pallas.use_pallas`` does, whether the step takes
 ``momentum_rhs`` at all.
 """
@@ -27,9 +30,45 @@ import torch
 from ..config import Config
 from ..grid import Grid
 from . import mix3d_cuda, prsgrd_cuda
-from ._kernels import check_tensors, column_ints, launch, on_card
+from ._kernels import SMEM_MAX, check_tensors, column_ints, kernel_layout, \
+    launch, on_card, tile_plan
 from .pre_step3d import ab3_start_coefs, momentum_init
 from .rhs3d import rhs3d_momentum
+
+THREADS = 256       # threads a block, at most (csrc/rhs3d.cu kMaxThreads)
+
+
+def rhs3d_plan(dtype, N: int, ny: int, nx: int) -> dict:
+    """The kernel's launch on a padded ny x nx grid of N levels: {"tile":
+    (points along xi, along eta), "levels": level slots, "blocks",
+    "threads": a block, "smem_bytes": its dynamic shared memory}.  A block
+    is `levels` slots of one thread a tile point, at most THREADS threads,
+    each slot with two sets of planes over the tile's region and its face
+    arrays (csrc/rhs3d.cuh RhsLayout), halved while they leave no room for
+    three blocks an SM; _kernels.tile_plan picks the tile.  The shared
+    memory does not depend on N."""
+    del N   # every slot walks its levels; nothing a block holds is per level
+    word = 8 if dtype == torch.float64 else 4
+
+    def smem(tx, ty, ks):
+        ra, fa = (tx + 6) * (ty + 6), (tx + 1) * (ty + 1)
+        words = ks * (12 * ra + 8 * fa) + 3 * fa + 2 * tx * ty
+        return words * word + 4 * (ra + fa)
+
+    def make(tx, ty):
+        ks = max(THREADS // (tx * ty), 1)
+        while ks > 1 and smem(tx, ty, ks) > SMEM_MAX // 3:
+            ks //= 2
+        return dict(tile=(tx, ty), levels=ks,
+                    blocks=-(-nx // tx) * -(-ny // ty),
+                    threads=tx * ty * ks, smem_bytes=smem(tx, ty, ks))
+    return tile_plan(make)
+
+
+def rhs3d_layout(dtype) -> dict:
+    """The kernel on the current card: {"registers": a thread,
+    "stack_bytes": its stack frame a thread}."""
+    return kernel_layout("roms_rhs3d_layout", dtype)
 
 
 def supported(cfg: Config) -> bool:
@@ -97,13 +136,15 @@ def rhs3d(cfg: Config, grid: Grid, u, v, Huon, Hvom, W, Hz, ru, rv, sustr,
     if start is not None:
         outs += [torch.empty_like(u), torch.empty_like(v)]
     get = ins.get
+    plan = rhs3d_plan(u.dtype, cfg.N, *s2)
     launch("roms_rhs3d", f64,
            [u, v, Huon, Hvom, W, Hz, ru, rv, sustr, svstr, bustr, bvstr,
             grid.pm, grid.pn, grid.f, get("dndx"), get("dmde"),
             get("ru_prev"), get("rv_prev"), get("ru_prev2"),
             get("rv_prev2")] + outs + [None] * (6 - len(outs)),
            ints + [int(cfg.uv_cor), int(cfg.uv_adv), int(curv),
-                   int(start is not None)],
+                   int(start is not None), *plan["tile"], plan["levels"],
+                   plan["threads"], plan["smem_bytes"]],
            [cfg.dt, a1, a2], torch.cuda.current_stream(u.device))
     rhs3d.launches += 1
     return tuple(outs)

@@ -23,15 +23,13 @@ wrappers at all.  The TPU kernel's folded harmonic mixing
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from ..config import Config
 from ..grid import Grid
 from . import bc
-from ._kernels import bc_kinds, check_tensors, column_ints, launch, \
-    library, on_card
+from ._kernels import SMEM_MAX, bc_kinds, check_tensors, column_ints, \
+    kernel_layout, launch, on_card
 from .pre_step3d import predictor_coefs, tracer_phase as tracer_predictor_plain
 from .step3d_t import step3d_t as tracer_corrector_plain
 from .step3d_uv import corrector_cff, step3d_uv as uv_corrector_plain
@@ -43,7 +41,6 @@ _VADV_CODE = {"C4": 0, "SPLINES": 1}      # csrc/column.cuh VScheme
 MAX_TRACERS = 16                          # column.cuh kMaxTr
 TILE = 32                # padded points a tracer tile holds, at most
 TILE_THREADS = 256       # threads a tracer block (step3d.cu kTileThreads)
-SMEM_MAX = 232448        # shared memory a block can take on the H100
 
 
 def tracer_plan(name: str, dtype, N: int, NT: int, ny: int, nx: int) -> dict:
@@ -75,12 +72,8 @@ def _plan_ints(name: str, cfg: Config, dtype) -> list:
 def tracer_layout(name: str, dtype) -> dict:
     """Tracer kernel `name` on the current card: {"registers": a thread,
     "stack_bytes": its local memory (stack frame) a thread}."""
-    out = (ctypes.c_int * 2)()
-    err = library().roms_tracer_layout(int(dtype == torch.float64),
-                                       int(name == "tracer_corrector"), out)
-    if err != 0:
-        raise RuntimeError(f"roms_tracer_layout: CUDA error {err}")
-    return dict(registers=out[0], stack_bytes=out[1])
+    return kernel_layout("roms_tracer_layout", dtype,
+                         int(name == "tracer_corrector"))
 
 
 def use_tracer(cfg: Config, bry=None, clm=None, sources=None,

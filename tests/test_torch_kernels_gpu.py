@@ -2,8 +2,10 @@
 card, in float32 and float64, on UPWELLING and on closed, gradient and
 masked (an island) variants of it (the momentum kernels also on a
 curvilinear one), the geopotential tracer diffusion on a small BENCHMARK,
-the tracer kernels bitwise, also on the small BENCHMARK with 1-3 tracers
-and at their largest shared-memory plans;
+the tracer kernels and prsgrd32 bitwise, rhs3d bitwise but for its
+column sums, also on the small BENCHMARK (1-3 tracers; closed and masked
+variants for the momentum kernels), on a grid smaller than one tile and
+at their largest shared-memory plans;
 the UPWELLING anchor with ten kernels on, and the small-BENCHMARK fixture
 (tests/data/torch_benchmark_small.npz) with all eleven on.
 
@@ -207,24 +209,30 @@ def test_fast_loop_kernel_rejects_aliased_fields(developed):
         step2d_cuda.fast_loop(cfg, grid, fs, *[s.zeta] * 6, 0)
 
 
-@pytest.mark.parametrize("tide", [False, True])
-def test_prsgrd32_kernel(developed, tide):
-    cfg, grid, s = developed
-    f = _stage_inputs(cfg, grid, s)
-    kw = dict(eq_tide=f["R"](s.zeta.shape, 0.05)) if tide else {}
-    args = (cfg, grid, f["rho"], f["z_r"], f["z_w"], f["Hz"])
-    before = prsgrd_cuda.prsgrd32.launches
-    got = prsgrd_cuda.prsgrd32(*args, **kw)
-    assert prsgrd_cuda.prsgrd32.launches == before + 1
-    _close(got, prsgrd_cuda.prsgrd32_plain(*args, **kw), RTOL[s.u.dtype],
-           "prsgrd32")
-
-
 def _equal(got, ref, name):
     torch.cuda.synchronize()
     for a, b in zip(got, ref):
         assert torch.equal(a, b), \
             f"{name}: differs by {(a - b).abs().max().item():.3e}"
+
+
+def _check_prsgrd32(cfg, grid, f, tide):
+    """prsgrd32 on stage inputs f, bitwise equal to its plain version, as
+    is a second launch; `tide` adds an equilibrium tide."""
+    kw = dict(eq_tide=f["R"](f["Hz"].shape[1:], 0.05)) if tide else {}
+    args = (cfg, grid, f["rho"], f["z_r"], f["z_w"], f["Hz"])
+    before = prsgrd_cuda.prsgrd32.launches
+    got = prsgrd_cuda.prsgrd32(*args, **kw)
+    assert prsgrd_cuda.prsgrd32.launches == before + 1
+    _equal(got, prsgrd_cuda.prsgrd32_plain(*args, **kw), "prsgrd32")
+    _equal(prsgrd_cuda.prsgrd32(*args, **kw), got,
+           "prsgrd32, second launch")
+
+
+@pytest.mark.parametrize("tide", [False, True])
+def test_prsgrd32_kernel(developed, tide):
+    cfg, grid, s = developed
+    _check_prsgrd32(cfg, grid, _stage_inputs(cfg, grid, s), tide)
 
 
 def _with_tracers(cfg, s, nt):
@@ -409,12 +417,21 @@ def test_rhs3d_kernel(developed, iic, curv):
         a1, a2 = ab3_start_coefs(iic)
         kw = dict(start=(a1, a2, s.ru_prev, s.ru_prev2, s.rv_prev,
                          s.rv_prev2))
+    _check_rhs3d(args, kw)
+
+
+def _check_rhs3d(args, kw):
+    """rhs3d: ru, rv (and u_nnew, v_nnew with the start) bitwise equal to
+    the plain version, rufrc and rvfrc, the column sums, within RTOL; a
+    second launch bitwise equal to the first."""
     before = rhs3d_cuda.rhs3d.launches
     got = rhs3d_cuda.rhs3d(*args, **kw)
     assert rhs3d_cuda.rhs3d.launches == before + 1
     ref = rhs3d_cuda.rhs3d_plain(*args, **kw)
-    assert len(got) == len(ref) == (4 if iic is None else 6)
-    _close(got, ref, RTOL[s.u.dtype], "rhs3d")
+    assert len(got) == len(ref) == (6 if kw.get("start") else 4)
+    _equal(got[:2] + got[4:], ref[:2] + ref[4:], "rhs3d")
+    _close(got[2:4], ref[2:4], RTOL[got[0].dtype], "rhs3d column sums")
+    _equal(rhs3d_cuda.rhs3d(*args, **kw), got, "rhs3d, second launch")
 
 
 def test_uv3dmix2_kernel(developed):
@@ -450,8 +467,80 @@ def test_momentum_rhs_kernels(developed, iic, tide):
     before = [w.launches for w in wrappers]
     got = rhs3d_cuda.momentum_rhs(*args, **kw)
     assert [w.launches - b for w, b in zip(wrappers, before)] == [1, 1, 1]
-    _close(got, rhs3d_cuda.momentum_rhs_plain(*args, **kw), RTOL[s.u.dtype],
-           "momentum_rhs")
+    ref = rhs3d_cuda.momentum_rhs_plain(*args, **kw)
+    # u_nnew, v_nnew, ru, rv bitwise; rufrc, rvfrc (column sums) at RTOL
+    _equal(got[:4], ref[:4], "momentum_rhs")
+    _close(got[4:], ref[4:], RTOL[s.u.dtype], "momentum_rhs column sums")
+    _equal(rhs3d_cuda.momentum_rhs(*args, **kw), got,
+           "momentum_rhs, second launch")
+
+
+def _momentum_plans(cfg, dtype):
+    """The prsgrd32 and rhs3d plans of a case."""
+    shape = (cfg.N, cfg.ny_tot, cfg.nx_tot)
+    return (prsgrd_cuda.prsgrd_plan(dtype, *shape),
+            rhs3d_cuda.rhs3d_plan(dtype, *shape))
+
+
+def _check_momentum_kernels(cfg, grid, s):
+    """prsgrd32, and rhs3d without and with the start, on state s."""
+    f = _stage_inputs(cfg, grid, s)
+    _check_prsgrd32(cfg, grid, f, True)
+    args = (cfg, grid) + _momentum_inputs(s, f)
+    _check_rhs3d(args, {})
+    a1, a2 = ab3_start_coefs(5)
+    _check_rhs3d(args, dict(start=(a1, a2, s.ru_prev, s.ru_prev2,
+                                   s.rv_prev, s.rv_prev2)))
+
+
+@pytest.mark.parametrize("variant", ["spherical", "closed", "masked"])
+def test_momentum_kernels_on_ragged_tiles(fixture_case, variant):
+    """The small BENCHMARK (spherical: curvilinear terms and a varying f;
+    70 x 38 padded points) as it is, with closed E-W walls, and with an
+    island: several tiles along both axes, the last of each ragged."""
+    cfg, grid, s = fixture_case
+    if variant == "closed":
+        closed = LBC()
+        cfg = cfg.replace(ew_periodic=False, gamma2=-1.0, lbc_zeta=closed,
+                          lbc_ubar=closed, lbc_vbar=closed, lbc_u=closed,
+                          lbc_v=closed, lbc_t=closed)
+    if variant == "masked":
+        grid = _island(grid)
+    for plan in _momentum_plans(cfg, s.u.dtype):
+        tx, ty = plan["tile"]
+        assert cfg.nx_tot > tx and cfg.nx_tot % tx != 0, plan
+        assert cfg.ny_tot > ty and cfg.ny_tot % ty != 0, plan
+    _check_momentum_kernels(cfg, grid, s)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_momentum_kernels_on_a_grid_smaller_than_a_tile(device, dtype):
+    """A 20 x 2 plane (26 x 8 padded points): narrower than a tile, and in
+    float32 smaller than one (in float64 rhs3d's tiles have 4 rows)."""
+    cfg, grid, s0, ffn = upwelling.build(
+        upwelling.make_config(Lm=20, Mm=2, N=6, ndtfast=8, dtype=dtype),
+        device=device)
+    s = stepping.run(cfg.replace(pallas2d=False), grid, s0, 3, ffn)
+    for plan in _momentum_plans(cfg, s.u.dtype):
+        tx, ty = plan["tile"]
+        assert cfg.nx_tot < tx and \
+            plan["blocks"] == -(-cfg.ny_tot // ty), plan
+        if dtype == "float32":
+            assert plan["blocks"] == 1, plan
+    _check_momentum_kernels(cfg, grid, s)
+
+
+def test_momentum_kernels_at_the_largest_plan(device):
+    """N = 64 in float64 on a small gradient-walled plane: prsgrd32's
+    largest columns (16 x 1 tiles) and rhs3d's float64 tile (32 x 4), each
+    in more than 48 KB of shared memory a block."""
+    cfg, grid, s0, ffn = upwelling.build(
+        _config("gradient", "float64", N=64), device=device)
+    s = stepping.run(cfg.replace(pallas2d=False), grid, s0, 1, ffn)
+    prs, rhs = _momentum_plans(cfg, torch.float64)
+    assert prs["tile"] == (16, 1) and rhs["tile"] == (32, 4), (prs, rhs)
+    assert min(prs["smem_bytes"], rhs["smem_bytes"]) > 48 * 1024
+    _check_momentum_kernels(cfg, grid, s)
 
 
 def test_wrappers_raise_on_foreign_tensors(developed):
