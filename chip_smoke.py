@@ -3,8 +3,9 @@ each against its plain PyTorch version, drives the UPWELLING and the
 BENCHMARK1 steps through them, and checks the results.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --column-times TREE    # rows 6-10's times only,
-                                                 # roms_tpu_torch from TREE
+    python3 chip_smoke.py --column-times TREE    # rows 4 and 6-10's times
+                                                 # only, roms_tpu_torch
+                                                 # from TREE
 
 Phases, one or more lines each; any failure exits non-zero:
   1. device: card name and power limit (nvidia-smi), torch and CUDA versions;
@@ -17,14 +18,16 @@ Phases, one or more lines each; any failure exits non-zero:
      terms, the first step's momentum start; t3dmix2_geo, which UPWELLING
      with tnu2 = 0 does not call, on its tracers and depths): max abs
      error, tolerance (none for the tracer kernels and prsgrd32, held
-     bitwise, nor for rhs3d's ru, rv, u_nnew and v_nnew), whether
-     a second launch on the same input is bitwise equal to the first, the
-     time a call of kernel and plain version (CUDA events around 10 calls
-     back to back, median of 5 such batches; for the kernels held bitwise
-     also their device time alone, under torch.profiler), and the kernel's
-     bound (bytes and operations); the tiles of the tracer kernels,
-     prsgrd32 and rhs3d (points, level slots, blocks, threads, shared
-     memory, registers, stack frame); and the fast loop's
+     bitwise, nor for rhs3d's ru, rv, u_nnew and v_nnew and uv3dmix2's
+     u_nnew and v_nnew), whether a second launch on the same input is
+     bitwise equal to the first, the time a call of kernel and plain
+     version (CUDA events around 10 calls back to back, median of 5 such
+     batches; a kernel that updates its arguments in place gets fresh
+     copies for each call; for the kernels held bitwise also their device
+     time alone, under torch.profiler), and the kernel's bound (bytes and
+     operations); the tiles of the tracer kernels, prsgrd32, rhs3d,
+     uv_corrector and uv3dmix2 (points, level slots, blocks, threads,
+     shared memory, registers, stack frame); and the fast loop's
      launch at 128, 256 and 512 threads a block: blocks, the co-resident
      limit, barriers, its time, the time of one grid barrier (an empty
      kernel of as many barriers at the same launch) and of one phase, each
@@ -91,9 +94,11 @@ KERNEL_RTOL = {"float64": 1e-12, "float32": 1e-5}
 FAST_RTOL = {"float64": 1e-10, "float32": 1e-4}
 # kernels held to their plain versions bitwise: the outputs that have no
 # column sum in another order than torch's (None: every output); rhs3d's
-# rufrc and rvfrc are column sums
+# and uv3dmix2's rufrc and rvfrc are column sums
 BITWISE = {"tracer_predictor": None, "tracer_corrector": None,
-           "prsgrd32": None, "rhs3d": (0, 1, 4, 5)}
+           "prsgrd32": None, "rhs3d": (0, 1, 4, 5), "uv3dmix2": (0, 1)}
+# kernels that update arguments in place: each timed call gets fresh copies
+IN_PLACE = ("uv3dmix2", "t3dmix2_geo")
 NRUNS, NBATCH = 10, 5
 # the fast loop's block sizes that phases 3 and 7 time
 FAST_THREADS_SWEEP = (128, 256, 512)
@@ -388,22 +393,31 @@ def bound(name, grid, args, kw, outs, ops, dtype):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def device_ms(fn, args, kw) -> float:
+def arg_sets(args, per_call):
+    """The arguments of NRUNS calls, made before they are timed: a fresh
+    copy for each call (per_call: the kernel updates them in place), else
+    one copy for all.  A fast loop runs again on the state it updated,
+    which is the same work."""
+    if per_call:
+        return [fresh(args) for _ in range(NRUNS)]
+    return [fresh(args)] * NRUNS
+
+
+def device_ms(fn, args, kw, per_call=False) -> float:
     """fn's time a call on the card: CUDA events around NRUNS calls back
     to back, after two warm-up calls; the median over NBATCH such batches,
-    so that a stall of the shared host in one batch does not count.  A
-    fast loop runs again on the state it updated, which is the same
-    work."""
+    so that a stall of the shared host in one batch does not count."""
     import torch
-    a = fresh(args)
-    for _ in range(2):
+    for a in arg_sets(args, per_call)[:2]:
         fn(*a, **kw)
     batches = []
     for _ in range(NBATCH):
+        sets = arg_sets(args, per_call)
+        torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(NRUNS):
+        for a in sets:
             fn(*a, **kw)
         end.record()
         torch.cuda.synchronize()
@@ -411,20 +425,20 @@ def device_ms(fn, args, kw) -> float:
     return sorted(batches)[NBATCH // 2]
 
 
-def profiled_ms(fn, args, kw) -> float:
+def profiled_ms(fn, args, kw, per_call=False) -> float:
     """The device time of fn's one launch a call: torch.profiler over
     NRUNS calls after two warm-up calls, the mean over the device events
     it recorded (it can drop some; nan if it recorded none).  Unlike
     device_ms it leaves out the host's time between launches."""
     import torch
     from torch.profiler import ProfilerActivity
-    a = fresh(args)
-    for _ in range(2):
+    for a in arg_sets(args, per_call)[:2]:
         fn(*a, **kw)
+    sets = arg_sets(args, per_call)
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[ProfilerActivity.CPU,
                                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(NRUNS):
+        for a in sets:
             fn(*a, **kw)
         torch.cuda.synchronize()
     us = [e.time_range.elapsed_us() for e in prof.events()
@@ -549,8 +563,9 @@ def check_variants(tag, grid, cases, dtype, results):
             tuple(n for n in exact if n < nout)
         err, ratio, equal = max_err(out_k, out_p, rtol[dtype], exact)
         repeat = same(kern(*fresh(args), **kw), out_k)
-        ms = device_ms(kern, args, kw)
-        plain_ms = device_ms(plain, args, kw)
+        per_call = name in IN_PLACE
+        ms = device_ms(kern, args, kw, per_call)
+        plain_ms = device_ms(plain, args, kw, per_call)
         ops = count_ops(plain, args, kw)
         b_ms, b_by = bound(name, grid, args, kw, out_k, ops, dtype)
         ok = finite and repeat and equal and ratio <= 1.0
@@ -559,8 +574,8 @@ def check_variants(tag, grid, cases, dtype, results):
             bar = "bitwise"
         elif exact:
             bar = f"outputs {','.join(map(str, exact))} bitwise, {bar}"
-        dev = f" (device {profiled_ms(kern, args, kw):.4f} ms)" if exact \
-            else ""
+        dev = f" (device {profiled_ms(kern, args, kw, per_call):.4f} ms)" \
+            if exact else ""
         print(f"[{tag}] {label:30s} {dtype}: max_abs_err={err:.3e} "
               f"{bar} (worst err/tol {ratio:.3e}) finite={finite} repeat "
               f"bitwise={repeat} kernel {ms:.4f} ms{dev}, plain "
@@ -633,18 +648,21 @@ def fast_loop_launches(tag, args, kw, dtype, out_ref):
 
 
 def column_tiles(tag, cfg, dtype):
-    """The launch of rows 6-9 on this case: tile, level slots, blocks,
-    threads, shared memory, and the registers and stack frame of the
-    loaded kernel."""
+    """The launch of rows 4 and 6-10 on this case: tile, level slots,
+    blocks, threads, shared memory, and the registers and stack frame of
+    the loaded kernel."""
     import torch
-    from roms_tpu_torch.ops import prsgrd_cuda, rhs3d_cuda, step3d_cuda
+    from roms_tpu_torch.ops import mix3d_cuda, prsgrd_cuda, rhs3d_cuda, \
+        step3d_cuda
     t = getattr(torch, dtype)
     shape = (cfg.N, cfg.ny_tot, cfg.nx_tot)
     for name, plan, lay in (
             ("prsgrd32", prsgrd_cuda.prsgrd_plan(t, *shape),
              prsgrd_cuda.prsgrd_layout(t)),
             ("rhs3d", rhs3d_cuda.rhs3d_plan(t, *shape),
-             rhs3d_cuda.rhs3d_layout(t))):
+             rhs3d_cuda.rhs3d_layout(t)),
+            ("uv3dmix2", mix3d_cuda.uv3dmix2_plan(t, *shape),
+             mix3d_cuda.uv3dmix2_layout(t))):
         (tx, ty), slots = plan["tile"], plan.get("levels", 1)
         print(f"[{tag}] {name} tile {dtype}: {tx}x{ty} points a block "
               f"(xi x eta), {slots} level slot(s), {plan['blocks']} blocks "
@@ -653,14 +671,20 @@ def column_tiles(tag, cfg, dtype):
               f"bytes of shared memory, {lay['registers']} registers and "
               f"{lay['stack_bytes']} bytes of stack frame a thread",
               flush=True)
-    for name in ("tracer_predictor", "tracer_corrector"):
-        plan = step3d_cuda.tracer_plan(name, getattr(torch, dtype), cfg.N,
-                                       cfg.ntracers, cfg.ny_tot, cfg.nx_tot)
-        lay = step3d_cuda.tracer_layout(name, getattr(torch, dtype))
+    for name in ("tracer_predictor", "tracer_corrector", "uv_corrector"):
+        if name == "uv_corrector":
+            plan, lay = step3d_cuda.uv_plan(t, *shape), \
+                step3d_cuda.uv_layout(t)
+            what = "both directions"
+        else:
+            plan = step3d_cuda.tracer_plan(name, t, cfg.N, cfg.ntracers,
+                                           cfg.ny_tot, cfg.nx_tot)
+            lay = step3d_cuda.tracer_layout(name, t)
+            what = f"{cfg.ntracers} tracers"
         print(f"[{tag}] {name} tile {dtype}: {plan['tile']} padded points "
               f"a block, {plan['blocks']} blocks x {plan['threads']} "
               f"threads for {cfg.ny_tot}x{cfg.nx_tot} padded points and "
-              f"{cfg.ntracers} tracers, {plan['smem_bytes']} bytes of "
+              f"{what}, {plan['smem_bytes']} bytes of "
               f"shared memory, {lay['registers']} registers and "
               f"{lay['stack_bytes']} bytes of stack frame a thread",
               flush=True)
@@ -1027,11 +1051,12 @@ def bench_long_run(device, name):
 
 
 def column_times(device):
-    """`--column-times TREE`: the time a call of rows 6-10, with the host's
-    time (device_ms) and on the device alone (profiled_ms), on the
-    arguments the UPWELLING and BENCHMARK1 steps give them, f64 and f32,
-    with roms_tpu_torch imported from TREE, so that two trees' kernels can
-    be timed in turn in one run."""
+    """`--column-times TREE`: the time a call of rows 4 and 6-10, with the
+    host's time (device_ms) and on the device alone (profiled_ms), on the
+    arguments the UPWELLING and BENCHMARK1 steps give them, f64 and f32
+    (uv3dmix2 on fresh copies for each call), with roms_tpu_torch imported
+    from TREE, so that two trees' kernels can be timed in turn in one
+    run."""
     import roms_tpu_torch
     from roms_tpu_torch import stepping
     from roms_tpu_torch.models import benchmark, upwelling
@@ -1054,12 +1079,16 @@ def column_times(device):
             state = s.replace(**{k: getattr(s, k).to(grid.h.dtype)
                                  for k in TENSOR_FIELDS})
             calls = captured_calls(cfg, grid, state, ffn)
-            for name in ("prsgrd32", "rhs3d", "tracer_predictor",
-                         "tracer_corrector", "uv_corrector"):
+            for name in ("uv3dmix2", "prsgrd32", "rhs3d",
+                         "tracer_predictor", "tracer_corrector",
+                         "uv_corrector"):
                 fn = getattr(*table[name][:2])
+                per_call = name in IN_PLACE
                 print(f"[column-times] {case} {name} {dtype}: kernel "
-                      f"{device_ms(fn, *calls[name]):.4f} ms, device "
-                      f"{profiled_ms(fn, *calls[name]):.4f} ms", flush=True)
+                      f"{device_ms(fn, *calls[name], per_call):.4f} ms, "
+                      f"device "
+                      f"{profiled_ms(fn, *calls[name], per_call):.4f} ms",
+                      flush=True)
 
 
 def main() -> int:

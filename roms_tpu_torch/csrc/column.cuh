@@ -2,11 +2,11 @@
 // prsgrd.cuh): the tracer advection fluxes and the vertical solves of
 // roms_tpu_torch/ops/advection.py and ops/tridiag.py.
 //
-// The vertical helpers take their columns as accessors: a plain pointer
-// into thread-local storage (uv_corrector) or a Col over a block's shared
-// memory (the tracer kernels), so one solve serves both.  The horizontal
-// advection takes a Line, the wrapped neighbours of one column along xi or
-// eta, worked out once per thread and reused at every level and tracer.
+// The vertical helpers take their columns as accessors, a Col over a
+// block's shared memory in the kernels, so one solve serves them all.  The
+// horizontal advection takes a Line, the wrapped neighbours of one column
+// along xi or eta, worked out once per thread and reused at every level
+// and tracer.
 //
 // Every expression keeps the plain version's operation order (and the
 // library is built with --fmad=false), so a kernel rounds like its plain
@@ -17,7 +17,6 @@
 
 namespace roms {
 
-constexpr int kMaxN = 64;     // most vertical levels a column kernel takes
 constexpr int kMaxTr = 16;    // most tracers a tracer kernel takes
 
 // scheme codes, as passed from Python (ops/step3d_cuda.py)
@@ -75,6 +74,19 @@ __device__ __forceinline__ void copy_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(pending) : "memory");
 #endif
 }
+
+// The barrier of one level slot's n threads (a multiple of 32) in a
+// kernel whose slots walk their own levels (rhs3d.cuh, mix3d.cuh): hardware
+// barrier 1 + slot, so that the slots of a block wait for none but their
+// own threads.
+struct SlotBarrier {
+  int id, n;
+  __device__ void operator()() const {
+#ifdef __CUDA_ARCH__
+    asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+#endif
+  }
+};
 
 // A column of a [k][column] array: element k at p[k * s].
 template <typename T>

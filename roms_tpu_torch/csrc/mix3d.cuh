@@ -1,32 +1,62 @@
 // Harmonic viscosity along s-surfaces, uv3dmix2 (uv3dmix2_s.h K_LOOP), for
-// one padded (j,i) point and direction per thread, looping over k.
+// one 2-D tile of padded (j,i) points and both directions per block.
 //
 // Replaces the TPU kernel roms_tpu/ops/mix3d_pallas.py::uv3dmix2_fused.
 // Like it, the kernel adds into u_nnew, v_nnew, rufrc and rvfrc in place
 // (the Pallas kernel donates them).
-// Bound on the H100: bandwidth (it reads u, v, Hz and u_nnew/v_nnew, about
-// 5 (N,Ny,Nx) planes, and writes 2, for ~100 operations a point of each
-// direction), but at UPWELLING size one thread per point and direction is
-// ~8000 threads for 132 SMs, so the time is one thread's serial k-walk.
-// Design: one thread per padded point, blockIdx.y the direction (u or v),
-// both in one launch.  The two stress terms the stencil differences,
-// cff_r at rho points and cff_p at psi points (mix3d.py), are recomputed
-// by each thread at the two points it needs (i and i-1 or j and j-1 for
-// cff_r, j and j+1 or i and i+1 for cff_p) rather than staged through
-// device memory, as csrc/prsgrd.cuh recomputes its neighbours' pressure.
+// Bound on the H100: bandwidth.  It must read u, v, Hz and u_nnew/v_nnew
+// (5 (N,Ny,Nx) planes) and write u_nnew/v_nnew: ~30 MB at BENCHMARK1 in
+// float32, 0.009 ms at 3.35 TB/s, for ~100 operations a point of each
+// direction.  What keeps it from that is the latency of each level's
+// loads and of the barriers between a level's steps.
+// Design: block (bx, by) owns a tile of tx x ty points (the plan,
+// ops/mix3d_cuda.uv3dmix2_plan) and both directions; its threads are ks
+// level slots of one thread a tile point.  Slot s walks its own run of
+// consecutive levels with its own barriers, as csrc/rhs3d.cuh's slots do.
+// Once a block it works out the region's padded offsets (the tile and one
+// point around it, wrapped) and the 2-D metric factors of mix3d.py: the
+// sums pm + pm[j-1], pn + pn[i-1], ... over the region, pm/pn, pn/pm and
+// on_r^2 visc2, om_r^2 visc2 on the tile's rho rectangle, sum_pm/sum_pn,
+// sum_pn/sum_pm, om_p^2, on_p^2 and pmask on its psi rectangle.  At each
+// level a slot
+//   (a) copies u, v and Hz of the NEXT level over the region into its
+//       second set of shared planes (cp.async: in flight while this level
+//       computes), and loads its point's u_nnew and v_nnew;
+//   (b) computes the two stress terms once each into shared memory: cff_r
+//       on the rho rectangle (the tile and one row south and one column
+//       west) as UFx and VFe, and cff_p pmask visc2 on the psi rectangle
+//       (the tile and one row north and one column east) as UFe and VFx,
+//       which the plain version forms at every point and shifts (each u
+//       and each v point differences two of each);
+//   (c) differences them at its point into du1 + du2 and dv1 - dv2 and
+//       updates u_nnew and v_nnew.
+// With more than one slot a point's per-level terms stay in shared memory,
+// and after the last level one thread a point adds them in k order (one
+// slot's threads for u, another's for v); with one slot the thread sums as
+// it goes.  The sum is added to rufrc/rvfrc after it, as the plain version
+// adds torch.sum(du1 + du2, dim=0).
 // Neighbours wrap modulo the padded extent, as torch.roll does, so every
-// padded point is computed, halo included.  The column sum into
-// rufrc/rvfrc runs in k order in the thread and is added after the sum, as
-// the plain version adds torch.sum(du1 + du2, dim=0).
+// padded point is computed, halo included.  Every value keeps the plain
+// version's expression and operation order, so u_nnew and v_nnew are the
+// plain version's bitwise; the column sum runs in k order, which torch.sum
+// on the card does not, so rufrc/rvfrc differ from it by round-off.
 #pragma once
 
 #include "column.cuh"
 
 namespace roms {
 
+// The launch, chosen by ops/mix3d_cuda.uv3dmix2_plan: points of a tile along
+// xi and eta, level slots, threads a block (tx * ty * ks) and the dynamic
+// shared memory, which the entry point checks against uv3dmix2_smem.
+struct MixPlan {
+  int tx, ty, ks, threads, smem;
+};
+
 struct MixParams {
   Geom g;
   int N;
+  MixPlan plan;
   double dt, visc2;
 };
 
@@ -41,105 +71,207 @@ __device__ __forceinline__ int at_ji(const Geom& g, int j, int i) {
   return wrap(j, g.Ny) * g.Nx + wrap(i, g.Nx);
 }
 
-// cff_r at rho point (j, i) of level plane o (mix3d.py uv3dmix2)
-template <typename T>
-__device__ __forceinline__ T mix_cff_r(const Geom& g, const MixPtrs<T>& A,
-                                       int o, int j, int i) {
-  const T* pm = A.pm;
-  const T* pn = A.pn;
-  const T* u = A.u + o;
-  const T* v = A.v + o;
-  const int q = at_ji(g, j, i);
-  const int qe = at_ji(g, j, i + 1);
-  const int qw = at_ji(g, j, i - 1);
-  const int qn = at_ji(g, j + 1, i);
-  const int qs = at_ji(g, j - 1, i);
-  const T du = (pn[q] + pn[qe]) * u[qe] - (pn[qw] + pn[q]) * u[q];
-  const T dv = (pm[q] + pm[qn]) * v[qn] - (pm[qs] + pm[q]) * v[q];
-  return A.Hz[o + q] * T(0.5) * (pm[q] / pn[q] * du - pn[q] / pm[q] * dv);
+// The shared arrays of a tile: the region, tx+2 x ty+2 points from (j0-1,
+// i0-1), and the rho and psi rectangles, tx+1 x ty+1 points each, from
+// (j0-1, i0-1) and from (j0, i0).
+struct MixLayout {
+  int rx, ra, fw, fa, npts;
+  __host__ __device__ constexpr MixLayout(int tx, int ty)
+      : rx(tx + 2), ra((tx + 2) * (ty + 2)), fw(tx + 1),
+        fa((tx + 1) * (ty + 1)), npts(tx * ty) {}
+  // words of T: a slot's two sets of 3 planes (u, v, Hz) and its 4 face
+  // arrays; the region's 4 metric sums; the rho rectangle's 4 and the psi
+  // rectangle's 5 factors; with more than one slot, du and dv of each
+  // level and point
+  __host__ __device__ constexpr int words(int ks, int N) const {
+    return ks * (6 * ra + 4 * fa) + 4 * ra + 9 * fa +
+           (ks > 1 ? 2 * N * npts : 0);
+  }
+};
+
+__host__ __device__ constexpr int uv3dmix2_smem(int tx, int ty, int ks,
+                                                int N, int word) {
+  // and an int a region point: its padded offset
+  return MixLayout(tx, ty).words(ks, N) * word + MixLayout(tx, ty).ra * 4;
 }
 
-// cff_p at psi point (j, i) of level plane o, times pmask and visc2
-template <typename T>
-__device__ __forceinline__ T mix_cff_p(const Geom& g, const MixPtrs<T>& A,
-                                       T visc2, int o, int j, int i) {
-  const T* pm = A.pm;
-  const T* pn = A.pn;
-  const T* u = A.u + o;
-  const T* v = A.v + o;
-  const T* Hz = A.Hz + o;
-  const int q = at_ji(g, j, i);
-  const int qw = at_ji(g, j, i - 1);
-  const int qs = at_ji(g, j - 1, i);
-  const int qsw = at_ji(g, j - 1, i - 1);
-  const T sum_pm = pm[qsw] + pm[qw] + pm[qs] + pm[q];
-  const T sum_pn = pn[qsw] + pn[qw] + pn[qs] + pn[q];
-  const T Hz_p = T(0.125) * (Hz[qw] + Hz[q] + Hz[qsw] + Hz[qs]);
-  const T dv = (pn[qs] + pn[q]) * v[q] - (pn[qsw] + pn[qw]) * v[qw];
-  const T du = (pm[qw] + pm[q]) * u[q] - (pm[qsw] + pm[qs]) * u[qs];
-  const T cff_p = Hz_p * (sum_pm / sum_pn * dv + sum_pn / sum_pm * du);
-  return cff_p * A.pmask[q] * visc2;
-}
-
-template <typename T>
-__device__ void uv3dmix2_column(const MixParams& P, const MixPtrs<T>& A,
-                                int p, int d) {
+// The tile (bx, by) of block tid's thread; sm: uv3dmix2_smem bytes.
+// slot_sync() is the barrier of the thread's level slot (the tile's
+// points); every thread reaches every barrier of its slot, and every
+// __syncthreads().
+template <typename T, class Sync>
+__device__ void uv3dmix2_tile(const MixParams& P, const MixPtrs<T>& A,
+                              unsigned char* sm, int bx, int by, int tid,
+                              Sync slot_sync) {
   const Geom& g = P.g;
   const int S = g.Ny * g.Nx;
-  const int j = p / g.Nx;
-  const int i = p - j * g.Nx;
-  const T* pm = A.pm;
-  const T* pn = A.pn;
+  const int N = P.N;
+  const int tx = P.plan.tx, ty = P.plan.ty, ks = P.plan.ks;
+  const MixLayout L(tx, ty);
+  const int npts = L.npts, nth = ks * npts;
+  const int rx = L.rx, ra = L.ra, fw = L.fw, fa = L.fa;
+  const int i0 = bx * tx, j0 = by * ty;
+  const int slot = tid / npts, pt = tid - slot * npts;
   const T visc2 = T(P.visc2);
-  // the point behind (i-1 for u, j-1 for v) and the metric factors there
-  const int qm = d == 0 ? at_ji(g, j, i - 1) : at_ji(g, j - 1, i);
-  const T cff = T(P.dt * 0.25) * (pm[qm] + pm[p]) * (pn[qm] + pn[p]);
-  const T hpn = T(0.5) * (pn[qm] + pn[p]);
-  const T hpm = T(0.5) * (pm[qm] + pm[p]);
-  // on_r^2 and om_r^2 (on_r = 1/pn, om_r = 1/pm) at p and qm, and
-  // om_p^2 or on_p^2 (4/sum_pm, 4/sum_pn) at the two psi points
-  auto sq_r = [&](const T* m, int q) {
-    const T r = T(1) / m[q];
-    return r * r;
-  };
-  auto sq_p = [&](const T* m, int jj, int ii) {
-    const T s = m[at_ji(g, jj - 1, ii - 1)] + m[at_ji(g, jj, ii - 1)] +
-                m[at_ji(g, jj - 1, ii)] + m[at_ji(g, jj, ii)];
-    const T r = T(1) / s * T(4);
-    return r * r;
-  };
-  T sum = T(0);
-  T* vn = A.vel_nnew[d];
-  for (int k = 0; k < P.N; ++k) {
-    const int o = k * S;
-    T dk;
-    if (d == 0) {
-      // du1 = 0.5 (pn[i-1] + pn) (UFx - UFx[i-1]), UFx = on_r^2 visc2 cff_r
-      // du2 = 0.5 (pm[i-1] + pm) (UFe[j+1] - UFe), UFe = om_p^2 cff_p
-      const T UFx = sq_r(pn, p) * visc2 * mix_cff_r(g, A, o, j, i);
-      const T UFx_m = sq_r(pn, qm) * visc2 * mix_cff_r(g, A, o, j, i - 1);
-      const T UFe_n =
-          sq_p(pm, j + 1, i) * mix_cff_p(g, A, visc2, o, j + 1, i);
-      const T UFe = sq_p(pm, j, i) * mix_cff_p(g, A, visc2, o, j, i);
-      const T du1 = hpn * (UFx - UFx_m);
-      const T du2 = hpm * (UFe_n - UFe);
-      dk = du1 + du2;
-    } else {
-      // dv1 = 0.5 (pn[j-1] + pn) (VFx[i+1] - VFx), VFx = on_p^2 cff_p
-      // dv2 = 0.5 (pm[j-1] + pm) (VFe - VFe[j-1]), VFe = om_r^2 visc2 cff_r
-      const T VFx_e =
-          sq_p(pn, j, i + 1) * mix_cff_p(g, A, visc2, o, j, i + 1);
-      const T VFx = sq_p(pn, j, i) * mix_cff_p(g, A, visc2, o, j, i);
-      const T VFe = sq_r(pm, p) * visc2 * mix_cff_r(g, A, o, j, i);
-      const T VFe_m = sq_r(pm, qm) * visc2 * mix_cff_r(g, A, o, j - 1, i);
-      const T dv1 = hpn * (VFx_e - VFx);
-      const T dv2 = hpm * (VFe - VFe_m);
-      dk = dv1 - dv2;
-    }
-    sum = sum + dk;
-    vn[o + p] = vn[o + p] + cff * dk;
+
+  // shared arrays: this slot's two sets of planes u v Hz over the region
+  // and its face arrays; the region's metric sums; the rectangles'
+  // factors; the per-level terms; the region's padded offsets
+  T* base = reinterpret_cast<T*>(sm);
+  T* planes = base + slot * 6 * ra;
+  T* fc = base + ks * 6 * ra + slot * 4 * fa;
+  T* sums = base + ks * (6 * ra + 4 * fa);
+  T *cx = sums, *cy = sums + ra, *px = sums + 2 * ra, *py = sums + 3 * ra;
+  T* rho = sums + 4 * ra;
+  T *ar = rho, *br = rho + fa, *Ar = rho + 2 * fa, *Br = rho + 3 * fa;
+  T* psi = rho + 4 * fa;
+  T *ap = psi, *bp = psi + fa, *Op = psi + 2 * fa, *Np = psi + 3 * fa,
+    *pmk = psi + 4 * fa;
+  T* terms = psi + 5 * fa;     // [k][d][point], with more than one slot
+  int* off = reinterpret_cast<int*>(terms + (ks > 1 ? 2 * N * npts : 0));
+  T *UFx = fc, *VFe = fc + fa, *UFe = fc + 2 * fa, *VFx = fc + 3 * fa;
+
+  // region point (j0-1+y, i0-1+x): its offset and the sums im1(pn) + pn
+  // (cx), jm1(pm) + pm (cy), jm1(pn) + pn (px) and im1(pm) + pm (py)
+  for (Walk w(tid, nth, rx); w.e < ra; w.next()) {
+    const int J = j0 - 1 + w.y, I = i0 - 1 + w.x;
+    const int q = at_ji(g, J, I);
+    const int qw = at_ji(g, J, I - 1), qs = at_ji(g, J - 1, I);
+    off[w.e] = q;
+    cx[w.e] = A.pn[qw] + A.pn[q];
+    cy[w.e] = A.pm[qs] + A.pm[q];
+    px[w.e] = A.pn[qs] + A.pn[q];
+    py[w.e] = A.pm[qw] + A.pm[q];
   }
-  A.rfrc[d][p] = A.rfrc[d][p] + sum;
+  for (Walk w(tid, nth, fw); w.e < fa; w.next()) {
+    // rho point (j0-1+y, i0-1+x): pm/pn, pn/pm, on_r^2 visc2, om_r^2 visc2
+    // (on_r = 1/pn, om_r = 1/pm)
+    const int q = at_ji(g, j0 - 1 + w.y, i0 - 1 + w.x);
+    const T pmq = A.pm[q], pnq = A.pn[q];
+    const T on_r = T(1) / pnq, om_r = T(1) / pmq;
+    ar[w.e] = pmq / pnq;
+    br[w.e] = pnq / pmq;
+    Ar[w.e] = on_r * on_r * visc2;
+    Br[w.e] = om_r * om_r * visc2;
+    // psi point (j0+y, i0+x): sum_pm/sum_pn, sum_pn/sum_pm, om_p^2, on_p^2
+    // (om_p = 4/sum_pm, on_p = 4/sum_pn) and pmask
+    const int J = j0 + w.y, I = i0 + w.x;
+    const int s = at_ji(g, J, I), sw = at_ji(g, J, I - 1),
+              ss = at_ji(g, J - 1, I), ssw = at_ji(g, J - 1, I - 1);
+    const T spm = A.pm[ssw] + A.pm[sw] + A.pm[ss] + A.pm[s];
+    const T spn = A.pn[ssw] + A.pn[sw] + A.pn[ss] + A.pn[s];
+    const T om_p = T(1) / spm * T(4), on_p = T(1) / spn * T(4);
+    ap[w.e] = spm / spn;
+    bp[w.e] = spn / spm;
+    Op[w.e] = om_p * om_p;
+    Np[w.e] = on_p * on_p;
+    pmk[w.e] = A.pmask[s];
+  }
+  __syncthreads();
+
+  // this thread's point: its region, rho and psi rectangle places, padded
+  // offset, and its factors cffu = dt/4 (pm + pm[i-1]) (pn + pn[i-1]),
+  // 0.5 (pn + pn[i-1]), 0.5 (pm + pm[i-1]) and their v counterparts
+  const int ly = pt / tx, lx = pt - ly * tx;
+  const int j = j0 + ly, i = i0 + lx;
+  const bool live = j < g.Ny && i < g.Nx;   // the tile's ragged edge
+  const int p = live ? j * g.Nx + i : 0;
+  const int cp = (ly + 1) * rx + lx + 1;
+  const int fr = (ly + 1) * fw + lx + 1;
+  const int fp = ly * fw + lx;
+  const T cffu = T(P.dt * 0.25) * py[cp] * cx[cp];
+  const T hpn_u = T(0.5) * cx[cp], hpm_u = T(0.5) * py[cp];
+  const T cffv = T(P.dt * 0.25) * cy[cp] * px[cp];
+  const T hpn_v = T(0.5) * px[cp], hpm_v = T(0.5) * cy[cp];
+
+  // the slot's levels k0 .. k1 - 1; every slot makes nlev rounds
+  const int nlev = (N + ks - 1) / ks;
+  const int k0 = slot * nlev, k1 = min(N, k0 + nlev);
+  auto copy_planes = [&](int k, T* dst) {
+    const int o = k * S;
+    for (int e = pt; e < ra; e += npts) {
+      const int q = o + off[e];
+      copy_async(dst + e, A.u + q);
+      copy_async(dst + ra + e, A.v + q);
+      copy_async(dst + 2 * ra + e, A.Hz + q);
+    }
+  };
+  if (k0 < k1) copy_planes(k0, planes);
+  copy_async_commit();
+  T sum[2] = {T(0), T(0)};
+  for (int n = 0; n < nlev; ++n) {
+    const int k = k0 + n;
+    const bool lev = k < k1;
+    const int o = k * S;
+    const T* pl = planes + (n & 1) * 3 * ra;
+    const T *U = pl, *V = pl + ra, *HZ = pl + 2 * ra;
+    // (a) the next level's planes, in flight through this one; this
+    // level's u_nnew and v_nnew at the point
+    if (k + 1 < k1) copy_planes(k + 1, planes + ((n + 1) & 1) * 3 * ra);
+    copy_async_commit();
+    const T un = lev && live ? A.vel_nnew[0][o + p] : T(0);
+    const T vn = lev && live ? A.vel_nnew[1][o + p] : T(0);
+    copy_async_wait<1>();     // this level's planes
+    slot_sync();
+    // (b) the stress terms of this level
+    if (lev) {
+      for (Walk w(pt, npts, fw); w.e < fa; w.next()) {
+        // rho point (j0-1+y, i0-1+x), region (y, x)
+        const int q = w.y * rx + w.x;
+        const T du = cx[q + 1] * U[q + 1] - cx[q] * U[q];
+        const T dv = cy[q + rx] * V[q + rx] - cy[q] * V[q];
+        const T cff_r = HZ[q] * T(0.5) * (ar[w.e] * du - br[w.e] * dv);
+        UFx[w.e] = Ar[w.e] * cff_r;
+        VFe[w.e] = Br[w.e] * cff_r;
+        // psi point (j0+y, i0+x), region (y+1, x+1)
+        const int s = q + rx + 1;
+        const T Hz_p =
+            T(0.125) * (HZ[s - 1] + HZ[s] + HZ[s - rx - 1] + HZ[s - rx]);
+        const T dvp = px[s] * V[s] - px[s - 1] * V[s - 1];
+        const T dup = py[s] * U[s] - py[s - rx] * U[s - rx];
+        const T cff_p =
+            Hz_p * (ap[w.e] * dvp + bp[w.e] * dup) * pmk[w.e] * visc2;
+        UFe[w.e] = Op[w.e] * cff_p;
+        VFx[w.e] = Np[w.e] * cff_p;
+      }
+    }
+    slot_sync();
+    // (c) this level at the point: du1 + du2 and dv1 - dv2
+    if (lev) {
+      const T du1 = hpn_u * (UFx[fr] - UFx[fr - 1]);
+      const T du2 = hpm_u * (UFe[fp + fw] - UFe[fp]);
+      const T dku = du1 + du2;
+      const T dv1 = hpn_v * (VFx[fp + 1] - VFx[fp]);
+      const T dv2 = hpm_v * (VFe[fr] - VFe[fr - fw]);
+      const T dkv = dv1 - dv2;
+      if (live) {
+        A.vel_nnew[0][o + p] = un + cffu * dku;
+        A.vel_nnew[1][o + p] = vn + cffv * dkv;
+      }
+      if (ks > 1) {
+        terms[2 * k * npts + pt] = dku;
+        terms[(2 * k + 1) * npts + pt] = dkv;
+      } else {
+        sum[0] = sum[0] + dku;
+        sum[1] = sum[1] + dkv;
+      }
+    }
+  }
+
+  // rufrc += sum_k (du1 + du2), rvfrc += sum_k (dv1 - dv2), in k order
+  if (ks > 1) {
+    __syncthreads();
+#pragma unroll
+    for (int d = 0; d < 2; ++d) {
+      if (slot != d || !live) continue;
+      for (int k = 0; k < N; ++k)
+        sum[d] = sum[d] + terms[(2 * k + d) * npts + pt];
+    }
+  }
+#pragma unroll
+  for (int d = 0; d < 2; ++d)
+    if (live && slot == (ks > 1 ? d : 0))
+      A.rfrc[d][p] = A.rfrc[d][p] + sum[d];
 }
 
 // ---------------------------------------------------------------------------
@@ -434,6 +566,11 @@ inline MixParams mix_params(const int* ip, const double* dp) {
   P.g.M = ip[n++];
   P.g.ew_per = ip[n++];
   P.g.ns_per = ip[n++];
+  P.plan.tx = ip[n++];
+  P.plan.ty = ip[n++];
+  P.plan.ks = ip[n++];
+  P.plan.threads = ip[n++];
+  P.plan.smem = ip[n++];
   P.dt = dp[0];
   P.visc2 = dp[1];
   return P;

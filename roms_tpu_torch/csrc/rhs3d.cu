@@ -11,16 +11,6 @@ namespace {
 
 constexpr int kMaxThreads = 256;   // threads a block, at most
 
-// The barrier of one level slot's n threads (a multiple of 32): hardware
-// barrier 1 + slot, so that the slots of a block wait for none but their
-// own threads.
-struct SlotBarrier {
-  int id, n;
-  __device__ void operator()() const {
-    asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
-  }
-};
-
 // three blocks an SM in float32 (at most 80 registers a thread)
 template <typename T>
 __global__ void __launch_bounds__(kMaxThreads, sizeof(T) == 4 ? 3 : 2)
@@ -29,8 +19,8 @@ __global__ void __launch_bounds__(kMaxThreads, sizeof(T) == 4 ? 3 : 2)
   extern __shared__ __align__(16) unsigned char smem[];
   const int npts = P.plan.tx * P.plan.ty;
   roms::rhs3d_tile(P, A, smem, blockIdx.x, blockIdx.y, threadIdx.x,
-                   SlotBarrier{1 + static_cast<int>(threadIdx.x) / npts,
-                               npts});
+                   roms::SlotBarrier{
+                       1 + static_cast<int>(threadIdx.x) / npts, npts});
 }
 
 template <typename T>

@@ -1,18 +1,16 @@
 // C entry points of the 3-D predictor/corrector kernels (step3d.cuh),
 // loaded with ctypes by roms_tpu_torch/ops/step3d_cuda.py.  The tracer
-// kernels launch one block per tile of padded points, with the plan
-// (points a tile, threads, dynamic shared memory) the wrapper passes; the
-// momentum corrector one thread per padded (j,i) point and direction.
-// Each launches on the given stream, does not synchronize, and returns
-// cudaGetLastError().
+// tracer kernels and the momentum corrector launch one block per tile of
+// padded points, with the plan (points a tile, threads, dynamic shared
+// memory) the wrapper passes.  Each launches on the given stream, does not
+// synchronize, and returns cudaGetLastError().
 #include <cuda_runtime.h>
 
 #include "step3d.cuh"
 
 namespace {
 
-constexpr int kThreads = 64;        // uv_corrector: small blocks spread it
-constexpr int kTileThreads = 256;   // threads a tracer block (at most)
+constexpr int kTileThreads = 256;   // threads a tile block (at most)
 
 template <typename T>
 __global__ void __launch_bounds__(kTileThreads, sizeof(T) == 4 ? 3 : 2)
@@ -33,14 +31,17 @@ __global__ void __launch_bounds__(kTileThreads, sizeof(T) == 4 ? 3 : 2)
 }
 
 template <typename T>
-__global__ void uv_corrector_kernel(roms::UvParams P, roms::UvPtrs<T> A) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p < P.g.Ny * P.g.Nx) roms::uv_corrector_column(P, A, p, blockIdx.y);
+__global__ void __launch_bounds__(kTileThreads, sizeof(T) == 4 ? 3 : 2)
+    uv_corrector_kernel(const __grid_constant__ roms::UvParams P,
+                        const __grid_constant__ roms::UvPtrs<T> A) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  roms::uv_corrector_tile(P, A, reinterpret_cast<T*>(smem), blockIdx.x,
+                          threadIdx.x);
 }
 
-// Check a tracer kernel's plan against its layout (rows shared words a
-// tile column) and let it take the plan's dynamic shared memory; returns
-// a CUDA error code.
+// Check a tile kernel's plan against its layout (rows shared words a tile
+// column) and let it take the plan's dynamic shared memory; returns a CUDA
+// error code.
 template <typename T, typename K>
 int prepare(K kernel, const roms::TilePlan& L, int rows) {
   if (L.tile < 1 || L.tile > 32 || (L.tile & (L.tile - 1)) != 0 ||
@@ -79,19 +80,33 @@ int launch_corrector(const roms::CorrParams& P, void* const* ptr,
   return static_cast<int>(cudaGetLastError());
 }
 
-inline dim3 grid_for(int S, int ny) {
-  return dim3((S + kThreads - 1) / kThreads, ny);
+// at least four threads a tile column: two directions' solves and their
+// sums beside them
+template <typename T>
+int launch_uv(const roms::UvParams& P, void* const* ptr, cudaStream_t s) {
+  if (P.plan.threads < 4 * P.plan.tile)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int err =
+      prepare<T>(uv_corrector_kernel<T>, P.plan, roms::uv_rows(P.N));
+  if (err != 0) return err;
+  uv_corrector_kernel<T><<<tiles(P.g, P.plan), P.plan.threads, P.plan.smem,
+                           s>>>(P, roms::uv_ptrs<T>(ptr));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename K>
+int layout(K kernel, int* out) {
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.localSizeBytes);
+  return static_cast<int>(err);
 }
 
 template <typename T>
 int tracer_layout(int corrector, int* out) {
-  cudaFuncAttributes attr;
-  const cudaError_t err =
-      corrector ? cudaFuncGetAttributes(&attr, tracer_corrector_kernel<T>)
-                : cudaFuncGetAttributes(&attr, tracer_predictor_kernel<T>);
-  out[0] = attr.numRegs;
-  out[1] = static_cast<int>(attr.localSizeBytes);
-  return static_cast<int>(err);
+  return corrector ? layout(tracer_corrector_kernel<T>, out)
+                   : layout(tracer_predictor_kernel<T>, out);
 }
 
 }  // namespace
@@ -125,20 +140,14 @@ int roms_tracer_corrector(int f64, void* const* ptr, const int* ip,
 
 // ptr: u_nnew v_nnew ru rv Hz Akv DU_avg1 DV_avg1 DU_avg2 DV_avg2 Huon Hvom
 //      pm pn umask vmask | u v ubar vbar Huon Hvom
-// ip:  N Ny Nx H L M ew_per ns_per | lbc_u kinds | lbc_v kinds | splines
+// ip:  N Ny Nx H L M ew_per ns_per | lbc_u kinds | lbc_v kinds | splines |
+//      tile threads smem
 // dp:  dt cff gamma2
 int roms_uv_corrector(int f64, void* const* ptr, const int* ip,
                       const double* dp, void* stream) {
   const roms::UvParams P = roms::uv_params(ip, dp);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid = grid_for(P.g.Ny * P.g.Nx, 2);
-  if (f64)
-    uv_corrector_kernel<double><<<grid, kThreads, 0, s>>>(
-        P, roms::uv_ptrs<double>(ptr));
-  else
-    uv_corrector_kernel<float><<<grid, kThreads, 0, s>>>(
-        P, roms::uv_ptrs<float>(ptr));
-  return static_cast<int>(cudaGetLastError());
+  return f64 ? launch_uv<double>(P, ptr, s) : launch_uv<float>(P, ptr, s);
 }
 
 // out: the registers a thread and the local memory (stack frame) a thread
@@ -147,6 +156,13 @@ int roms_uv_corrector(int f64, void* const* ptr, const int* ip,
 int roms_tracer_layout(int f64, int corrector, int* out) {
   return f64 ? tracer_layout<double>(corrector, out)
              : tracer_layout<float>(corrector, out);
+}
+
+// out: the registers a thread and the local memory (stack frame) a thread
+// of the momentum corrector.  Returns a CUDA error code.
+int roms_uv_corrector_layout(int f64, int* out) {
+  return f64 ? layout(uv_corrector_kernel<double>, out)
+             : layout(uv_corrector_kernel<float>, out);
 }
 
 }  // extern "C"

@@ -34,15 +34,16 @@
 //     Thomas vertical diffusion) run one thread per column and tracer, in
 //     the plain version's order, from shared memory.
 //   - Block barriers separate the two.
-// uv_corrector keeps one thread per column and direction, its column
-// arrays in thread-local storage.
+// uv_corrector works on tiles the same way, both directions a block (its
+// passes are listed at uv_corrector_tile).
 //
 // Boundary writes and the halo fill are gathers (csrc/bc.cuh): a tile's
 // point p computes the column its value comes from, c = rho_src(p), so
 // every padded point agrees with the plain version, halo included (the
 // predictor's t(nnew) start, which has no boundary write, at p itself).
-// Column sums (uv_corrector) run in k order inside the thread; torch.sum on
-// the card sums in another order, so the two differ by round-off.
+// uv_corrector's column sums run in k order in one thread a column and
+// direction; torch.sum on the card sums in another order, so the two
+// differ by round-off.
 #pragma once
 
 #include "column.cuh"
@@ -571,6 +572,7 @@ struct UvParams {
   int N;
   int bu[4], bv[4];   // lbc_u, lbc_v kinds W S E N
   int splines;        // cfg.splines_vvisc
+  TilePlan plan;
   double dt, cff, gamma2;
 };
 
@@ -582,108 +584,279 @@ struct UvPtrs {
   T *vel[2], *bar[2], *flx[2];
 };
 
+// Shared words a tile column of uv_corrector holds: for each direction its
+// velocity, Hk, 1/Hk, the coupling's thickness DCk and CFs (N each: CFs is
+// the solve's scratch, then the old mass flux, then the time-centred
+// flux), AK and the solve's flux (N+1 each), and the column's CF0, sum of
+// DCk, err and FCc.
+__host__ __device__ constexpr int uv_rows(int N) { return 2 * (7 * N + 6); }
+
+// the i-1 (d = 0) or j-1 (d = 1) neighbour of padded point q
+__device__ __forceinline__ int uv_back(const Geom& g, int q, int d) {
+  const int J = q / g.Nx;
+  const int I = q - J * g.Nx;
+  return d == 0 ? J * g.Nx + wrap(I - 1, g.Nx)
+                : wrap(J - 1, g.Ny) * g.Nx + I;
+}
+
+// What padded point p of direction d takes from where: f, the point the
+// halo fill copies into p; b, the point whose AB3 update apply_bc_u/v
+// writes at f (zero: none, the normal-direction closed wall; gamma: times
+// gamma2); their back neighbours bw and fw; and whether the coupling adds
+// -CFb at f once for a boundary column and once for a boundary row (u at
+// the wall faces I = H, H+L and the rows J = H-1, H+M; v at the columns I
+// = H-1, H+L and the wall faces J = H, H+M, on non-periodic edges).
+struct UvCol {
+  int b, bw, f, fw;
+  bool zero, gamma, col, row;
+};
+
+__device__ __forceinline__ UvCol uv_col(const UvParams& P, int p, int d) {
+  const Geom& g = P.g;
+  const int Jf = fill_src(p / g.Nx, g.H, g.M, g.ns_per);
+  const int If = fill_src(p % g.Nx, g.H, g.L, g.ew_per);
+  const BcSrc src =
+      d == 0 ? bc_u_src(g, P.bu, Jf, If) : bc_v_src(g, P.bv, Jf, If);
+  UvCol c;
+  c.f = Jf * g.Nx + If;
+  c.b = src.zero ? c.f : src.q;
+  c.bw = uv_back(g, c.b, d);
+  c.fw = uv_back(g, c.f, d);
+  c.zero = src.zero;
+  c.gamma = src.gamma;
+  c.col = !g.ew_per && (If == (d == 0 ? g.H : g.H - 1) || If == g.H + g.L);
+  c.row = !g.ns_per && (Jf == (d == 0 ? g.H - 1 : g.H) || Jf == g.H + g.M);
+  return c;
+}
+
+// The tile of block blk; sm: its uv_rows(N) x tile words.
+//
+// A block owns `tile` consecutive padded points (flattened j, i) and both
+// directions; its threads split into tile columns x level slots (at least
+// four), as the tracer kernels' do.  Each thread works out, for its column
+// and both directions, where the column's values come from (UvCol): in the
+// interior b = f = p, at the halo and the walls other columns, whose
+// inputs it reads from device memory (L2), never from the tile.  Then:
+//   A. a thread per (level, column): Hk, 1/Hk and the AB3 velocity at b,
+//      AK (splines) and DCk at f - both directions, the lanes of a warp
+//      neighbouring columns of one level, so that the loads coalesce;
+//   B. a thread per (direction, column): the spline solve of the vertical
+//      viscosity, from shared memory (column.cuh spline_vdiff_flux); beside
+//      it, another thread per (direction, column) sums Hk (CF0) and DCk,
+//      which do not depend on the solve;
+//   C. a thread per (level, column): the solve's update of the velocity;
+//   D. a thread per (direction, column): the sum DCm and the barotropic
+//      error err, after issuing the copies of the old mass flux at f into
+//      the column (cp.async), which it reads in F;
+//   E. a thread per (level, column): the mean replacement and mask, the
+//      lateral BC and mask at f;
+//   F. a thread per (direction, column): the sum of DCk u, ubar, the
+//      boundary-ring correction -CFb, the time-centred flux and its sum,
+//      and FCc;
+//   G. a thread per (level, column): the stores of u (v) and Huon (Hvom).
+// Block barriers separate the passes; every sum runs in k order.
 template <typename T>
-__device__ void uv_corrector_column(const UvParams& P, const UvPtrs<T>& A,
-                                    int p, int d) {
+__device__ void uv_corrector_tile(const UvParams& P, const UvPtrs<T>& A,
+                                  T* sm, int blk, int t) {
   const Geom& g = P.g;
   const int S = g.Ny * g.Nx;
   const int N = P.N;
+  const int tile = P.plan.tile;
+  const int col = t % tile;
+  const int k0 = t / tile;      // the direction (k0 % 2) in B, D and F
+  const int dk = P.plan.threads / tile;
+  const int p = blk * tile + col;
+  const bool live = p < S;
+  const bool solver = k0 < 2 && live;             // B (the solve), D, F
+  const bool summer = k0 >= 2 && k0 < 4 && live;  // B (the sums)
   const T dt = T(P.dt);
-  const T* vn = A.vel_nnew[d];
-  const T* r = A.r[d];
-  const T* D1 = A.D1[d];
-  const T* mask = A.mask[d];
-  // the i-1 (xi) or j-1 (eta) neighbour of point q, and the metric on_u
-  // = 2/(pn[i-1] + pn[i]) or om_v = 2/(pm[j-1] + pm[j]) there (grid.py)
-  auto back = [&](int q) {
-    const int J = q / g.Nx;
-    const int I = q - J * g.Nx;
-    return d == 0 ? J * g.Nx + wrap(I - 1, g.Nx)
-                  : wrap(J - 1, g.Ny) * g.Nx + I;
-  };
-  auto metric = [&](int q) {
-    const T* m = d == 0 ? A.pn : A.pm;
-    return T(1) / (m[back(q)] + m[q]) * T(2);
-  };
-
-  // the point the halo fill copies into p, and the point whose pre-BC
-  // value apply_bc_u/v writes there
-  const int Jf = fill_src(p / g.Nx, g.H, g.M, g.ns_per);
-  const int If = fill_src(p % g.Nx, g.H, g.L, g.ew_per);
-  const int f = Jf * g.Nx + If;
-  const BcSrc src = d == 0 ? bc_u_src(g, P.bu, Jf, If)
-                           : bc_v_src(g, P.bv, Jf, If);
-
-  T vel[kMaxN], Hk[kMaxN], oH[kMaxN], AK[kMaxN + 1], flux[kMaxN + 1],
-      CFs[kMaxN];
-  if (!src.zero) {
-    // AB3 update, vertical viscosity and mean replacement at column b
-    const int b = src.q;
-    const int bw = back(b);
-    const T DC0 = T(P.cff) * (A.pm[b] + A.pm[bw]) * (A.pn[b] + A.pn[bw]);
-    for (int k = 0; k < N; ++k) {
-      const int o = k * S;
-      Hk[k] = T(0.5) * (A.Hz[o + b] + A.Hz[o + bw]);
-      oH[k] = T(1) / Hk[k];
-      vel[k] = (vn[o + b] + DC0 * r[o + b]) * oH[k];
-    }
-    if (P.splines) {
-      for (int k = 0; k <= N; ++k)
-        AK[k] = T(0.5) * (A.Akv[k * S + b] + A.Akv[k * S + bw]);
-      spline_vdiff_flux(dt, Hk, oH, AK, vel, N, flux, CFs);
-      for (int k = 0; k < N; ++k)
-        vel[k] = vel[k] + dt * oH[k] * (flux[k + 1] - flux[k]);
-    }
-    T CF0 = T(0);
-    T DCm = T(0);
-    for (int k = 0; k < N; ++k) {
-      CF0 = CF0 + Hk[k];
-      DCm = DCm + vel[k] * Hk[k];
-    }
-    const T mb = metric(b);
-    const T err = (DCm * mb - D1[b]) / (CF0 * mb);
-    for (int k = 0; k < N; ++k) vel[k] = (vel[k] - err) * mask[b];
-  }
-  // lateral BC and mask at f
   const T gamma2 = T(P.gamma2);
-  for (int k = 0; k < N; ++k) {
-    const T v = src.zero ? T(0) : vel[k];
-    vel[k] = mask[f] * (src.gamma ? gamma2 * v : v);
+  auto arr = [&](int d, int row) {
+    return Col<T>{sm + (d * (7 * N + 6) + row) * tile + col, tile};
+  };
+  auto vel = [&](int d) { return arr(d, 0); };
+  auto Hk = [&](int d) { return arr(d, N); };
+  auto oH = [&](int d) { return arr(d, 2 * N); };
+  auto DCk = [&](int d) { return arr(d, 3 * N); };
+  auto CFs = [&](int d) { return arr(d, 4 * N); };
+  auto AK = [&](int d) { return arr(d, 5 * N); };
+  auto flux = [&](int d) { return arr(d, 6 * N + 1); };
+  auto scalar = [&](int d, int n) {   // 0 CF0, 1 sum DCk, 2 err, 3 FCc
+    return arr(d, 7 * N + 2 + n);
+  };
+  // the metric on_u = 2/(pn[i-1] + pn[i]) or om_v = 2/(pm[j-1] + pm[j]) at
+  // q, whose back neighbour is qw (grid.py)
+  auto metric = [&](int d, int qw, int q) {
+    const T* m = d == 0 ? A.pn : A.pm;
+    return T(1) / (m[qw] + m[q]) * T(2);
+  };
+  // member d of a pair, d known at run time only (selects, so that no
+  // array is indexed at run time and nothing goes to the stack)
+  auto pick = [](auto pair, int d) { return d == 0 ? pair[0] : pair[1]; };
+
+  // this column's sources, and its constants of each direction: the AB3
+  // factor DC0 at b, the masks at b and f, and 0.5 on_u (om_v) at f
+  UvCol c[2];
+  T DC0[2], mask_b[2], mask_f[2], half_metric[2];
+#pragma unroll
+  for (int d = 0; d < 2; ++d) {
+    c[d] = uv_col(P, live ? p : 0, d);
+    const int b = c[d].b, bw = c[d].bw;
+    DC0[d] = T(P.cff) * (A.pm[b] + A.pm[bw]) * (A.pn[b] + A.pn[bw]);
+    mask_b[d] = A.mask[d][b];
+    mask_f[d] = A.mask[d][c[d].f];
+    half_metric[d] = T(0.5) * metric(d, c[d].fw, c[d].f);
   }
 
-  // 2-D/3-D coupling at f (step3d_uv.F:997-1213)
-  const int fw = back(f);
-  const T half_metric = T(0.5) * metric(f);
-  T sumD = T(0);
-  T sumDv = T(0);
-  for (int k = 0; k < N; ++k) {
+  // A. the AB3 velocity at b over Hk, AK, and DCk at f: a thread per
+  // (level, column)
+#pragma unroll 2
+  for (int k = k0; k <= N; k += dk) {
     const int o = k * S;
-    Hk[k] = half_metric * (A.Hz[o + f] + A.Hz[o + fw]);   // DCk
-    sumD = sumD + Hk[k];
-    sumDv = sumDv + Hk[k] * vel[k];
+    T hz[2], hzw[2], hzf[2], hzfw[2], vn[2], r[2], ak[2], akw[2];
+#pragma unroll
+    for (int d = 0; d < 2; ++d) {
+      const bool lev = live && k < N;
+      const bool on = live && !c[d].zero;
+      const bool lon = on && k < N;
+      const bool sp = on && P.splines;
+      const int b = c[d].b, bw = c[d].bw;
+      hz[d] = lon ? __ldg(A.Hz + o + b) : T(0);
+      hzw[d] = lon ? __ldg(A.Hz + o + bw) : T(0);
+      hzf[d] = lev ? __ldg(A.Hz + o + c[d].f) : T(0);
+      hzfw[d] = lev ? __ldg(A.Hz + o + c[d].fw) : T(0);
+      vn[d] = lon ? __ldg(A.vel_nnew[d] + o + b) : T(0);
+      r[d] = lon ? __ldg(A.r[d] + o + b) : T(0);
+      ak[d] = sp ? __ldg(A.Akv + o + b) : T(0);
+      akw[d] = sp ? __ldg(A.Akv + o + bw) : T(0);
+    }
+    if (!live) continue;
+#pragma unroll
+    for (int d = 0; d < 2; ++d) {
+      if (k < N) DCk(d)[k] = half_metric[d] * (hzf[d] + hzfw[d]);
+      if (c[d].zero) continue;
+      if (k < N) {
+        const T h = T(0.5) * (hz[d] + hzw[d]);
+        const T oh = T(1) / h;
+        Hk(d)[k] = h;
+        oH(d)[k] = oh;
+        vel(d)[k] = (vn[d] + DC0[d] * r[d]) * oh;
+      }
+      if (P.splines) AK(d)[k] = T(0.5) * (ak[d] + akw[d]);
+    }
   }
-  const T oD = T(1) / sumD;
-  const T CFb = oD * (sumDv - D1[f]);
-  A.bar[d][p] = oD * D1[f];
-  // boundary-ring-only replacement at non-periodic edges: u at the wall
-  // faces I = H, H+L and the rows J = H-1, H+M; v at the columns I = H-1,
-  // H+L and the wall faces J = H, H+M
-  const bool col = !g.ew_per && (If == (d == 0 ? g.H : g.H - 1) ||
-                                 If == g.H + g.L);
-  const bool row = !g.ns_per && (Jf == (d == 0 ? g.H - 1 : g.H) ||
-                                 Jf == g.H + g.M);
-  T sumF = T(0);
-  const T* fo = A.flx_old[d];
-  for (int k = 0; k < N; ++k) {
-    if (col) vel[k] = vel[k] + -CFb;
-    if (row) vel[k] = vel[k] + -CFb;
-    flux[k] = T(0.5) * (fo[k * S + f] + vel[k] * Hk[k]);
-    sumF = sumF + flux[k];
+  __syncthreads();
+
+  // B. the spline vertical viscosity, and the column sums of Hk and DCk: a
+  // thread per (direction, column) each
+  if (solver && P.splines && !pick(c, k0).zero)
+    spline_vdiff_flux(dt, Hk(k0), oH(k0), AK(k0), vel(k0), N, flux(k0),
+                      CFs(k0));
+  if (summer) {
+    const int d = k0 - 2;
+    const Col<T> h = Hk(d), D = DCk(d);
+    T CF0 = T(0);
+    T sumD = T(0);
+#pragma unroll 4
+    for (int k = 0; k < N; ++k) {
+      if (!pick(c, d).zero) CF0 = CF0 + h[k];
+      sumD = sumD + D[k];
+    }
+    scalar(d, 0)[0] = CF0;
+    scalar(d, 1)[0] = sumD;
   }
-  const T FCc = oD * (sumF - A.D2[d][f]);
-  for (int k = 0; k < N; ++k) {
-    A.vel[d][k * S + p] = vel[k];
-    A.flx[d][k * S + p] = flux[k] - Hk[k] * FCc;
+  __syncthreads();
+
+  if (P.splines) {
+    // C. the solve's update of the velocity: a thread per (level, column)
+    for (int k = k0; k < N; k += dk) {
+#pragma unroll
+      for (int d = 0; d < 2; ++d) {
+        if (!live || c[d].zero) continue;
+        const Col<T> v = vel(d), F = flux(d);
+        v[k] = v[k] + dt * oH(d)[k] * (F[k + 1] - F[k]);
+      }
+    }
+    __syncthreads();
+  }
+
+  // D. the old mass flux at f into CFs, in flight until F; the sum DCm
+  // and the barotropic error: a thread per (direction, column)
+  if (solver) {
+    const int d = k0;
+    const UvCol cd = pick(c, d);
+    const Col<T> fo = CFs(d);
+    const T* flx_old = pick(A.flx_old, d);
+    for (int k = 0; k < N; ++k)
+      copy_async(&fo[k], flx_old + k * S + cd.f);
+    copy_async_commit();
+    if (!cd.zero) {
+      const Col<T> v = vel(d), h = Hk(d);
+      T DCm = T(0);
+#pragma unroll 4
+      for (int k = 0; k < N; ++k) DCm = DCm + v[k] * h[k];
+      const T mb = metric(d, cd.bw, cd.b);
+      scalar(d, 2)[0] =
+          (DCm * mb - pick(A.D1, d)[cd.b]) / (scalar(d, 0)[0] * mb);
+    }
+  }
+  __syncthreads();
+
+  // E. mean replacement and mask at b, lateral BC and mask at f: a thread
+  // per (level, column)
+  if (live) {
+    for (int k = k0; k < N; k += dk) {
+#pragma unroll
+      for (int d = 0; d < 2; ++d) {
+        const Col<T> v = vel(d);
+        const T u =
+            c[d].zero ? T(0) : (v[k] - scalar(d, 2)[0]) * mask_b[d];
+        v[k] = mask_f[d] * (c[d].gamma ? gamma2 * u : u);
+      }
+    }
+  }
+  __syncthreads();
+
+  // F. the 2-D/3-D coupling at f (step3d_uv.F:997-1213): a thread per
+  // (direction, column)
+  if (solver) {
+    const int d = k0;
+    const UvCol cd = pick(c, d);
+    const Col<T> v = vel(d), D = DCk(d), fo = CFs(d);
+    const T D1f = pick(A.D1, d)[cd.f];
+    const T D2f = pick(A.D2, d)[cd.f];
+    T sumDv = T(0);
+#pragma unroll 4
+    for (int k = 0; k < N; ++k) sumDv = sumDv + D[k] * v[k];
+    const T oD = T(1) / scalar(d, 1)[0];
+    const T CFb = oD * (sumDv - D1f);
+    pick(A.bar, d)[p] = oD * D1f;
+    copy_async_wait<0>();     // the old mass flux
+    T sumF = T(0);
+#pragma unroll 4
+    for (int k = 0; k < N; ++k) {
+      T u = v[k];
+      if (cd.col) u = u + -CFb;
+      if (cd.row) u = u + -CFb;
+      const T fl = T(0.5) * (fo[k] + u * D[k]);
+      sumF = sumF + fl;
+      v[k] = u;
+      fo[k] = fl;
+    }
+    scalar(d, 3)[0] = oD * (sumF - D2f);
+  }
+  __syncthreads();
+
+  // G. u (v) and Huon (Hvom) at p: a thread per (level, column)
+  if (live) {
+    for (int k = k0; k < N; k += dk) {
+      const int o = k * S;
+#pragma unroll
+      for (int d = 0; d < 2; ++d) {
+        A.vel[d][o + p] = vel(d)[k];
+        A.flx[d][o + p] = CFs(d)[k] - DCk(d)[k] * scalar(d, 3)[0];
+      }
+    }
   }
 }
 
@@ -701,6 +874,9 @@ inline UvParams uv_params(const int* ip, const double* dp) {
   for (int s = 0; s < 4; ++s) P.bu[s] = ip[n++];
   for (int s = 0; s < 4; ++s) P.bv[s] = ip[n++];
   P.splines = ip[n++];
+  P.plan.tile = ip[n++];
+  P.plan.threads = ip[n++];
+  P.plan.smem = ip[n++];
   P.dt = dp[0];
   P.cff = dp[1];
   P.gamma2 = dp[2];

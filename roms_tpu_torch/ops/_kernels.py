@@ -127,7 +127,8 @@ def library() -> ctypes.CDLL:
     lib.roms_tracer_layout.argtypes = [ctypes.c_int, ctypes.c_int,
                                        ctypes.POINTER(ctypes.c_int)]
     lib.roms_tracer_layout.restype = ctypes.c_int
-    for name in ("roms_prsgrd32_layout", "roms_rhs3d_layout"):
+    for name in ("roms_prsgrd32_layout", "roms_rhs3d_layout",
+                 "roms_uv_corrector_layout", "roms_uv3dmix2_layout"):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
@@ -221,12 +222,12 @@ def geometry(cfg) -> list:
             int(cfg.ew_periodic), int(cfg.ns_periodic)]
 
 
-MAX_N = 64      # csrc/column.cuh kMaxN: most levels a column kernel takes
+MAX_N = 64      # most levels the column kernels' plans are tested for
 
 
 def column_ints(cfg, name: str) -> list:
     """N and the geometry ints of a column kernel (csrc/column.cuh); raise
-    for a depth its thread-local columns cannot hold."""
+    for a depth outside the kernels' plans."""
     if not 3 <= cfg.N <= MAX_N:
         raise ValueError(f"{name} kernel: N={cfg.N} outside 3..{MAX_N}")
     return [cfg.N] + geometry(cfg)

@@ -9,9 +9,11 @@ t3dmix2_geo - harmonic tracer diffusion rotated to geopotential surfaces.
 
 Each wrapper takes its plain version for CPU tensors only; for CUDA tensors
 it launches its kernel of csrc/mix3d.cu, one launch for both directions or
-for every tracer with tnu2 != 0, or raises.  t3dmix2_geo's kernel gives
-each block a tile of points whose planes it stages in shared memory
-(``geo_layout`` reports the tile and the bytes).  On the card the kernels add
+for every tracer with tnu2 != 0, or raises.  Each kernel gives a block a
+2-D tile of points whose level planes it stages in shared memory:
+``uv3dmix2_plan`` sizes uv3dmix2's tile and block and ``uv3dmix2_layout``
+reports its registers and stack frame on the card; ``geo_layout`` reports
+t3dmix2_geo's tile and bytes.  On the card the kernels add
 into their outputs in place and return them, as the Pallas kernels donate
 them (u_nnew, v_nnew, rufrc, rvfrc; t_nnew): a caller does not read those
 inputs again, and they must not alias each other or the other arguments.
@@ -26,11 +28,48 @@ import torch
 
 from ..config import Config
 from ..grid import Grid
-from ._kernels import check_tensors, column_ints, launch, library, on_card
+from ._kernels import SMEM_MAX, check_tensors, column_ints, kernel_layout, \
+    launch, library, on_card, tile_plan
 from .mix3d import t3dmix2_geo as t3dmix2_geo_plain
 from .mix3d import uv3dmix2 as uv3dmix2_plain
 
 MAX_TRACERS = 16                 # csrc/column.cuh kMaxTr
+THREADS = 256       # uv3dmix2: threads a block, at most (mix3d.cu kMaxThreads)
+
+
+def uv3dmix2_plan(dtype, N: int, ny: int, nx: int) -> dict:
+    """uv3dmix2's launch on a padded ny x nx grid of N levels: {"tile":
+    (points along xi, along eta), "levels": level slots, "blocks",
+    "threads": a block, "smem_bytes": its dynamic shared memory}.  A block
+    is `levels` slots of one thread a tile point, at most THREADS threads,
+    each slot with two sets of u, v, Hz planes over the tile's region (the
+    tile and one point around it) and its four face arrays, beside the
+    region's and the rectangles' metric factors and, with more than one
+    slot, each level's terms of the column sums (csrc/mix3d.cuh
+    MixLayout); the slots are halved while they leave no room for three
+    blocks an SM; _kernels.tile_plan picks the tile."""
+    word = 8 if dtype == torch.float64 else 4
+
+    def smem(tx, ty, ks):
+        ra, fa = (tx + 2) * (ty + 2), (tx + 1) * (ty + 1)
+        words = ks * (6 * ra + 4 * fa) + 4 * ra + 9 * fa + \
+            (2 * N * tx * ty if ks > 1 else 0)
+        return words * word + 4 * ra
+
+    def make(tx, ty):
+        ks = max(THREADS // (tx * ty), 1)
+        while ks > 1 and smem(tx, ty, ks) > SMEM_MAX // 3:
+            ks //= 2
+        return dict(tile=(tx, ty), levels=ks,
+                    blocks=-(-nx // tx) * -(-ny // ty),
+                    threads=tx * ty * ks, smem_bytes=smem(tx, ty, ks))
+    return tile_plan(make)
+
+
+def uv3dmix2_layout(dtype) -> dict:
+    """uv3dmix2's kernel on the current card: {"registers": a thread,
+    "stack_bytes": its stack frame a thread}."""
+    return kernel_layout("roms_uv3dmix2_layout", dtype)
 
 
 def supported(cfg: Config) -> bool:
@@ -68,7 +107,10 @@ def uv3dmix2(cfg: Config, grid: Grid, u, v, Hz, u_nnew, v_nnew, rufrc,
         raise ValueError("uv3dmix2 kernel updates u_nnew, v_nnew, rufrc and "
                          "rvfrc in place: they must not alias each other or "
                          "its other arguments")
-    launch("roms_uv3dmix2", f64, list(ins.values()), ints,
+    plan = uv3dmix2_plan(u.dtype, cfg.N, cfg.ny_tot, cfg.nx_tot)
+    launch("roms_uv3dmix2", f64, list(ins.values()),
+           ints + list(plan["tile"]) + [plan["levels"], plan["threads"],
+                                        plan["smem_bytes"]],
            [dt, cfg.visc2], torch.cuda.current_stream(u.device))
     uv3dmix2.launches += 1
     return u_nnew, v_nnew, rufrc, rvfrc

@@ -11,14 +11,14 @@ tracer_corrector - step3d_t -> the new tracers.  Replaces
 Each wrapper takes its plain version (``*_plain``: the port's stage
 functions) for CPU tensors only.  For CUDA tensors it launches the kernel of
 csrc/step3d.cu, one launch for all tracers or both directions, or raises;
-it never falls back.  The tracer kernels run on tiles of padded points
-whose columns a block keeps in shared memory; ``tracer_plan`` sizes the
-tile and the block, ``tracer_layout`` reports a kernel's registers and
-stack frame on the card.  ``wrapper.launches`` counts kernel launches.  The
-gates ``use_tracer`` and ``use_uv`` decide, as the JAX step's
-``use_tracer_pallas`` / ``use_uv_pallas`` do, whether the step calls the
-wrappers at all.  The TPU kernel's folded harmonic mixing
-(``mix_in_predictor``, off by default there) is not ported.
+it never falls back.  The kernels run on tiles of padded points whose
+columns a block keeps in shared memory; ``tracer_plan`` and ``uv_plan``
+size the tile and the block, ``tracer_layout`` and ``uv_layout`` report a
+kernel's registers and stack frame on the card.  ``wrapper.launches``
+counts kernel launches.  The gates ``use_tracer`` and ``use_uv`` decide,
+as the JAX step's ``use_tracer_pallas`` / ``use_uv_pallas`` do, whether
+the step calls the wrappers at all.  The TPU kernel's folded harmonic
+mixing (``mix_in_predictor``, off by default there) is not ported.
 """
 
 from __future__ import annotations
@@ -39,8 +39,17 @@ _OK_SCHEMES = {"C2", "U1", "U3", "C4", "A4", "SPLINES"}
 _HADV_CODE = {"U3": 0, "C4": 1}           # csrc/column.cuh HScheme
 _VADV_CODE = {"C4": 0, "SPLINES": 1}      # csrc/column.cuh VScheme
 MAX_TRACERS = 16                          # column.cuh kMaxTr
-TILE = 32                # padded points a tracer tile holds, at most
-TILE_THREADS = 256       # threads a tracer block (step3d.cu kTileThreads)
+TILE = 32                # padded points a tile holds, at most
+TILE_THREADS = 256       # threads a tile block (step3d.cu kTileThreads)
+
+
+def _largest_tile(col_bytes: int) -> int:
+    """The largest power of two up to TILE whose columns of col_bytes
+    leave room for three blocks an SM, and at least one column."""
+    tile = TILE
+    while tile > 1 and tile * col_bytes > SMEM_MAX // 3:
+        tile //= 2
+    return tile
 
 
 def tracer_plan(name: str, dtype, N: int, NT: int, ny: int, nx: int) -> dict:
@@ -56,11 +65,31 @@ def tracer_plan(name: str, dtype, N: int, NT: int, ny: int, nx: int) -> dict:
     else:
         rows = 8 * N + 1 + min(NT, 2) * (N + 1) + NT * (4 * N + 1)
     col_bytes = rows * (8 if dtype == torch.float64 else 4)
-    tile = TILE
-    while tile > 1 and tile * col_bytes > SMEM_MAX // 3:
-        tile //= 2
+    tile = _largest_tile(col_bytes)
     return dict(tile=tile, blocks=-(-ny * nx // tile), threads=TILE_THREADS,
                 smem_bytes=tile * col_bytes)
+
+
+def uv_plan(dtype, N: int, ny: int, nx: int) -> dict:
+    """The momentum corrector's launch on a padded ny x nx grid of N
+    levels, as tracer_plan's: a tile column holds step3d.cuh uv_rows words
+    (both directions), the tile is the largest power of two up to TILE
+    that leaves room for three blocks an SM, and the block has a thread
+    per column and level slot: TILE_THREADS in float32, half as many in
+    float64, whose registers would otherwise leave room for two blocks an
+    SM (twice as fast at BENCHMARK1 on an H100)."""
+    f64 = dtype == torch.float64
+    col_bytes = 2 * (7 * N + 6) * (8 if f64 else 4)
+    tile = _largest_tile(col_bytes)
+    return dict(tile=tile, blocks=-(-ny * nx // tile),
+                threads=TILE_THREADS // 2 if f64 else TILE_THREADS,
+                smem_bytes=tile * col_bytes)
+
+
+def uv_layout(dtype) -> dict:
+    """The momentum corrector's kernel on the current card: {"registers":
+    a thread, "stack_bytes": its local memory (stack frame) a thread}."""
+    return kernel_layout("roms_uv_corrector_layout", dtype)
 
 
 def _plan_ints(name: str, cfg: Config, dtype) -> list:
@@ -218,9 +247,11 @@ def uv_corrector(cfg: Config, grid: Grid, iic: int, u_nnew, v_nnew, ru, rv,
     f64 = check_tensors(ins, shapes, u_nnew.dtype, u_nnew.device)
     outs = [torch.empty_like(a) for a in (u_nnew, v_nnew, DU_avg1, DV_avg1,
                                           u_nnew, v_nnew)]
+    plan = uv_plan(u_nnew.dtype, N, cfg.ny_tot, cfg.nx_tot)
     launch("roms_uv_corrector", f64, list(ins.values()) + outs,
            ints + bc_kinds(cfg.lbc_u) + bc_kinds(cfg.lbc_v) +
-           [int(cfg.splines_vvisc)],
+           [int(cfg.splines_vvisc), plan["tile"], plan["threads"],
+            plan["smem_bytes"]],
            [cfg.dt, corrector_cff(cfg.dt, iic), cfg.gamma2],
            torch.cuda.current_stream(u_nnew.device))
     uv_corrector.launches += 1

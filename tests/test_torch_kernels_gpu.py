@@ -2,10 +2,13 @@
 card, in float32 and float64, on UPWELLING and on closed, gradient and
 masked (an island) variants of it (the momentum kernels also on a
 curvilinear one), the geopotential tracer diffusion on a small BENCHMARK,
-the tracer kernels and prsgrd32 bitwise, rhs3d bitwise but for its
-column sums, also on the small BENCHMARK (1-3 tracers; closed and masked
-variants for the momentum kernels), on a grid smaller than one tile and
-at their largest shared-memory plans;
+the tracer kernels and prsgrd32 bitwise, rhs3d and uv3dmix2 bitwise but
+for their column sums, uv_corrector within RTOL (its outputs all pass
+through column sums) and every kernel's second launch bitwise equal to its
+first, also on the small BENCHMARK (1-3 tracers; closed and masked
+variants for the momentum and uv kernels; uv3dmix2 on 2, 4 and 8 level
+slots), on a grid smaller than one tile and at their largest
+shared-memory plans;
 the UPWELLING anchor with ten kernels on, and the small-BENCHMARK fixture
 (tests/data/torch_benchmark_small.npz) with all eleven on.
 
@@ -359,10 +362,11 @@ def test_tracer_kernels_at_the_largest_plan(device, nt):
                      *_check_predictor(cfg, grid, s, f, 5, True))
 
 
-@pytest.mark.parametrize("iic", [0, 1, 5])
-def test_uv_corrector_kernel(developed, iic):
-    cfg, grid, s = developed
-    f = _stage_inputs(cfg, grid, s)
+def _check_uv_corrector(cfg, grid, s, f, iic):
+    """uv_corrector from the AB3 start of state s, with random right-hand
+    sides and barotropic transports: within RTOL of its plain version (its
+    outputs all pass through column sums), and a second launch bitwise
+    equal to the first."""
     a1, a2 = ab3_start_coefs(iic)
     zero = torch.zeros_like(s.zeta)
     u_nnew, v_nnew = momentum_init(
@@ -380,6 +384,46 @@ def test_uv_corrector_kernel(developed, iic):
     assert step3d_cuda.uv_corrector.launches == before + 1
     _close(got, step3d_cuda.uv_corrector_plain(*args), RTOL[s.u.dtype],
            "uv_corrector")
+    _equal(step3d_cuda.uv_corrector(*args), got,
+           "uv_corrector, second launch")
+
+
+def _check_uv3dmix2(cfg, grid, s, f):
+    """uv3dmix2 on fresh copies of the fields it updates in place: u_nnew
+    and v_nnew bitwise equal to its plain version, rufrc and rvfrc (column
+    sums) within RTOL, and a second launch bitwise equal to the first."""
+    R = f["R"]
+    ins = (s.u, s.v, f["Hz"])
+    upd = (s.u * f["Hz"], s.v * f["Hz"], R(s.zeta.shape, 1.0),
+           R(s.zeta.shape, 1.0))
+    before = mix3d_cuda.uv3dmix2.launches
+    got = mix3d_cuda.uv3dmix2(cfg, grid, *ins, *[a.clone() for a in upd],
+                              cfg.dt)
+    assert mix3d_cuda.uv3dmix2.launches == before + 1
+    ref = mix3d_cuda.uv3dmix2_plain(cfg, grid, *ins, *upd, cfg.dt)
+    _equal(got[:2], ref[:2], "uv3dmix2")
+    _close(got[2:], ref[2:], RTOL[s.u.dtype], "uv3dmix2 column sums")
+    _equal(mix3d_cuda.uv3dmix2(cfg, grid, *ins, *[a.clone() for a in upd],
+                               cfg.dt), got, "uv3dmix2, second launch")
+
+
+def _uv_plans(cfg, dtype):
+    """The uv_corrector and uv3dmix2 plans of a case."""
+    shape = (cfg.N, cfg.ny_tot, cfg.nx_tot)
+    return (step3d_cuda.uv_plan(dtype, *shape),
+            mix3d_cuda.uv3dmix2_plan(dtype, *shape))
+
+
+@pytest.mark.parametrize("iic", [0, 1, 5])
+def test_uv_corrector_kernel(developed, iic):
+    """Each rung of the AB3 start-up, on tiles that straddle rows of the
+    padded grid, the last ragged."""
+    cfg, grid, s = developed
+    plan = _uv_plans(cfg, s.u.dtype)[0]
+    points = cfg.ny_tot * cfg.nx_tot
+    assert plan["blocks"] > 1 and points % plan["tile"] != 0 and \
+        cfg.nx_tot % plan["tile"] != 0, plan
+    _check_uv_corrector(cfg, grid, s, _stage_inputs(cfg, grid, s), iic)
 
 
 def _curvilinear(cfg, grid, curv):
@@ -435,20 +479,24 @@ def _check_rhs3d(args, kw):
 
 
 def test_uv3dmix2_kernel(developed):
-    """The kernel updates its last four arguments in place: it gets
-    copies."""
+    """The kernel updates its last four arguments in place: each launch
+    gets fresh copies.  On more than one tile."""
     cfg, grid, s = developed
-    f = _stage_inputs(cfg, grid, s)
-    R = f["R"]
-    ins = (s.u, s.v, f["Hz"])
-    upd = (s.u * f["Hz"], s.v * f["Hz"], R(s.zeta.shape, 1.0),
-           R(s.zeta.shape, 1.0))
-    before = mix3d_cuda.uv3dmix2.launches
-    got = mix3d_cuda.uv3dmix2(cfg, grid, *ins, *[a.clone() for a in upd],
-                              cfg.dt)
-    assert mix3d_cuda.uv3dmix2.launches == before + 1
-    _close(got, mix3d_cuda.uv3dmix2_plain(cfg, grid, *ins, *upd, cfg.dt),
-           RTOL[s.u.dtype], "uv3dmix2")
+    assert _uv_plans(cfg, s.u.dtype)[1]["blocks"] > 1
+    _check_uv3dmix2(cfg, grid, s, _stage_inputs(cfg, grid, s))
+
+
+@pytest.mark.parametrize("rows", [1, 2, 4])
+def test_uv3dmix2_kernel_on_level_slots(fixture_case, rows, monkeypatch):
+    """The small BENCHMARK on tiles of 32 x `rows` points, so 8, 4 or 2
+    level slots a block (the plans of UPWELLING and BENCHMARK1; the
+    small cases alone take one slot): each slot walks its own levels and
+    one slot's threads add each direction's column in k order."""
+    cfg, grid, s = fixture_case
+    monkeypatch.setattr(mix3d_cuda, "tile_plan", lambda make: make(32, rows))
+    plan = _uv_plans(cfg, s.u.dtype)[1]
+    assert plan["tile"] == (32, rows) and plan["levels"] == 8 // rows, plan
+    _check_uv3dmix2(cfg, grid, s, _stage_inputs(cfg, grid, s))
 
 
 @pytest.mark.parametrize("iic,tide", [(0, False), (5, True)])
@@ -493,12 +541,20 @@ def _check_momentum_kernels(cfg, grid, s):
                                    s.rv_prev, s.rv_prev2)))
 
 
-@pytest.mark.parametrize("variant", ["spherical", "closed", "masked"])
-def test_momentum_kernels_on_ragged_tiles(fixture_case, variant):
-    """The small BENCHMARK (spherical: curvilinear terms and a varying f;
-    70 x 38 padded points) as it is, with closed E-W walls, and with an
-    island: several tiles along both axes, the last of each ragged."""
-    cfg, grid, s = fixture_case
+def _check_uv_kernels(cfg, grid, s):
+    """uv_corrector (spline and no vertical viscosity, at the first step
+    and in the steady AB3) and uv3dmix2, on state s."""
+    f = _stage_inputs(cfg, grid, s)
+    for splines in (True, False):
+        for iic in (0, 5):
+            _check_uv_corrector(cfg.replace(splines_vvisc=splines), grid, s,
+                                f, iic)
+    _check_uv3dmix2(cfg, grid, s, f)
+
+
+def _case_variant(cfg, grid, variant):
+    """The small BENCHMARK as it is ("spherical"), with closed E-W walls
+    ("closed") or with an island ("masked")."""
     if variant == "closed":
         closed = LBC()
         cfg = cfg.replace(ew_periodic=False, gamma2=-1.0, lbc_zeta=closed,
@@ -506,11 +562,39 @@ def test_momentum_kernels_on_ragged_tiles(fixture_case, variant):
                           lbc_v=closed, lbc_t=closed)
     if variant == "masked":
         grid = _island(grid)
+    return cfg, grid
+
+
+@pytest.mark.parametrize("variant", ["spherical", "closed", "masked"])
+def test_momentum_kernels_on_ragged_tiles(fixture_case, variant):
+    """The small BENCHMARK (spherical: curvilinear terms and a varying f;
+    70 x 38 padded points) as it is, with closed E-W walls, and with an
+    island: several tiles along both axes, the last of each ragged."""
+    cfg, grid, s = fixture_case
+    cfg, grid = _case_variant(cfg, grid, variant)
     for plan in _momentum_plans(cfg, s.u.dtype):
         tx, ty = plan["tile"]
         assert cfg.nx_tot > tx and cfg.nx_tot % tx != 0, plan
         assert cfg.ny_tot > ty and cfg.ny_tot % ty != 0, plan
     _check_momentum_kernels(cfg, grid, s)
+
+
+@pytest.mark.parametrize("variant", ["spherical", "closed", "masked"])
+def test_uv_kernels_on_ragged_tiles(fixture_case, variant):
+    """uv_corrector and uv3dmix2 on the small BENCHMARK (70 x 38 padded
+    points) as it is, with closed E-W walls, and with an island: several
+    tiles, the last ragged (uv_corrector's straddle rows; uv3dmix2's
+    along both axes)."""
+    cfg, grid, s = fixture_case
+    cfg, grid = _case_variant(cfg, grid, variant)
+    uv, mix = _uv_plans(cfg, s.u.dtype)
+    points = cfg.ny_tot * cfg.nx_tot
+    assert uv["blocks"] > 1 and points % uv["tile"] != 0 and \
+        cfg.nx_tot % uv["tile"] != 0, uv
+    tx, ty = mix["tile"]
+    assert cfg.nx_tot > tx and cfg.nx_tot % tx != 0, mix
+    assert cfg.ny_tot > ty and cfg.ny_tot % ty != 0, mix
+    _check_uv_kernels(cfg, grid, s)
 
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
@@ -530,6 +614,21 @@ def test_momentum_kernels_on_a_grid_smaller_than_a_tile(device, dtype):
     _check_momentum_kernels(cfg, grid, s)
 
 
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_uv_kernels_on_a_grid_smaller_than_a_tile(device, dtype):
+    """A 20 x 2 plane (26 x 8 padded points): narrower than a uv3dmix2
+    tile and smaller than one (one block), and a few uv_corrector tiles
+    that straddle its rows."""
+    cfg, grid, s0, ffn = upwelling.build(
+        upwelling.make_config(Lm=20, Mm=2, N=6, ndtfast=8, dtype=dtype),
+        device=device)
+    s = stepping.run(cfg.replace(pallas2d=False), grid, s0, 3, ffn)
+    uv, mix = _uv_plans(cfg, s.u.dtype)
+    assert cfg.nx_tot < mix["tile"][0] and mix["blocks"] == 1, mix
+    assert uv["blocks"] > 1 and cfg.nx_tot % uv["tile"] != 0, uv
+    _check_uv_kernels(cfg, grid, s)
+
+
 def test_momentum_kernels_at_the_largest_plan(device):
     """N = 64 in float64 on a small gradient-walled plane: prsgrd32's
     largest columns (16 x 1 tiles) and rhs3d's float64 tile (32 x 4), each
@@ -541,6 +640,20 @@ def test_momentum_kernels_at_the_largest_plan(device):
     assert prs["tile"] == (16, 1) and rhs["tile"] == (32, 4), (prs, rhs)
     assert min(prs["smem_bytes"], rhs["smem_bytes"]) > 48 * 1024
     _check_momentum_kernels(cfg, grid, s)
+
+
+def test_uv_kernels_at_the_largest_plan(device):
+    """N = 64 in float64 on a small gradient-walled plane: uv_corrector's
+    largest columns (8 a tile) and uv3dmix2's per-level planes, each in
+    more than 48 KB of shared memory a block, on more than one tile."""
+    cfg, grid, s0, ffn = upwelling.build(
+        _config("gradient", "float64", N=64), device=device)
+    s = stepping.run(cfg.replace(pallas2d=False), grid, s0, 1, ffn)
+    uv, mix = _uv_plans(cfg, torch.float64)
+    assert uv["tile"] == 8 and mix["tile"] == (32, 8), (uv, mix)
+    assert min(uv["smem_bytes"], mix["smem_bytes"]) > 48 * 1024
+    assert min(uv["blocks"], mix["blocks"]) > 1, (uv, mix)
+    _check_uv_kernels(cfg, grid, s)
 
 
 def test_wrappers_raise_on_foreign_tensors(developed):
