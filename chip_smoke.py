@@ -3,9 +3,9 @@ each against its plain PyTorch version, drives the UPWELLING and the
 BENCHMARK1 steps through them, and checks the results.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --column-times TREE    # rows 4 and 6-10's times
-                                                 # only, roms_tpu_torch
-                                                 # from TREE
+    python3 chip_smoke.py --column-times TREE    # rows 1-4 and 6-10's
+                                                 # times only,
+                                                 # roms_tpu_torch from TREE
 
 Phases, one or more lines each; any failure exits non-zero:
   1. device: card name and power limit (nvidia-smi), torch and CUDA versions;
@@ -17,17 +17,17 @@ Phases, one or more lines each; any failure exits non-zero:
      advection, JM95 + bvf, closed E-W walls, land points, the curvilinear
      terms, the first step's momentum start; t3dmix2_geo, which UPWELLING
      with tnu2 = 0 does not call, on its tracers and depths): max abs
-     error, tolerance (none for the tracer kernels and prsgrd32, held
-     bitwise, nor for rhs3d's ru, rv, u_nnew and v_nnew and uv3dmix2's
-     u_nnew and v_nnew), whether a second launch on the same input is
-     bitwise equal to the first, the time a call of kernel and plain
+     error, tolerance (none for the outputs BITWISE holds bitwise), which
+     outputs are bitwise equal, whether a second launch on the same input
+     is bitwise equal to the first, the time a call of kernel and plain
      version (CUDA events around 10 calls back to back, median of 5 such
      batches; a kernel that updates its arguments in place gets fresh
      copies for each call; for the kernels held bitwise also their device
      time alone, under torch.profiler), and the kernel's bound (bytes and
-     operations); the tiles of the tracer kernels, prsgrd32, rhs3d,
-     uv_corrector and uv3dmix2 (points, level slots, blocks, threads,
-     shared memory, registers, stack frame); and the fast loop's
+     operations); the tiles of grid_flux, eos, the tracer kernels,
+     prsgrd32, rhs3d, uv_corrector and uv3dmix2 (points, level slots,
+     blocks, threads, shared memory, registers, stack frame); and the fast
+     loop's
      launch at 128, 256 and 512 threads a block: blocks, the co-resident
      limit, barriers, its time, the time of one grid barrier (an empty
      kernel of as many barriers at the same launch) and of one phase, each
@@ -94,9 +94,10 @@ KERNEL_RTOL = {"float64": 1e-12, "float32": 1e-5}
 FAST_RTOL = {"float64": 1e-10, "float32": 1e-4}
 # kernels held to their plain versions bitwise: the outputs that have no
 # column sum in another order than torch's (None: every output); rhs3d's
-# and uv3dmix2's rufrc and rvfrc are column sums
+# and uv3dmix2's rufrc and rvfrc and grid_flux's W are column sums
 BITWISE = {"tracer_predictor": None, "tracer_corrector": None,
-           "prsgrd32": None, "rhs3d": (0, 1, 4, 5), "uv3dmix2": (0, 1)}
+           "prsgrd32": None, "rhs3d": (0, 1, 4, 5), "uv3dmix2": (0, 1),
+           "grid_flux": (0, 1, 2, 3, 4), "eos": (0, 1, 2)}
 # kernels that update arguments in place: each timed call gets fresh copies
 IN_PLACE = ("uv3dmix2", "t3dmix2_geo")
 NRUNS, NBATCH = 10, 5
@@ -426,38 +427,57 @@ def device_ms(fn, args, kw, per_call=False) -> float:
 
 
 def profiled_ms(fn, args, kw, per_call=False) -> float:
-    """The device time of fn's one launch a call: torch.profiler over
-    NRUNS calls after two warm-up calls, the mean over the device events
-    it recorded (it can drop some; nan if it recorded none).  Unlike
-    device_ms it leaves out the host's time between launches."""
+    """The device time of a call of fn: torch.profiler over NRUNS calls,
+    the sum of the device events that start inside a `record_function`
+    window around them over NRUNS.  The profiler can miss the first
+    launches of a session, so two untimed calls run in it first; a batch
+    whose events are not the same whole number a call runs again, at most
+    three times in all, else nan.  Unlike device_ms it leaves out the
+    host's time between launches."""
     import torch
-    from torch.profiler import ProfilerActivity
+    from torch.profiler import ProfilerActivity, record_function
+    window = "profiled_ms"
     for a in arg_sets(args, per_call)[:2]:
         fn(*a, **kw)
-    sets = arg_sets(args, per_call)
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
-                                            ProfilerActivity.CUDA]) as prof:
-        for a in sets:
-            fn(*a, **kw)
+    for _ in range(3):
+        warm = arg_sets(args, per_call)[:2]
+        sets = arg_sets(args, per_call)
         torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if str(getattr(e, "device_type", "")).endswith("CUDA")]
-    return sum(us) / len(us) / 1e3 if us else float("nan")
+        with torch.profiler.profile(
+                activities=[ProfilerActivity.CPU,
+                            ProfilerActivity.CUDA]) as prof:
+            for a in warm:
+                fn(*a, **kw)
+            torch.cuda.synchronize()
+            with record_function(window):
+                for a in sets:
+                    fn(*a, **kw)
+                torch.cuda.synchronize()
+        events = prof.events()
+        t0 = min((e.time_range.start for e in events if e.name == window),
+                 default=None)
+        us = [e.time_range.elapsed_us() for e in events
+              if str(getattr(e, "device_type", "")).endswith("CUDA")
+              and e.name != window and t0 is not None
+              and e.time_range.start >= t0]
+        if us and len(us) % NRUNS == 0:
+            return sum(us) / NRUNS / 1e3
+    return float("nan")
 
 
 def max_err(outs_k, outs_p, rtol, exact=()):
-    """(max abs error, worst error/tolerance, whether the outputs of index
-    `exact` are bitwise equal) over paired outputs, each held to rtol *
-    max|plain field| (the worst ratio over the others only)."""
-    worst_abs, worst_ratio, equal = 0.0, 0.0, True
+    """(max abs error, worst error/tolerance, the indices of the outputs
+    that are bitwise equal) over paired outputs, each held to rtol *
+    max|plain field| but those of index `exact`, held bitwise (the worst
+    ratio over the others only)."""
+    worst_abs, worst_ratio, equal = 0.0, 0.0, []
     pairs = zip(tensors_of(outs_k), tensors_of(outs_p))
     for n, (a, b) in enumerate(pairs):
         err = (a - b).abs().max().item()
         worst_abs = max(worst_abs, err)
-        if n in exact:
-            equal = equal and err == 0.0
-        else:
+        if err == 0.0:
+            equal.append(n)
+        if n not in exact:
             tol = rtol * max(b.abs().max().item(), 1e-30)
             worst_ratio = max(worst_ratio, err / tol)
     return worst_abs, worst_ratio, equal
@@ -562,6 +582,8 @@ def check_variants(tag, grid, cases, dtype, results):
         exact = range(nout) if exact is None else \
             tuple(n for n in exact if n < nout)
         err, ratio, equal = max_err(out_k, out_p, rtol[dtype], exact)
+        bitwise = ",".join(map(str, equal)) or "none"
+        equal = set(exact) <= set(equal)
         repeat = same(kern(*fresh(args), **kw), out_k)
         per_call = name in IN_PLACE
         ms = device_ms(kern, args, kw, per_call)
@@ -577,7 +599,8 @@ def check_variants(tag, grid, cases, dtype, results):
         dev = f" (device {profiled_ms(kern, args, kw, per_call):.4f} ms)" \
             if exact else ""
         print(f"[{tag}] {label:30s} {dtype}: max_abs_err={err:.3e} "
-              f"{bar} (worst err/tol {ratio:.3e}) finite={finite} repeat "
+              f"{bar} (worst err/tol {ratio:.3e}; outputs bitwise equal: "
+              f"{bitwise}) finite={finite} repeat "
               f"bitwise={repeat} kernel {ms:.4f} ms{dev}, plain "
               f"{plain_ms:.4f} ms, bound {b_ms:.5f} ms by {b_by} "
               f"({ops:.4e} ops)  {'OK' if ok else 'FAIL'}", flush=True)
@@ -648,12 +671,13 @@ def fast_loop_launches(tag, args, kw, dtype, out_ref):
 
 
 def column_tiles(tag, cfg, dtype):
-    """The launch of rows 4 and 6-10 on this case: tile, level slots,
-    blocks, threads, shared memory, and the registers and stack frame of
-    the loaded kernel."""
+    """The launch of rows 1, 3, 4 and 6-10 on this case: tile, level
+    slots, blocks, threads, shared memory, and the registers and stack
+    frame of the loaded kernel (eos's tiled kernel, JM95 with bvf, whether
+    or not this case runs it)."""
     import torch
-    from roms_tpu_torch.ops import mix3d_cuda, prsgrd_cuda, rhs3d_cuda, \
-        step3d_cuda
+    from roms_tpu_torch.ops import diag_cuda, mix3d_cuda, prsgrd_cuda, \
+        rhs3d_cuda, step3d_cuda
     t = getattr(torch, dtype)
     shape = (cfg.N, cfg.ny_tot, cfg.nx_tot)
     for name, plan, lay in (
@@ -671,6 +695,24 @@ def column_tiles(tag, cfg, dtype):
               f"bytes of shared memory, {lay['registers']} registers and "
               f"{lay['stack_bytes']} bytes of stack frame a thread",
               flush=True)
+    gf = diag_cuda.grid_flux_plan(t, *shape)
+    lay = diag_cuda.grid_flux_layout(t)
+    tx, ty = gf["tile"]
+    print(f"[{tag}] grid_flux tile {dtype}: {tx}x{ty} points a block (xi x "
+          f"eta), {gf['threads'] // (tx * ty)} level slot(s), "
+          f"{gf['blocks']} blocks x "
+          f"{gf['threads']} threads for {cfg.ny_tot}x{cfg.nx_tot} padded "
+          f"points and {cfg.N} levels, {gf['smem_bytes']} bytes of shared "
+          f"memory, {lay['registers']} registers and {lay['stack_bytes']} "
+          f"bytes of stack frame a thread (Vtransform 2)", flush=True)
+    eos = diag_cuda.eos_plan(t, *shape, True, True)
+    lay = diag_cuda.eos_layout(t)
+    print(f"[{tag}] eos tile {dtype} (JM95 with bvf): {eos['tile']} padded "
+          f"points a block, {eos['blocks']} blocks x {eos['threads']} "
+          f"threads for {cfg.ny_tot}x{cfg.nx_tot} padded points and "
+          f"{cfg.N} levels, {eos['smem_bytes']} bytes of shared memory, "
+          f"{lay['registers']} registers and {lay['stack_bytes']} bytes of "
+          f"stack frame a thread", flush=True)
     for name in ("tracer_predictor", "tracer_corrector", "uv_corrector"):
         if name == "uv_corrector":
             plan, lay = step3d_cuda.uv_plan(t, *shape), \
@@ -1051,12 +1093,12 @@ def bench_long_run(device, name):
 
 
 def column_times(device):
-    """`--column-times TREE`: the time a call of rows 4 and 6-10, with the
-    host's time (device_ms) and on the device alone (profiled_ms), on the
-    arguments the UPWELLING and BENCHMARK1 steps give them, f64 and f32
-    (uv3dmix2 on fresh copies for each call), with roms_tpu_torch imported
-    from TREE, so that two trees' kernels can be timed in turn in one
-    run."""
+    """`--column-times TREE`: the time a call of rows 1-4 and 6-10, with
+    the host's time (device_ms) and on the device alone (profiled_ms), on
+    the arguments the UPWELLING and BENCHMARK1 steps give them, f64 and
+    f32 (uv3dmix2 on fresh copies for each call), with roms_tpu_torch
+    imported from TREE, so that two trees' kernels can be timed in turn in
+    one run."""
     import roms_tpu_torch
     from roms_tpu_torch import stepping
     from roms_tpu_torch.models import benchmark, upwelling
@@ -1079,9 +1121,9 @@ def column_times(device):
             state = s.replace(**{k: getattr(s, k).to(grid.h.dtype)
                                  for k in TENSOR_FIELDS})
             calls = captured_calls(cfg, grid, state, ffn)
-            for name in ("uv3dmix2", "prsgrd32", "rhs3d",
-                         "tracer_predictor", "tracer_corrector",
-                         "uv_corrector"):
+            for name in ("grid_flux", "eos", "omega", "uv3dmix2",
+                         "prsgrd32", "rhs3d", "tracer_predictor",
+                         "tracer_corrector", "uv_corrector"):
                 fn = getattr(*table[name][:2])
                 per_call = name in IN_PLACE
                 print(f"[column-times] {case} {name} {dtype}: kernel "

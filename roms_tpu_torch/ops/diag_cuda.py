@@ -11,7 +11,11 @@ omega     - omega of the corrected fluxes (W2).  Replaces
 Each wrapper takes its plain version (``*_plain``, the stage functions of
 this package in the order the JAX step calls them) for CPU tensors only.
 For CUDA tensors it launches the CUDA kernel of csrc/diag.cu or raises; it
-never falls back.  ``wrapper.launches`` counts kernel launches.
+never falls back.  grid_flux runs on 2-D tiles of padded points and eos
+with JM95 and bvf on runs of them, each keeping its tile in shared memory;
+``grid_flux_plan`` and ``eos_plan`` size the tile and the block,
+``grid_flux_layout`` and ``eos_layout`` report a kernel's registers and
+stack frame on the card.  ``wrapper.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -23,8 +27,65 @@ from ..config import Config
 from ..grid import Grid
 from .. import vgrid
 from . import eos as _eos
-from ._kernels import check_tensors, geometry, launch, on_card
+from ._kernels import SMEM_MAX, check_tensors, geometry, kernel_layout, \
+    launch, on_card, tile_plan
 from .omega import set_massflux, omega as _omega
+
+THREADS = 256     # threads a block, every kernel (csrc/diag.cu kThreads)
+EOS_TILE = 32     # padded points of an eos tile, at most
+
+
+def _word(dtype) -> int:
+    return 8 if dtype == torch.float64 else 4
+
+
+def grid_flux_plan(dtype, N: int, ny: int, nx: int) -> dict:
+    """grid_flux's launch on a padded ny x nx grid of N levels: {"tile":
+    (points along xi, along eta), "blocks", "threads": a block,
+    "smem_bytes": its dynamic shared memory}.  A block keeps zeta, h,
+    1/(hc+h), on_u and om_v of its region (the tile and one ring of points
+    around it), the four stretching tables, the filled Huon and Hvom of its
+    box (the tile, one column east and one row north) and omega's sums of
+    every tile point at every level, and wrk a tile point
+    (csrc/diag.cuh flux_words); _kernels.tile_plan picks the tile, and the
+    block has a thread per (level slot, tile point)."""
+    def make(tx, ty):
+        words = 5 * (tx + 2) * (ty + 2) + 4 * N + 2 + \
+            2 * N * (tx + 1) * (ty + 1) + (N + 1) * tx * ty
+        return dict(tile=(tx, ty), blocks=-(-nx // tx) * -(-ny // ty),
+                    threads=THREADS, smem_bytes=words * _word(dtype))
+    return tile_plan(make)
+
+
+def eos_plan(dtype, N: int, ny: int, nx: int, jm95: bool,
+             want_bvf: bool) -> dict:
+    """eos's launch on a padded ny x nx grid of N levels: {"tile", "blocks",
+    "threads", "smem_bytes"}.  JM95 with bvf runs on tiles of consecutive
+    padded points (the largest power of two up to EOS_TILE whose den1, K0,
+    K1, K2, z_r and z_w columns leave room for three blocks an SM), a
+    thread per (level slot, point); every other case a thread per point of
+    the (N+1)-level w grid with no shared memory (tile None)."""
+    if not (jm95 and want_bvf):
+        return dict(tile=None, blocks=-(-(N + 1) * ny * nx // THREADS),
+                    threads=THREADS, smem_bytes=0)
+    col_bytes = 6 * N * _word(dtype)
+    tile = EOS_TILE
+    while tile > 1 and tile * col_bytes > SMEM_MAX // 3:
+        tile //= 2
+    return dict(tile=tile, blocks=-(-ny * nx // tile), threads=THREADS,
+                smem_bytes=tile * col_bytes)
+
+
+def grid_flux_layout(dtype) -> dict:
+    """grid_flux's kernel on the current card: {"registers": a thread,
+    "stack_bytes": its stack frame a thread}."""
+    return kernel_layout("roms_grid_flux_layout", dtype)
+
+
+def eos_layout(dtype) -> dict:
+    """eos's JM95-with-bvf kernel on the current card, as
+    grid_flux_layout."""
+    return kernel_layout("roms_eos_layout", dtype)
 
 
 def supported(cfg: Config, grid: Grid) -> bool:
@@ -76,10 +137,12 @@ def grid_flux(cfg: Config, grid: Grid, zeta, u, v, hc):
     kw = dict(dtype=zeta.dtype, device=zeta.device)
     z_r, Hz, Huon, Hvom = (torch.empty(s3, **kw) for _ in range(4))
     z_w, W = torch.empty(sw, **kw), torch.empty(sw, **kw)
+    plan = grid_flux_plan(zeta.dtype, N, cfg.ny_tot, cfg.nx_tot)
     launch("roms_grid_flux", f64,
            list(ins.values()) + [z_r, z_w, Hz, Huon, Hvom, W],
-           [N] + geometry(cfg) + [cfg.vtransform], [hc],
-           torch.cuda.current_stream(zeta.device))
+           [N] + geometry(cfg) + [cfg.vtransform, *plan["tile"],
+                                  plan["threads"], plan["smem_bytes"]],
+           [hc], torch.cuda.current_stream(zeta.device))
     grid_flux.launches += 1
     return z_r, z_w, Hz, Huon, Hvom, W
 
@@ -102,10 +165,12 @@ def eos(cfg: Config, t, z_r, z_w, want_bvf: bool):
     rho, pden = torch.empty(s3, **kw), torch.empty(s3, **kw)
     bvf = torch.empty((N + 1, Ny, Nx), **kw) if want_bvf else None
     use_salt = cfg.ntracers >= 2 and cfg.Scoef != 0.0
+    jm95 = cfg.eos == "jm95"
+    plan = eos_plan(t.dtype, N, Ny, Nx, jm95, want_bvf)
     launch("roms_eos", f64,
            [t, z_r, z_w if want_bvf else None, rho, pden, bvf],
-           [NT, N, Ny * Nx, int(cfg.eos == "jm95"), int(want_bvf),
-            int(use_salt)],
+           [NT, N, Ny * Nx, int(jm95), int(want_bvf), int(use_salt),
+            plan["tile"] or 0, plan["threads"], plan["smem_bytes"]],
            [cfg.R0, cfg.R0 * cfg.Tcoef, cfg.T0, cfg.R0 * cfg.Scoef, cfg.S0,
             -(C.g / cfg.rho0), -C.g],
            torch.cuda.current_stream(t.device))

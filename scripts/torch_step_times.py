@@ -3,11 +3,14 @@ so that two commits can be run in turns in one chip call (parent, tree,
 tree, parent): chip_smoke.py's phase 5 (1440 float32 UPWELLING steps) and,
 by default, phase 10 (200 float32 BENCHMARK1 steps); with
 ``--upwelling-profile``, phase 5 and phase 6 (torch.profiler over 10
-UPWELLING steps: launches, device busy and idle, device time by kernel).
+UPWELLING steps: launches, device busy and idle, device time by kernel);
+with ``--profiles``, phases 6 and 11 alone (the profiles of UPWELLING and
+of 5 BENCHMARK1 steps).
 
     cd CHECKOUT && python3 scripts/torch_step_times.py TREE
     cd CHECKOUT && python3 scripts/torch_step_times.py TREE \\
         --upwelling-profile
+    cd CHECKOUT && python3 scripts/torch_step_times.py TREE --profiles
 
 TREE holds the roms_tpu_torch to time (a `git archive` checkout of
 another commit, or `.`); chip_smoke.py comes from the current directory.
@@ -31,6 +34,10 @@ def main() -> int:
           os.path.dirname(roms_tpu_torch.__file__), flush=True)
     dev = torch.device("cuda:0")
     name = torch.cuda.get_device_name(0)
+    if "--profiles" in sys.argv[2:]:
+        chip_smoke.profile(dev)
+        chip_smoke.profile(dev, "benchmark")
+        return 0
     chip_smoke.long_run(dev, name)
     if "--upwelling-profile" in sys.argv[2:]:
         chip_smoke.profile(dev)

@@ -2,13 +2,13 @@
 card, in float32 and float64, on UPWELLING and on closed, gradient and
 masked (an island) variants of it (the momentum kernels also on a
 curvilinear one), the geopotential tracer diffusion on a small BENCHMARK,
-the tracer kernels and prsgrd32 bitwise, rhs3d and uv3dmix2 bitwise but
-for their column sums, uv_corrector within RTOL (its outputs all pass
-through column sums) and every kernel's second launch bitwise equal to its
-first, also on the small BENCHMARK (1-3 tracers; closed and masked
-variants for the momentum and uv kernels; uv3dmix2 on 2, 4 and 8 level
-slots), on a grid smaller than one tile and at their largest
-shared-memory plans;
+the tracer kernels, prsgrd32 and eos bitwise, rhs3d, uv3dmix2 and
+grid_flux bitwise but for their column sums, uv_corrector within RTOL
+(its outputs all pass through column sums) and every kernel's second
+launch bitwise equal to its first, also on the small BENCHMARK (1-3
+tracers; closed and masked variants for the momentum and uv kernels;
+uv3dmix2 on 2, 4 and 8 level slots), on a grid smaller than one tile and
+at their largest shared-memory plans;
 the UPWELLING anchor with ten kernels on, and the small-BENCHMARK fixture
 (tests/data/torch_benchmark_small.npz) with all eleven on.
 
@@ -25,7 +25,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import CARD_FACTOR, fixture_script
+from chip_smoke import BITWISE, CARD_FACTOR, fixture_script
 from roms_tpu_torch import stepping
 from roms_tpu_torch.config import LBC, BC_CLOSED, BC_GRADIENT
 from roms_tpu_torch.grid import hc_of
@@ -120,12 +120,41 @@ def _stage_inputs(cfg, grid, s):
                 bustr=bustr, bvstr=bvstr, stflx=stflx, btflx=btflx, R=R)
 
 
+def _check_grid_flux(cfg, grid, s):
+    """grid_flux in one launch: z_r, z_w, Hz, Huon and Hvom bitwise equal
+    to its plain version, W within RTOL (torch's cumsum adds in another
+    order), a second launch bitwise equal to the first; returns the plain
+    version's outputs."""
+    args = (cfg, grid, s.zeta, s.u, s.v, hc_of(cfg))
+    before = diag_cuda.grid_flux.launches
+    got = diag_cuda.grid_flux(*args)
+    assert diag_cuda.grid_flux.launches == before + 1
+    ref = diag_cuda.grid_flux_plain(*args)
+    _equal(got[:5], ref[:5], "grid_flux")
+    _close(got[5:], ref[5:], RTOL[s.u.dtype], "grid_flux W")
+    _equal(diag_cuda.grid_flux(*args), got, "grid_flux, second launch")
+    return ref
+
+
+def _check_eos(cfg, t, z_r, z_w, want_bvf):
+    """eos within RTOL of its plain version, bitwise for the outputs
+    chip_smoke.BITWISE names, a second launch bitwise equal to the
+    first."""
+    args = (cfg, t, z_r, z_w, want_bvf)
+    before = diag_cuda.eos.launches
+    got = diag_cuda.eos(*args)
+    assert diag_cuda.eos.launches == before + 1
+    ref = diag_cuda.eos_plain(*args)
+    _close(got, ref, RTOL[t.dtype], f"eos {cfg.eos} bvf={want_bvf}")
+    exact = [n for n in BITWISE["eos"] if n < len(ref)]
+    _equal([got[n] for n in exact], [ref[n] for n in exact],
+           f"eos {cfg.eos} bvf={want_bvf}")
+    _equal(diag_cuda.eos(*args), got, "eos, second launch")
+
+
 def test_grid_flux_and_omega_kernels(developed):
     cfg, grid, s = developed
-    hc = hc_of(cfg)
-    got = diag_cuda.grid_flux(cfg, grid, s.zeta, s.u, s.v, hc)
-    ref = diag_cuda.grid_flux_plain(cfg, grid, s.zeta, s.u, s.v, hc)
-    _close(got, ref, RTOL[s.u.dtype], "grid_flux")
+    ref = _check_grid_flux(cfg, grid, s)
     _close([diag_cuda.omega(cfg, grid, ref[3], ref[4], ref[1])],
            [diag_cuda.omega_plain(cfg, grid, ref[3], ref[4], ref[1])],
            RTOL[s.u.dtype], "omega")
@@ -138,9 +167,7 @@ def test_eos_kernel(developed, eos, want_bvf):
     cfg = cfg.replace(eos=eos, Scoef=7.6e-4)
     z_r, z_w, *_ = diag_cuda.grid_flux_plain(cfg, grid, s.zeta, s.u, s.v,
                                              hc_of(cfg))
-    _close(diag_cuda.eos(cfg, s.t, z_r, z_w, want_bvf),
-           diag_cuda.eos_plain(cfg, s.t, z_r, z_w, want_bvf),
-           RTOL[s.u.dtype], "eos")
+    _check_eos(cfg, s.t, z_r, z_w, want_bvf)
 
 
 def _fast_loop_inputs(s, iic):
@@ -654,6 +681,74 @@ def test_uv_kernels_at_the_largest_plan(device):
     assert min(uv["smem_bytes"], mix["smem_bytes"]) > 48 * 1024
     assert min(uv["blocks"], mix["blocks"]) > 1, (uv, mix)
     _check_uv_kernels(cfg, grid, s)
+
+
+@pytest.mark.parametrize("nt", [2, 1])
+def test_diag_kernels_on_the_small_benchmark(fixture_case, nt):
+    """The small BENCHMARK (spherical, E-W periodic, 70 x 38 padded points:
+    grid_flux on several tiles along both axes, the last of each ragged,
+    the halo columns' fluxes and W from the far end of the row), JM95 with
+    bvf as on its path, with 2 tracers or temperature alone (no salt), and
+    the linear EOS with and without bvf."""
+    cfg, grid, s = fixture_case
+    cfg, s = _with_tracers(cfg, s, nt)
+    plan = diag_cuda.grid_flux_plan(s.u.dtype, cfg.N, cfg.ny_tot,
+                                    cfg.nx_tot)
+    tx, ty = plan["tile"]
+    assert cfg.nx_tot % tx != 0 and cfg.ny_tot % ty != 0, plan
+    assert plan["blocks"] > 4, plan
+    z_r, z_w, *_ = _check_grid_flux(cfg, grid, s)
+    assert cfg.eos == "jm95"
+    eos = diag_cuda.eos_plan(s.u.dtype, cfg.N, cfg.ny_tot, cfg.nx_tot,
+                             True, True)
+    assert eos["tile"] and eos["blocks"] > 1, eos
+    _check_eos(cfg, s.t, z_r, z_w, True)
+    lin = cfg.replace(eos="linear", Scoef=7.6e-4)
+    for want_bvf in (False, True):
+        _check_eos(lin, s.t, z_r, z_w, want_bvf)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_diag_kernels_on_a_grid_smaller_than_a_tile(device, dtype):
+    """A 20 x 2 plane (26 x 8 padded points): grid_flux's one tile is wider
+    and, in float32, taller than the grid, and the wall columns' W comes
+    from inside it, with Vtransform 2 and 1; eos with JM95 and bvf on runs
+    that straddle its rows."""
+    cfg, grid, s0, ffn = upwelling.build(
+        upwelling.make_config(Lm=20, Mm=2, N=6, ndtfast=8, dtype=dtype),
+        device=device)
+    s = stepping.run(cfg.replace(pallas2d=False), grid, s0, 3, ffn)
+    plan = diag_cuda.grid_flux_plan(s.u.dtype, cfg.N, cfg.ny_tot,
+                                    cfg.nx_tot)
+    assert cfg.nx_tot < plan["tile"][0], plan
+    if dtype == "float32":
+        assert plan["blocks"] == 1 and cfg.ny_tot <= plan["tile"][1], plan
+    z_r, z_w, *_ = _check_grid_flux(cfg, grid, s)
+    _check_grid_flux(cfg.replace(vtransform=1), grid, s)
+    _check_eos(cfg.replace(eos="jm95"), s.t, z_r, z_w, True)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_diag_kernels_at_the_largest_plan(device, dtype):
+    """N = 64 on a small gradient-walled plane: grid_flux on 16 x 2 tiles
+    in float64 and 32 x 2 in float32, in more than 48 KB of shared memory
+    a block, eos on runs of 16 (32) points in 48 KB; JM95 with bvf, with 2
+    tracers and with temperature alone."""
+    cfg, grid, s0, ffn = upwelling.build(
+        _config("gradient", dtype, N=64), device=device)
+    s = stepping.run(cfg.replace(pallas2d=False), grid, s0, 1, ffn)
+    gf = diag_cuda.grid_flux_plan(s.u.dtype, 64, cfg.ny_tot, cfg.nx_tot)
+    eos = diag_cuda.eos_plan(s.u.dtype, 64, cfg.ny_tot, cfg.nx_tot, True,
+                             True)
+    f64 = dtype == "float64"
+    assert gf["tile"] == ((16, 2) if f64 else (32, 2)), gf
+    assert eos["tile"] == (16 if f64 else 32), eos
+    assert gf["smem_bytes"] > 48 * 1024, gf
+    assert eos["smem_bytes"] == 48 * 1024, eos
+    z_r, z_w, *_ = _check_grid_flux(cfg, grid, s)
+    for nt in (2, 1):
+        c, st = _with_tracers(cfg.replace(eos="jm95"), s, nt)
+        _check_eos(c, st.t, z_r, z_w, True)
 
 
 def test_wrappers_raise_on_foreign_tensors(developed):
