@@ -26,12 +26,13 @@ Phases, one or more lines each; any failure exits non-zero:
      time alone, under torch.profiler), and the kernel's bound (bytes and
      operations); the tiles of grid_flux, eos, the tracer kernels,
      prsgrd32, rhs3d, uv_corrector and uv3dmix2 (points, level slots,
-     blocks, threads, shared memory, registers, stack frame); and the fast
-     loop's
-     launch at 128, 256 and 512 threads a block: blocks, the co-resident
-     limit, barriers, its time, the time of one grid barrier (an empty
-     kernel of as many barriers at the same launch) and of one phase, each
-     block size's result bitwise equal to the default's;
+     blocks, threads, shared memory, registers, stack frame), omega's
+     launch (a thread a column: blocks, threads, registers, stack frame);
+     and the fast loop's launch at 128, 256 and 512 threads a block:
+     blocks, the co-resident limit, barriers, its time, the time of one
+     grid barrier (an empty kernel of as many barriers at the same launch)
+     and of one phase, each block size's result bitwise equal to the
+     default's;
   4. the main path: 10 float64 steps of full-size UPWELLING through
      stepping.step, with every kernel's launch count (one a step each),
      checked against the pinned anchor (tests/data/upwelling_anchor.npz)
@@ -518,7 +519,7 @@ def variants(cfg, grid, calls):
         out.append((f"{name}[splines vadv]", name,
                     (args[0].replace(t_vadv=vadv),) + args[1:], kw))
     closed = LBC()
-    for name in ("rhs3d", "uv3dmix2"):
+    for name in ("rhs3d", "uv3dmix2", "omega"):
         args, kw = calls[name]
         out.append((f"{name}[closed E-W]", name, (args[0].replace(
             ew_periodic=False, gamma2=-1.0, lbc_zeta=closed, lbc_ubar=closed,
@@ -671,10 +672,10 @@ def fast_loop_launches(tag, args, kw, dtype, out_ref):
 
 
 def column_tiles(tag, cfg, dtype):
-    """The launch of rows 1, 3, 4 and 6-10 on this case: tile, level
-    slots, blocks, threads, shared memory, and the registers and stack
-    frame of the loaded kernel (eos's tiled kernel, JM95 with bvf, whether
-    or not this case runs it)."""
+    """The launch of rows 1-4 and 6-10 on this case: tile, level slots,
+    blocks, threads, shared memory, and the registers and stack frame of
+    the loaded kernel (eos's tiled kernel, JM95 with bvf, whether or not
+    this case runs it; omega a thread a column, without a tile)."""
     import torch
     from roms_tpu_torch.ops import diag_cuda, mix3d_cuda, prsgrd_cuda, \
         rhs3d_cuda, step3d_cuda
@@ -705,6 +706,13 @@ def column_tiles(tag, cfg, dtype):
           f"points and {cfg.N} levels, {gf['smem_bytes']} bytes of shared "
           f"memory, {lay['registers']} registers and {lay['stack_bytes']} "
           f"bytes of stack frame a thread (Vtransform 2)", flush=True)
+    lay = diag_cuda.omega_layout(t)
+    th = diag_cuda.THREADS
+    print(f"[{tag}] omega launch {dtype}: a thread a column, "
+          f"{-(-cfg.ny_tot * cfg.nx_tot // th)} blocks x {th} threads for "
+          f"{cfg.ny_tot}x{cfg.nx_tot} padded points and {cfg.N} levels, "
+          f"{lay['registers']} registers and {lay['stack_bytes']} bytes of "
+          f"stack frame a thread", flush=True)
     eos = diag_cuda.eos_plan(t, *shape, True, True)
     lay = diag_cuda.eos_layout(t)
     print(f"[{tag}] eos tile {dtype} (JM95 with bvf): {eos['tile']} padded "

@@ -178,6 +178,12 @@ int roms_grid_flux_layout(int f64, int* out) {
              : layout(grid_flux_kernel<float, 2>, out);
 }
 
+// out: as roms_grid_flux_layout, of the omega kernel
+int roms_omega_layout(int f64, int* out) {
+  return f64 ? layout(roms::omega_kernel<double>, out)
+             : layout(roms::omega_kernel<float>, out);
+}
+
 // out: as roms_grid_flux_layout, of the JM95-with-bvf eos kernel
 int roms_eos_layout(int f64, int* out) {
   return f64 ? layout(eos_bvf_kernel<double>, out)

@@ -10,23 +10,26 @@
 // All are bound by device-memory bandwidth on the H100: a handful of
 // operations per byte moved (grid_flux reads u, v and five planes, writes
 // six (N,Ny,Nx) fields: ~35 MB at BENCHMARK1 in float32, 0.011 ms at 3.35
-// TB/s).  What keeps a thread-a-column kernel from that is the latency of
+// TB/s; omega reads Huon, Hvom and z_w and writes W: ~17.7 MB, 0.0053
+// ms).  What keeps a thread-a-column kernel from that is the latency of
 // its serial loads and the round trips between launches.
 //
 // grid_flux works on 2-D tiles (grid_flux_tile): a block owns tx x ty
-// padded points (ops/diag_cuda.grid_flux_plan) and keeps, in shared memory,
-// zeta, h and the metrics of its region (the tile and one ring of points
-// around it), [k][point] arrays of the filled fluxes of its box (the tile,
-// one column east and one row north) and omega's sums; Hz is recomputed
-// from zeta and h wherever a flux needs it, with the expression that
-// writes it, so nothing goes round through device memory.  At BENCHMARK1
-// every block is resident at once, so their loads, stores and column sums
-// come in the same order in all of them and overlap little; and W's halo
-// is written by the tiles that hold its sources.
+// padded points (ops/diag_cuda.grid_flux_plan) with a thread per (level
+// slot, tile point) and keeps, in shared memory, zeta, h and the metrics
+// of its region (the tile and one ring of points around it), [k][point]
+// arrays of the filled fluxes of its box (the tile, one column east and
+// one row north) and omega's sums; Hz is recomputed from zeta and h
+// wherever a flux needs it, with the expression that writes it, so
+// nothing goes round through device memory.  At BENCHMARK1 every block is
+// resident at once, so their loads, stores and column sums come in the
+// same order in all of them and overlap little; and W's halo is written
+// by the tiles that hold its sources.
 // eos with JM95 and bvf works on runs of consecutive padded points
 // (eos_bvf_tile) and evaluates the polynomials once a point; the linear EOS
 // and JM95 without bvf run one thread a point (eos_kernel).  omega runs one
-// thread a column (omega_kernel).
+// thread a column (omega_kernel): on 2-D tiles in shared memory it was
+// slower at BENCHMARK1.
 //
 // Every expression keeps the plain version's operation order and the
 // library is built with --fmad=false, so the kernels round like their
@@ -74,11 +77,10 @@ __host__ __device__ constexpr int flux_box(int tx, int ty) {
 // shared words of a grid_flux block: zeta, h, hinv, on_u and om_v of every
 // region point; the stretching tables sc_r, Cs_r (N), sc_w, Cs_w (N + 1);
 // the filled Huon and Hvom of every level and box point; omega's
-// divergence (then its k-ascending sums) of every level and tile point;
-// wrk of every tile point
+// divergence (then its k-ascending sums) of every level and tile point
 __host__ __device__ constexpr int flux_words(int N, int tx, int ty) {
   return 5 * flux_region(tx, ty) + 4 * N + 2 + 2 * N * flux_box(tx, ty) +
-         (N + 1) * tx * ty;
+         N * tx * ty;
 }
 
 // a wrapped by one period at most into [0, n)
@@ -138,30 +140,37 @@ __device__ __forceinline__ int tile_start(int k, int t, int n, bool shift) {
   return shift && k == nt - 1 && n > t ? n - t : k * t;
 }
 
-// whether one tile holds both a and b
-__device__ __forceinline__ bool tile_mates(int a, int b, int t, int n,
-                                           bool shift) {
-  const int nt = (n + t - 1) / t;
-  const int last = tile_start(nt - 1, t, n, shift);
-  if (a / t == b / t && a / t < nt - 1) return true;
-  return a >= last && b >= last;
+// bits lo <= b < hi of a word (none when hi <= lo; 0 <= lo, hi <= 31)
+__device__ __forceinline__ unsigned bit_range(int lo, int hi) {
+  return hi > lo ? ((1u << hi) - 1u) & ~((1u << lo) - 1u) : 0u;
 }
 
-// The indices along one axis at which a thread that holds W at index a
-// writes it: a (bit 31), and, for interior a, the halo indices whose W
-// source is a and that no tile holds with a (bit m for index m < H, bit
-// H + m for index H + n + m); the others copy it from their own tile.
+// The indices along one axis at which a thread that holds W at index a,
+// in a tile of t points from t0, writes it: a (bit 31), and, for interior
+// a, the halo indices whose W source is a and that lie outside the tile
+// (bit m for index m < H, bit H + m for index H + n + m); the tile's own
+// halo points gather it.  A periodic axis's halo index a - n or a + n; a
+// closed axis's band of H at either wall, whose source is the first or
+// last interior index.  Where two tiles overlap, both may write a point,
+// the same value.
 __device__ __forceinline__ unsigned omega_targets(int a, int H, int n,
-                                                  int per, int t, int npad) {
+                                                  int per, int t0, int t) {
   unsigned bits = 1u << 31;
-  if (omega_src(a, H, n, per) != a) return bits;
-  for (int m = 0; m < H; ++m) {
-    const int lo = m, hi = H + n + m;
-    if (omega_src(lo, H, n, per) == a && !tile_mates(lo, a, t, npad, !per))
-      bits |= 1u << m;
-    if (omega_src(hi, H, n, per) == a && !tile_mates(hi, a, t, npad, !per))
-      bits |= 1u << (H + m);
+  if (a < H || a >= H + n) return bits;
+  const auto outside = [&](int b) { return b < t0 || b >= t0 + t; };
+  if (per) {
+    if (a >= n && a - n < H && outside(a - n)) bits |= 1u << (a - n);
+    if (a < 2 * H && outside(a + n)) bits |= 1u << a;
+    return bits;
   }
+  // the bands' bits, less those of the tile's own points
+  const auto clip = [&](int b) { return b < 0 ? 0 : (b > H ? H : b); };
+  if (a == H)
+    bits |= bit_range(0, H) & ~bit_range(clip(t0), clip(t0 + t));
+  if (a == H + n - 1)
+    bits |= (bit_range(0, H) &
+             ~bit_range(clip(t0 - H - n), clip(t0 + t - H - n)))
+            << H;
   return bits;
 }
 
@@ -172,17 +181,11 @@ __device__ __forceinline__ int omega_target(unsigned bits, int a, int H,
   return b == 31 ? a : (b < H ? b : n + b);
 }
 
-// omega's k-ascending sums of a column's divergence d[k * s] (0 <= k < N),
-// written over it, in omega.F's order (acc = acc + d); returns wrk, the
-// moving-grid correction over the column's depth zwN - zw0.
+// wrk, the moving-grid correction of a column whose divergence sums to
+// sum over its depth zwN - zw0
 template <typename T>
-__device__ __forceinline__ T omega_sums(T* d, int s, int N, T zwN, T zw0) {
-  T acc = T(0);
-  for (int k = 0; k < N; ++k) {
-    acc += d[k * s];
-    d[k * s] = acc;
-  }
-  return (-acc) / (zwN - zw0);
+__device__ __forceinline__ T omega_wrk(T sum, T zwN, T zw0) {
+  return (-sum) / (zwN - zw0);
 }
 
 // W at w level 1 <= kw <= N - 1 from the sum through level kw - 1, wrk and
@@ -203,7 +206,7 @@ struct FluxTile {
   T *zeta, *h, *hinv, *on_u, *om_v;     // a region point each
   T *sc_r, *Cs_r, *sc_w, *Cs_w;
   T *HU, *HV;                           // [k][box point]
-  T *DIV, *WRK;                         // [k][tile point], a tile point
+  T* DIV;                               // [k][tile point]
 
   __device__ FluxTile(const DiagParams& P, const FluxPtrs<T>& A, T* sm,
                       int bx, int by)
@@ -236,7 +239,6 @@ struct FluxTile {
     HU = Cs_w + N + 1;
     HV = HU + N * nbox;
     DIV = HV + N * nbox;
-    WRK = DIV + N * npts;
   }
 
   // region index of padded point (J, I), or -1 outside the region
@@ -290,17 +292,18 @@ struct FluxTile {
 //       its halo fill, gathered), each group of levels as its copies
 //       arrive; the block forms the filled fluxes of the box's east column
 //       and north row;
-//   A2  a thread per (level, interior point) forms omega's divergence
-//       there from the box's fluxes;
-//   B   a thread per interior point sums it up the column, in k order, and
-//       forms wrk;
-//   C   a thread per (level, interior point) forms W there;
-//   D   a thread per (level, point) writes W at the point from its W
+//   B   a thread per interior point forms omega's divergence of its
+//       column at every level from the box's fluxes and sums it up the
+//       column, in k order;
+//   C   a thread per (w level, interior point) forms wrk from the column's
+//       whole sum and W there, over the sums;
+//   D   a thread per (w level, point) writes W at the point from its W
 //       source (apply_bc_rho and the halo fill, gathered) where the tile
-//       holds the source, and at the halo points whose W it is that no
-//       tile holds with their source (scattered: the far side of a
-//       periodic axis); a closed axis's last tile ends at its last point,
-//       so that both walls' halo bands gather.
+//       holds the source; then the few threads whose point is the source
+//       of halo points outside the tile write W there too (scattered: a
+//       wall band of a tile too narrow to hold it, or the far side of a
+//       periodic axis).  A closed axis's last tile ends at its last point,
+//       so that both walls' bands gather where the tile is wide enough.
 // Hz is recomputed from zeta and h wherever a flux needs it, with the
 // expression that writes it, and carried up each run of levels.  Every
 // thread reaches every barrier.
@@ -462,25 +465,23 @@ __device__ void grid_flux_tile(const DiagParams& P, const FluxPtrs<T>& A,
   }
   __syncthreads();
 
-  // A2
-  if (live && inner) {
-    for (int k = k0; k < k1; ++k) {
+  // B
+  if (slot == 0 && live && inner) {
+    T acc = T(0);
+#pragma unroll 4
+    for (int k = 0; k < N; ++k) {
       const T* hu = F.HU + k * F.nbox + bp;
       const T* hv = F.HV + k * F.nbox + bp;
-      F.DIV[k * npts + pt] = (hu[1] - hu[0]) + (hv[bw] - hv[0]);
+      acc += (hu[1] - hu[0]) + (hv[bw] - hv[0]);
+      F.DIV[k * npts + pt] = acc;
     }
   }
   __syncthreads();
 
-  // B
-  const DepthCol<T> own = F.col(j, i);
-  if (tid < npts && live && inner)
-    F.WRK[pt] = omega_sums(F.DIV + pt, npts, N, F.zw(N, own), -own.h);
-  __syncthreads();
-
-  // C: W at the interior points, over their sums
+  // C
   if (live && inner) {
-    const T wrk = F.WRK[pt];
+    const DepthCol<T> own = F.col(j, i);
+    const T wrk = omega_wrk(F.DIV[(N - 1) * npts + pt], F.zw(N, own), -own.h);
     for (int kw = w0 > 1 ? w0 : 1; kw < w1 && kw < N; ++kw) {
       T& d = F.DIV[(kw - 1) * npts + pt];
       d = omega_level(d, wrk, F.zw(kw, own), -own.h);
@@ -488,42 +489,24 @@ __device__ void grid_flux_tile(const DiagParams& P, const FluxPtrs<T>& A,
   }
   __syncthreads();
 
-  // D: W at every point whose W source is in the tile, and at the halo
-  // points whose W it is that no tile holds with their source
+  // D
   const int tc = F.tile(omega_src(j, g.H, g.M, g.ns_per),
                         omega_src(i, g.H, g.L, g.ew_per));
-  if (live && tc >= 0) {
-    const unsigned ys = omega_targets(j, g.H, g.M, g.ns_per, F.ty, g.Ny);
-    const unsigned xs = omega_targets(i, g.H, g.L, g.ew_per, tx, g.Nx);
-    // the scatter targets but p: up to three (a periodic axis's far side,
-    // and both at a corner) as offsets o0-o2, any more from the bits
-    const int nscat = __popc(ys) * __popc(xs) - 1;
-    int o0 = -1, o1 = -1, o2 = -1;
-    if (nscat <= 3) {
-      for (unsigned yb = ys; yb; yb &= yb - 1) {
-        const int row = omega_target(yb, j, g.H, g.M) * g.Nx;
-        for (unsigned xb = xs; xb; xb &= xb - 1) {
-          const int o = row + omega_target(xb, i, g.H, g.L);
-          if (o == p) continue;
-          (o0 < 0 ? o0 : o1 < 0 ? o1 : o2) = o;
-        }
-      }
-    }
-    T* Wk = A.W + w0 * S;
-    for (int kw = w0; kw < w1; ++kw, Wk += S) {
-      const T w = kw == 0 || kw == N ? T(0) : F.DIV[(kw - 1) * npts + tc];
-      Wk[p] = w;
-      if (nscat > 3) {
-        for (unsigned yb = ys; yb; yb &= yb - 1) {
-          T* row = Wk + omega_target(yb, j, g.H, g.M) * g.Nx;
-          for (unsigned xb = xs; xb; xb &= xb - 1)
-            row[omega_target(xb, i, g.H, g.L)] = w;
-        }
-      } else {
-        if (o0 >= 0) Wk[o0] = w;
-        if (o1 >= 0) Wk[o1] = w;
-        if (o2 >= 0) Wk[o2] = w;
-      }
+  if (!live || tc < 0) return;
+  const T* sums = F.DIV + tc;
+  const auto w_at = [&](int kw) {
+    return kw == 0 || kw == N ? T(0) : sums[(kw - 1) * npts];
+  };
+  for (int kw = w0; kw < w1; ++kw) A.W[kw * S + p] = w_at(kw);
+  const unsigned ys = omega_targets(j, g.H, g.M, g.ns_per, F.j0, F.ty);
+  const unsigned xs = omega_targets(i, g.H, g.L, g.ew_per, F.i0, tx);
+  if ((ys | xs) == 1u << 31) return;
+  for (unsigned yb = ys; yb; yb &= yb - 1) {
+    const int row = omega_target(yb, j, g.H, g.M) * g.Nx;
+    for (unsigned xb = xs; xb; xb &= xb - 1) {
+      const int o = row + omega_target(xb, i, g.H, g.L);
+      if (o == p) continue;
+      for (int kw = w0; kw < w1; ++kw) A.W[kw * S + o] = w_at(kw);
     }
   }
 }
@@ -591,7 +574,7 @@ __global__ void omega_kernel(const T* __restrict__ Huon,
     acc += (Huon[o + qip] - Huon[o + q]) + (Hvom[o + qjp] - Hvom[o + q]);
   }
   const T zw0 = z_w[q];
-  const T wrk = (-acc) / (z_w[N * S + q] - zw0);
+  const T wrk = omega_wrk(acc, z_w[N * S + q], zw0);
   W[p] = T(0);
   acc = T(0);
   for (int k = 0; k < N - 1; ++k) {

@@ -129,7 +129,8 @@ def library() -> ctypes.CDLL:
     lib.roms_tracer_layout.restype = ctypes.c_int
     for name in ("roms_prsgrd32_layout", "roms_rhs3d_layout",
                  "roms_uv_corrector_layout", "roms_uv3dmix2_layout",
-                 "roms_grid_flux_layout", "roms_eos_layout"):
+                 "roms_grid_flux_layout", "roms_omega_layout",
+                 "roms_eos_layout"):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int

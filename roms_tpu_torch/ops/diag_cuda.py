@@ -13,9 +13,10 @@ this package in the order the JAX step calls them) for CPU tensors only.
 For CUDA tensors it launches the CUDA kernel of csrc/diag.cu or raises; it
 never falls back.  grid_flux runs on 2-D tiles of padded points and eos
 with JM95 and bvf on runs of them, each keeping its tile in shared memory;
-``grid_flux_plan`` and ``eos_plan`` size the tile and the block,
-``grid_flux_layout`` and ``eos_layout`` report a kernel's registers and
-stack frame on the card.  ``wrapper.launches`` counts kernel launches.
+omega runs one thread a column.  ``grid_flux_plan`` and ``eos_plan`` size
+the tile and the block; ``grid_flux_layout``, ``omega_layout`` and
+``eos_layout`` report a kernel's registers and stack frame on the card.
+``wrapper.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -46,12 +47,12 @@ def grid_flux_plan(dtype, N: int, ny: int, nx: int) -> dict:
     1/(hc+h), on_u and om_v of its region (the tile and one ring of points
     around it), the four stretching tables, the filled Huon and Hvom of its
     box (the tile, one column east and one row north) and omega's sums of
-    every tile point at every level, and wrk a tile point
-    (csrc/diag.cuh flux_words); _kernels.tile_plan picks the tile, and the
-    block has a thread per (level slot, tile point)."""
+    every tile point at every level (csrc/diag.cuh flux_words);
+    _kernels.tile_plan picks the tile, and the block has a thread per
+    (level slot, tile point)."""
     def make(tx, ty):
         words = 5 * (tx + 2) * (ty + 2) + 4 * N + 2 + \
-            2 * N * (tx + 1) * (ty + 1) + (N + 1) * tx * ty
+            2 * N * (tx + 1) * (ty + 1) + N * tx * ty
         return dict(tile=(tx, ty), blocks=-(-nx // tx) * -(-ny // ty),
                     threads=THREADS, smem_bytes=words * _word(dtype))
     return tile_plan(make)
@@ -80,6 +81,11 @@ def grid_flux_layout(dtype) -> dict:
     """grid_flux's kernel on the current card: {"registers": a thread,
     "stack_bytes": its stack frame a thread}."""
     return kernel_layout("roms_grid_flux_layout", dtype)
+
+
+def omega_layout(dtype) -> dict:
+    """omega's kernel on the current card, as grid_flux_layout."""
+    return kernel_layout("roms_omega_layout", dtype)
 
 
 def eos_layout(dtype) -> dict:

@@ -3,7 +3,8 @@ ops/diag_cuda.eos_plan): for every depth up to 64 levels, in both dtypes,
 the tiles cover the padded grid, a block's shared memory leaves room for
 three blocks an SM of an H100, and it is sized as the kernel lays out its
 arrays (csrc/diag.cuh flux_words, eos_words), with every region and box
-read of grid_flux inside its arrays.  Pure Python: no jax, no card."""
+read of grid_flux inside its arrays and W written at every padded point
+from its source.  Pure Python: no jax, no card."""
 
 import pytest
 import torch
@@ -55,15 +56,99 @@ def test_grid_flux_plan_fits_and_covers(dtype):
             assert 3 * plan["smem_bytes"] <= SMEM, (N, plan)
             # zeta, h, hinv, on_u, om_v of every region point; sc_r, Cs_r
             # (N), sc_w, Cs_w (N + 1); Huon and Hvom of every level and
-            # box point; the omega sums of every level and tile point; wrk
-            # of every tile point
+            # box point; the omega sums of every level and tile point
             region, box = (tx + 2) * (ty + 2), (tx + 1) * (ty + 1)
             words = 5 * region + 2 * N + 2 * (N + 1) + 2 * N * box + \
-                N * tx * ty + tx * ty
+                N * tx * ty
             assert plan["smem_bytes"] == words * WORD[dtype], plan
             reads, fluxes = _reads(tx, ty)
             assert 0 <= min(reads) and max(reads) < region, plan
             assert 0 <= min(fluxes) and max(fluxes) < box, plan
+
+
+def _omega_src(a, H, n, per):
+    """The W source of padded index a along an axis of n interior points
+    (csrc/diag.cuh omega_src): the periodic image, or the nearest interior
+    index on a closed axis."""
+    if per:
+        return a + n if a < H else (a - n if a >= H + n else a)
+    return min(max(a, H), H + n - 1)
+
+
+def _tile_starts(t, npad, per):
+    """The starts of an axis's tiles of t points (csrc/diag.cuh
+    tile_start): on a closed axis the last ends at the last point."""
+    nt = -(-npad // t)
+    return [npad - t if not per and k == nt - 1 and npad > t else k * t
+            for k in range(nt)]
+
+
+def _w_targets(a, H, n, per, t0, t):
+    """The indices along an axis at which the thread of index a in the
+    tile [t0, t0 + t) writes W: csrc/diag.cuh omega_targets, its bits
+    written out as indices (omega_target)."""
+    bits = {31}
+    if H <= a < H + n:
+        outside = not t0 <= a - n < t0 + t, not t0 <= a + n < t0 + t
+        if per:
+            if a >= n and a - n < H and outside[0]:
+                bits.add(a - n)
+            if a < 2 * H and outside[1]:
+                bits.add(a)
+        else:
+            def clip(b):
+                return min(max(b, 0), H)
+            if a == H:
+                bits |= set(range(H)) - set(range(clip(t0), clip(t0 + t)))
+            if a == H + n - 1:
+                bits |= {H + b for b in set(range(H)) - set(range(
+                    clip(t0 - H - n), clip(t0 + t - H - n)))}
+    return sorted(a if b == 31 else (b if b < H else n + b) for b in bits)
+
+
+def _w_writes(H, n, per, t):
+    """Along one axis of n interior points padded by H, with tiles of t
+    points: for each tile, the (index, source index) pairs of the W it
+    writes.  The thread of index a whose source is in the tile writes
+    at _w_targets of a: a, and for an interior a the halo indices of its
+    W outside the tile."""
+    npad = n + 2 * H
+    out = []
+    for t0 in _tile_starts(t, npad, per):
+        out.append({(b, _omega_src(a, H, n, per))
+                    for a in range(t0, min(t0 + t, npad))
+                    if t0 <= _omega_src(a, H, n, per) < t0 + t
+                    for b in _w_targets(a, H, n, per, t0, t)})
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_grid_flux_writes_w_everywhere_from_its_source(dtype):
+    """grid_flux's pass D on its plans' tiles, periodic and closed along
+    each axis: a tile writes the products of its (index, source) pairs
+    along eta and xi, every pair's index takes W from that source, and
+    every padded point is written.  A tile narrower than a wall band
+    scatters it."""
+    H = 3
+    for N in (16, 30, 64):
+        for ny, nx in [(70, 518), (86, 47), (38, 70), (8, 26), (7, 7)]:
+            tx, ty = diag_cuda.grid_flux_plan(dtype, N, ny, nx)["tile"]
+            M, L = ny - 2 * H, nx - 2 * H
+            # a periodic axis holds at least H interior points
+            for ns_per in (0, 1)[:1 + (M >= H)]:
+                for ew_per in (0, 1)[:1 + (L >= H)]:
+                    ys = _w_writes(H, M, ns_per, ty)
+                    xs = _w_writes(H, L, ew_per, tx)
+                    for axis, n, per in ((ys, M, ns_per), (xs, L, ew_per)):
+                        for pairs in axis:
+                            assert all(_omega_src(b, H, n, per) == a
+                                       for b, a in pairs), (n, per)
+                    done = set()
+                    for wy in ys:
+                        for wx in xs:
+                            done |= {(j, i) for j, _ in wy for i, _ in wx}
+                    assert len(done) == ny * nx, (N, ny, nx, ns_per, ew_per,
+                                                  (tx, ty))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -103,8 +188,8 @@ def test_diag_plans_at_benchmark1_and_upwelling():
     UPWELLING (N = 16, 86 x 47; linear EOS, no bvf): grid_flux on 32 x 1
     tiles, eos a thread a point."""
     for dtype, tile, blocks, smem, eos_smem in (
-            (torch.float32, (32, 4), 17 * 18, 60_040, 23_040),
-            (torch.float64, (32, 2), 17 * 35, 69_808, 46_080)):
+            (torch.float32, (32, 4), 17 * 18, 59_528, 23_040),
+            (torch.float64, (32, 2), 17 * 35, 69_296, 46_080)):
         gf = diag_cuda.grid_flux_plan(dtype, 30, 70, 518)
         assert gf == dict(tile=tile, blocks=blocks, threads=256,
                           smem_bytes=smem), gf

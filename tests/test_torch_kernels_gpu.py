@@ -3,8 +3,8 @@ card, in float32 and float64, on UPWELLING and on closed, gradient and
 masked (an island) variants of it (the momentum kernels also on a
 curvilinear one), the geopotential tracer diffusion on a small BENCHMARK,
 the tracer kernels, prsgrd32 and eos bitwise, rhs3d, uv3dmix2 and
-grid_flux bitwise but for their column sums, uv_corrector within RTOL
-(its outputs all pass through column sums) and every kernel's second
+grid_flux bitwise but for their column sums, uv_corrector and omega within
+RTOL (their outputs all pass through column sums) and every kernel's second
 launch bitwise equal to its first, also on the small BENCHMARK (1-3
 tracers; closed and masked variants for the momentum and uv kernels;
 uv3dmix2 on 2, 4 and 8 level slots), on a grid smaller than one tile and
@@ -136,6 +136,17 @@ def _check_grid_flux(cfg, grid, s):
     return ref
 
 
+def _check_omega(cfg, grid, Huon, Hvom, z_w):
+    """omega in one launch within RTOL of its plain version (torch's cumsum
+    adds in another order), a second launch bitwise equal to the first."""
+    args = (cfg, grid, Huon, Hvom, z_w)
+    before = diag_cuda.omega.launches
+    got = diag_cuda.omega(*args)
+    assert diag_cuda.omega.launches == before + 1
+    _close([got], [diag_cuda.omega_plain(*args)], RTOL[Huon.dtype], "omega")
+    _equal([diag_cuda.omega(*args)], [got], "omega, second launch")
+
+
 def _check_eos(cfg, t, z_r, z_w, want_bvf):
     """eos within RTOL of its plain version, bitwise for the outputs
     chip_smoke.BITWISE names, a second launch bitwise equal to the
@@ -155,9 +166,7 @@ def _check_eos(cfg, t, z_r, z_w, want_bvf):
 def test_grid_flux_and_omega_kernels(developed):
     cfg, grid, s = developed
     ref = _check_grid_flux(cfg, grid, s)
-    _close([diag_cuda.omega(cfg, grid, ref[3], ref[4], ref[1])],
-           [diag_cuda.omega_plain(cfg, grid, ref[3], ref[4], ref[1])],
-           RTOL[s.u.dtype], "omega")
+    _check_omega(cfg, grid, ref[3], ref[4], ref[1])
 
 
 @pytest.mark.parametrize("eos", ["linear", "jm95"])
@@ -687,9 +696,10 @@ def test_uv_kernels_at_the_largest_plan(device):
 def test_diag_kernels_on_the_small_benchmark(fixture_case, nt):
     """The small BENCHMARK (spherical, E-W periodic, 70 x 38 padded points:
     grid_flux on several tiles along both axes, the last of each ragged,
-    the halo columns' fluxes and W from the far end of the row), JM95 with
-    bvf as on its path, with 2 tracers or temperature alone (no salt), and
-    the linear EOS with and without bvf."""
+    the halo columns' fluxes and W from the far end of the row; omega of
+    its fluxes), JM95 with bvf as on its path, with 2 tracers or
+    temperature alone (no salt), and the linear EOS with and without
+    bvf."""
     cfg, grid, s = fixture_case
     cfg, s = _with_tracers(cfg, s, nt)
     plan = diag_cuda.grid_flux_plan(s.u.dtype, cfg.N, cfg.ny_tot,
@@ -697,7 +707,8 @@ def test_diag_kernels_on_the_small_benchmark(fixture_case, nt):
     tx, ty = plan["tile"]
     assert cfg.nx_tot % tx != 0 and cfg.ny_tot % ty != 0, plan
     assert plan["blocks"] > 4, plan
-    z_r, z_w, *_ = _check_grid_flux(cfg, grid, s)
+    z_r, z_w, _, Huon, Hvom, _ = _check_grid_flux(cfg, grid, s)
+    _check_omega(cfg, grid, Huon, Hvom, z_w)
     assert cfg.eos == "jm95"
     eos = diag_cuda.eos_plan(s.u.dtype, cfg.N, cfg.ny_tot, cfg.nx_tot,
                              True, True)
@@ -712,8 +723,8 @@ def test_diag_kernels_on_the_small_benchmark(fixture_case, nt):
 def test_diag_kernels_on_a_grid_smaller_than_a_tile(device, dtype):
     """A 20 x 2 plane (26 x 8 padded points): grid_flux's one tile is wider
     and, in float32, taller than the grid, and the wall columns' W comes
-    from inside it, with Vtransform 2 and 1; eos with JM95 and bvf on runs
-    that straddle its rows."""
+    from inside it, with Vtransform 2 and 1; omega of its fluxes; eos with
+    JM95 and bvf on runs that straddle its rows."""
     cfg, grid, s0, ffn = upwelling.build(
         upwelling.make_config(Lm=20, Mm=2, N=6, ndtfast=8, dtype=dtype),
         device=device)
@@ -723,7 +734,8 @@ def test_diag_kernels_on_a_grid_smaller_than_a_tile(device, dtype):
     assert cfg.nx_tot < plan["tile"][0], plan
     if dtype == "float32":
         assert plan["blocks"] == 1 and cfg.ny_tot <= plan["tile"][1], plan
-    z_r, z_w, *_ = _check_grid_flux(cfg, grid, s)
+    z_r, z_w, _, Huon, Hvom, _ = _check_grid_flux(cfg, grid, s)
+    _check_omega(cfg, grid, Huon, Hvom, z_w)
     _check_grid_flux(cfg.replace(vtransform=1), grid, s)
     _check_eos(cfg.replace(eos="jm95"), s.t, z_r, z_w, True)
 
@@ -732,8 +744,8 @@ def test_diag_kernels_on_a_grid_smaller_than_a_tile(device, dtype):
 def test_diag_kernels_at_the_largest_plan(device, dtype):
     """N = 64 on a small gradient-walled plane: grid_flux on 16 x 2 tiles
     in float64 and 32 x 2 in float32, in more than 48 KB of shared memory
-    a block, eos on runs of 16 (32) points in 48 KB; JM95 with bvf, with 2
-    tracers and with temperature alone."""
+    a block, omega of its fluxes, eos on runs of 16 (32) points in 48 KB;
+    JM95 with bvf, with 2 tracers and with temperature alone."""
     cfg, grid, s0, ffn = upwelling.build(
         _config("gradient", dtype, N=64), device=device)
     s = stepping.run(cfg.replace(pallas2d=False), grid, s0, 1, ffn)
@@ -745,7 +757,8 @@ def test_diag_kernels_at_the_largest_plan(device, dtype):
     assert eos["tile"] == (16 if f64 else 32), eos
     assert gf["smem_bytes"] > 48 * 1024, gf
     assert eos["smem_bytes"] == 48 * 1024, eos
-    z_r, z_w, *_ = _check_grid_flux(cfg, grid, s)
+    z_r, z_w, _, Huon, Hvom, _ = _check_grid_flux(cfg, grid, s)
+    _check_omega(cfg, grid, Huon, Hvom, z_w)
     for nt in (2, 1):
         c, st = _with_tracers(cfg.replace(eos="jm95"), s, nt)
         _check_eos(c, st.t, z_r, z_w, True)
