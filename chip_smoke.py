@@ -59,6 +59,23 @@ diffusion (queue 2 row 5, t3dmix2_geo):
      grid-points/s, finite and bounded fields, southern-hemisphere f, an
      eastward mean surface current, one launch a step of every kernel;
  11. torch.profiler over 5 float32 steps, as phase 6.
+Then the run driver (`roms_tpu_torch.driver`, its NetCDF streams and
+restarts):
+ 12. UPWELLING through the CLI (`roms_tpu_torch.__main__.main`, 1440 float64
+     steps, HIS every 72, a restart every 288, NINFO every 12): exit code,
+     one launch a step of each of its ten kernels, 20 finite HIS records
+     72 x dt apart, 5 restarts, the last record equal to the last restart
+     and upwelling at the wall; the record of step 72 bitwise equal to
+     stepping.run's state; the restart of step 288 continued 10 steps by
+     Simulation bitwise equal to 298 straight steps, the caller's state and
+     stepping.run's input unchanged; a NaN planted in u caught as a
+     BlowupError with its final restart; then BENCHMARK1 float32 through
+     Simulation (20 steps, AVG and QCK every 10, HIS at 20, NINFO every 10):
+     ms/step of stepping.run, of Simulation.run without streams and with
+     them, seconds a HIS, AVG and QCK record and a NINFO line take, one
+     launch a step of all eleven kernels, the HIS record bitwise equal to
+     stepping.run's state, the QCK surface slice, and each AVG record's
+     zeta within 10 x 2^-23 x max|zeta| of the mean of its 10 states.
 The last two lines are a JSON object of per-kernel results (BENCHMARK1
 float32, launches of phase 10) and a JSON object {"ok": true, "device":
 {...}}.  Without CUDA it exits non-zero and prints no result.
@@ -1100,6 +1117,260 @@ def bench_long_run(device, name):
     return launches
 
 
+# the driver phase's UPWELLING run: examples/upwelling.yaml's settings as
+# flags (the card's machine may lack PyYAML)
+DRIVER_CLI = ("--case", "upwelling", "--nsteps", "1440", "--nhis", "72",
+              "--nrst", "288", "--ninfo", "12")
+DRIVER_BENCH_STEPS = 20
+DRIVER_REPS = 3
+# AVG record against the hand mean of the float32 states it averages:
+# navg additions in float32, each within one rounding of max|zeta|
+F32_EPS = 2.0 ** -23
+
+
+def _same(cfg, record, tensor) -> bool:
+    """A history record (big-endian float64) equal bit for bit to the
+    interior of a state field."""
+    import numpy as np
+    want = interior(cfg, tensor).double().cpu().numpy()
+    return np.asarray(record, "<f8").tobytes() == want.tobytes()
+
+
+def _record_fields(s):
+    return {"zeta": s.zeta, "ubar": s.ubar, "vbar": s.vbar, "u": s.u,
+            "v": s.v, "temp": s.t[0], "salt": s.t[1]}
+
+
+def driver_phase(device, smi):
+    """Phase 12: the run driver, its NetCDF streams and restarts, through
+    the CLI (`roms_tpu_torch.__main__.main`) and `Simulation`."""
+    import contextlib
+    import io
+    import tempfile
+    import numpy as np
+    import torch
+    from roms_tpu_torch import stepping
+    from roms_tpu_torch.__main__ import main as cli
+    from roms_tpu_torch.driver import BlowupError, Simulation, restart
+    from roms_tpu_torch.io.netcdf import read_history
+    from roms_tpu_torch.models import benchmark, upwelling
+    from roms_tpu_torch.state import TENSOR_FIELDS
+
+    t_phase = time.perf_counter()
+    table = {k: getattr(mod, attr) for k, (mod, attr, _) in
+             wrappers().items()}
+    quiet = dict(ninfo=0, log=lambda *a: None)
+    with tempfile.TemporaryDirectory() as tmp:
+        # UPWELLING, float64, 5 model days through the CLI
+        his, rst = os.path.join(tmp, "his.nc"), os.path.join(tmp, "rst")
+        argv = ["run", *DRIVER_CLI, "--his", his, "--rst", rst, "--device",
+                "cuda"]
+        out = io.StringIO()
+        for w in table.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {k: w.launches for k, w in table.items()}
+        lines = out.getvalue().splitlines()
+        info = [ln for ln in lines if "KE=" in ln]
+        print(f"[driver] python -m roms_tpu_torch {' '.join(argv)}: exit "
+              f"{rc}, {secs:.2f} s ({secs * 1e3 / 1440:.3f} ms/step, "
+              f"build and output included) on {smi}; {len(info)} NINFO "
+              f"lines; launches {launches}", flush=True)
+        for ln in lines[:2] + info[:1] + info[-1:]:
+            print(f"[driver] | {ln}")
+        report = lines[lines.index(info[-1]) + 1:] if info else lines
+        for ln in report:
+            if ln.strip():
+                print(f"[driver] | {ln}")
+        check(rc == 0, f"the CLI exited {rc}")
+        check(len(info) == 1440 // 12, f"{len(info)} NINFO lines, not 120")
+        del launches["t3dmix2_geo"]       # tnu2 = 0: not on this path
+        check(all(n == 1440 for n in launches.values()),
+              f"a kernel of the CLI's run did not launch once a step: "
+              f"{launches}")
+        h = read_history(his)
+        cfg, grid, s0, ffn = upwelling.build(upwelling.make_config(),
+                                             device=device)
+        times = h["ocean_time"]
+        rsts = [f"{rst}_{n:07d}.pt" for n in range(288, 1441, 288)]
+        finite = all(np.isfinite(h[k]).all() for k in _record_fields(s0))
+        found = [os.path.basename(p) for p in rsts if os.path.exists(p)]
+        print(f"[driver] HIS: {len(times)} records at "
+              f"{sorted({float(d) for d in np.diff(times)})} s apart, "
+              f"finite={finite}; "
+              f"restarts {found}", flush=True)
+        check(len(times) == 20 and np.array_equal(
+            times, 72 * cfg.dt * np.arange(1, 21)), "HIS record times")
+        check(finite, "non-finite fields in the HIS file")
+        check(all(os.path.exists(p) for p in rsts), "missing restarts")
+        s1440 = restart(cfg, rsts[-1], s0)
+        check(all(_same(cfg, h[k][-1], a) for k, a in
+                  _record_fields(s1440).items()),
+              "the last HIS record differs from the last restart")
+        mean_zeta, dsst = upwelling_signature(cfg, grid, s0, s1440)
+        print(f"[driver] last record (day 5): mean zeta {mean_zeta:.3e} m, "
+              f"SST change at the upwelling wall {dsst:.3f} degC",
+              flush=True)
+        check(abs(mean_zeta) < 1e-6, "free-surface volume drifted")
+        check(dsst < -1.0, "no upwelling: the surface did not cool at a wall")
+
+        # the CLI's records and restarts against stepping.run
+        before = {k: getattr(s0, k).clone() for k in TENSOR_FIELDS}
+        s72 = stepping.run(cfg, grid, s0, 72, ffn)
+        same72 = all(_same(cfg, h[k][0], a) for k, a in
+                     _record_fields(s72).items())
+        s298 = stepping.run(cfg, grid, s72, 226, ffn)
+        r288 = restart(cfg, rsts[0], s0)
+        kept = {k: getattr(r288, k).clone() for k in TENSOR_FIELDS}
+        sim = Simulation(cfg, grid, r288, ffn, **quiet)
+        sim.run(10)
+        same298 = all(torch.equal(getattr(sim.state, k), getattr(s298, k))
+                      for k in TENSOR_FIELDS) and \
+            (sim.state.iic, sim.state.time) == (s298.iic, s298.time)
+        caller = all(torch.equal(getattr(r288, k), kept[k]) for k in
+                     TENSOR_FIELDS)
+        input_kept = all(torch.equal(getattr(s0, k), before[k]) for k in
+                         TENSOR_FIELDS)
+        print(f"[driver] HIS record of step 72 bitwise stepping.run's: "
+              f"{same72}; restart of step 288 + 10 Simulation steps "
+              f"bitwise 298 straight steps (every State field): "
+              f"{same298}; the caller's state unchanged by Simulation.run: "
+              f"{caller}; stepping.run's input unchanged: {input_kept}",
+              flush=True)
+        check(same72, "the HIS record of step 72 is not stepping.run's")
+        check(same298, "the restarted run is not the straight run")
+        check(caller and input_kept, "a run wrote into its input state")
+
+        # blowup: a NaN in u stops the run at the first NINFO step
+        H = cfg.halo
+        u = s0.u.clone()
+        u[2, H + 8, H + 8] = float("nan")
+        caught = None
+        sim = Simulation(cfg, grid, s0.replace(u=u), ffn, ninfo=1,
+                         log=lambda *a: None, rst_file=os.path.join(
+                             tmp, "blowup"), nrst=1000)
+        try:
+            sim.run(3)
+        except BlowupError as exc:
+            caught = exc
+        print(f"[driver] NaN planted in u, ninfo=1: {caught!r}; final "
+              f"restart {[os.path.basename(p) for p in sim.rst_paths]}",
+              flush=True)
+        check(caught is not None and sim.rst_paths,
+              "the blowup was not caught")
+        del cfg, grid, s0, s72, s298, s1440, r288, sim, h
+
+        # BENCHMARK1, float32, through Simulation with AVG, QCK and HIS
+        cfg, grid, s0, ffn = benchmark.build(
+            benchmark.make_config(dtype="float32"), device=device)
+        n = DRIVER_BENCH_STEPS
+        stepping.run(cfg, grid, s0, 2, ffn)              # warm-up
+
+        # stepping.run, Simulation.run without streams, and Simulation.run
+        # with the AVG sums alone (navg past the run's end: no record), in
+        # turn, DRIVER_REPS times: the host's speed drifts within a call
+        def timed(run):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = run(n)
+            torch.cuda.synchronize()
+            return out, (time.perf_counter() - t0) * 1e3 / n
+
+        sums_file = os.path.join(tmp, "bench_sums.nc")
+        makers = {
+            "stepping.run": lambda: lambda k: stepping.run(cfg, grid, s0, k,
+                                                           ffn),
+            "Simulation.run": lambda: Simulation(cfg, grid, s0, ffn,
+                                                 **quiet).run,
+            "with the AVG sums": lambda: Simulation(
+                cfg, grid, s0, ffn, avg_file=sums_file, navg=10 * n,
+                **quiet).run,
+        }
+        alt = {k: [] for k in makers}
+        for _ in range(DRIVER_REPS):
+            for k, make in makers.items():
+                out, ms = timed(make())
+                alt[k].append(ms)
+                if k == "stepping.run":
+                    s = out
+        med = {k: float(np.median(v)) for k, v in alt.items()}
+        print(f"[driver] BENCHMARK1 float32, {n} steps a run, in turn "
+              f"{DRIVER_REPS} times (ms/step): " + "; ".join(
+                  f"{k} {', '.join(f'{x:.3f}' for x in v)} (median "
+                  f"{med[k]:.3f}, spread {(max(v) - min(v)) / med[k]:.1%})"
+                  for k, v in alt.items()) + f"; on {smi}", flush=True)
+        zetas, si = [], s0
+        for _ in range(n):
+            si = stepping.step(cfg, grid, si, ffn)
+            zetas.append(interior(cfg, si.zeta).double().cpu().numpy())
+        paths = {k: os.path.join(tmp, f"bench_{k}.nc") for k in
+                 ("his", "avg", "qck")}
+        lines = []
+        sim = Simulation(cfg, grid, s0, ffn, his_file=paths["his"],
+                         nhis=20, avg_file=paths["avg"], navg=10,
+                         qck_file=paths["qck"], nqck=10, ninfo=10,
+                         log=lines.append)
+        for w in table.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim.run(n)
+        torch.cuda.synchronize()
+        ms_sim = (time.perf_counter() - t0) * 1e3 / n
+        launches = {k: w.launches for k, w in table.items()}
+        sim.finalize()
+        acc, calls = sim.profiler.acc, sim.profiler.calls
+        per = {k: acc[k] / max(calls[k], 1) for k in
+               ("output: history", "output: averages", "output: quick",
+                "diagnostics")}
+        mb = sum(interior(cfg, a).numel() for a in
+                 _record_fields(s).values()) * 8 / 1e6
+        print(f"[driver] BENCHMARK1 float32, {n} steps: Simulation.run "
+              f"with HIS/AVG/QCK/NINFO {ms_sim:.3f} ms/step, of it the "
+              f"stepping region {acc['3d time stepping'] * 1e3 / n:.3f}; "
+              f"a HIS record ({mb:.1f} MB of float64) "
+              f"{per['output: history']:.4f} s, an AVG record "
+              f"{per['output: averages']:.4f} s, a QCK record "
+              f"{per['output: quick']:.4f} s, a NINFO line "
+              f"{per['diagnostics']:.4f} s; on {smi}; launches {launches}",
+              flush=True)
+        for ln in lines[:2]:
+            print(f"[driver] | {ln}")
+        check(all(k == n for k in launches.values()),
+              f"a kernel of the BENCHMARK1 driver run did not launch once a "
+              f"step: {launches}")
+        check(len(lines) == 2 + 1 and "KE=" in lines[0],
+              "NINFO lines or the region profile missing")
+        hb, avg, qck = (read_history(paths[k]) for k in ("his", "avg", "qck"))
+        check(hb["zeta"].shape[0] == 1 and all(
+            _same(cfg, hb[k][0], a) for k, a in _record_fields(s).items()),
+            "the BENCHMARK1 HIS record is not stepping.run's state")
+        check(qck["temp_sur"].shape == (2, cfg.Mm, cfg.Lm) and
+              _same(cfg, qck["temp_sur"][-1], s.t[0, -1]),
+              "the QCK surface slice")
+        worst = 0.0
+        for rec in range(2):
+            want = np.mean(zetas[10 * rec:10 * rec + 10], axis=0)
+            bound = 10 * F32_EPS * max(np.abs(z).max() for z in
+                                       zetas[10 * rec:10 * rec + 10])
+            err = float(np.abs(avg["zeta"][rec] - want).max())
+            worst = max(worst, err / bound)
+            print(f"[driver] AVG record {rec}: |zeta - mean of its 10 "
+                  f"states| = {err:.3e} m, bound {bound:.3e} m "
+                  f"(10 x 2^-23 x max|zeta|)", flush=True)
+        check(worst <= 1.0, "the AVG record is not the mean of its states")
+        check(np.array_equal(avg["ocean_time"],
+                             cfg.dt * np.array([5.0, 15.0])),
+              "AVG record times")
+    print(f"[driver] phase 12 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
 def column_times(device):
     """`--column-times TREE`: the time a call of rows 1-4 and 6-10, with
     the host's time (device_ms) and on the device alone (profiled_ms), on
@@ -1203,6 +1474,7 @@ def main() -> int:
         bench_fixture(device)
         launches = bench_long_run(device, name)
         profile(device, "benchmark")
+        driver_phase(device, smi)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

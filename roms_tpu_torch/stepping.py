@@ -44,6 +44,7 @@ from .ops.rhs3d import rhs3d_momentum
 from .ops.step2d import Fast2DState
 from .ops.vbc import set_vbc
 
+DIAGS_NOT_PORTED = "budget diagnostics (collect_diags)"
 _FORCING_KEYS = {"sustr", "svstr", "stflux", "btflux"}
 # the analytic atmosphere that feeds the bulk fluxes (cfg.bulk_fluxes)
 _BULK_KEYS = {"Uwind", "Vwind", "Tair", "Pair", "Hair", "cloud", "rain",
@@ -55,7 +56,7 @@ def _check_slice(cfg: Config, grid: Grid, frc: dict, collect_diags: bool):
     that this port does not have yet."""
     missing = []
     if collect_diags:
-        missing.append("budget diagnostics (collect_diags)")
+        missing.append(DIAGS_NOT_PORTED)
     if grid.zice is not None:
         missing.append("ice shelf (ICESHELF)")
     if cfg.sediment or cfg.sed_params is not None:
@@ -256,14 +257,53 @@ def step(cfg: Config, grid: Grid, state: State,
         DU_avg2=fs.DU_avg2, DV_avg2=fs.DV_avg2)
 
 
-def run(cfg: Config, grid: Grid, state: State, nsteps: int,
-        forcing_fn: Optional[Callable] = None) -> State:
-    """Advance nsteps slow steps."""
+def _check_nfast(cfg: Config):
     if cfg.nfast <= 0:
         raise ValueError(
             "cfg.nfast is 0 - the fast barotropic loop would be empty. "
             "Use the cfg returned by build_grid/the case builder "
             "(it finalizes hmin and nfast).")
+
+
+def make_stepper(cfg: Config, grid: Grid,
+                 forcing_fn: Optional[Callable] = None):
+    """Single-step function state -> state."""
+    _check_nfast(cfg)
+    return lambda s: step(cfg, grid, s, forcing_fn)
+
+
+def run(cfg: Config, grid: Grid, state: State, nsteps: int,
+        forcing_fn: Optional[Callable] = None) -> State:
+    """Advance nsteps slow steps."""
+    _check_nfast(cfg)
     for _ in range(nsteps):
         state = step(cfg, grid, state, forcing_fn)
     return state
+
+
+def run_accum(cfg: Config, grid: Grid, state: State, nsteps: int,
+              forcing_fn: Optional[Callable] = None,
+              fields: tuple = ("zeta", "ubar", "vbar", "u", "v", "t"),
+              derived: Optional[dict] = None):
+    """Advance nsteps and sum the named State fields over the steps, on
+    the state's device and in its dtype (the mod_average.F accumulators,
+    sampled every step as set_avg.F does).
+
+    derived: optional {name: fn(cfg, grid, state) -> tensor} computed and
+    summed alongside (the set_avg.F:2352-3952 quadratic/derived fields:
+    u*u, Huon means, rho, ...).  Each sum starts from zeros and adds one
+    step at a time, the JAX scan's order.  Returns (state, sums dict)."""
+    _check_nfast(cfg)
+    if nsteps < 1:
+        raise ValueError(f"run_accum needs nsteps >= 1, not {nsteps}")
+    derived = derived or {}
+    sums = None
+    for _ in range(nsteps):
+        state = step(cfg, grid, state, forcing_fn)
+        vals = {**{k: getattr(state, k) for k in fields},
+                **{k: fn(cfg, grid, state) for k, fn in derived.items()}}
+        if sums is None:
+            sums = {k: torch.zeros_like(v) for k, v in vals.items()}
+        for k, v in vals.items():
+            sums[k].add_(v)
+    return state, sums

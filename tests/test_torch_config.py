@@ -11,8 +11,9 @@ import torch
 
 from roms_tpu import config as jcfg
 from roms_tpu.models import upwelling as jup
-from roms_tpu_torch import config as tcfg, convert, grid as tgrid, \
-    state as tstate
+from roms_tpu_torch import config as tcfg, convert, forcing as tforcing, \
+    grid as tgrid, state as tstate
+from roms_tpu_torch.utils import yamlcfg
 from roms_tpu_torch.models import upwelling as tup
 
 torch.set_num_threads(1)
@@ -57,7 +58,9 @@ def test_entry_points_default_to_the_card():
     """The entry points put their tensors on the CUDA card unless asked
     for another device; without a card they raise torch's own error."""
     for fn in (tup.build, tgrid.build_grid, tstate.initial_state,
-               convert.grid_from_numpy, convert.state_from_numpy):
+               convert.grid_from_numpy, convert.state_from_numpy,
+               yamlcfg.build_from_dict, yamlcfg.build_from_yaml,
+               tforcing.make_series, tforcing.series_from_netcdf):
         default = inspect.signature(fn).parameters["device"].default
         assert torch.device(default) == torch.device("cuda"), fn.__name__
     cfg = tup.make_config(Lm=12, Mm=10, N=4, ndtfast=6)
@@ -76,8 +79,17 @@ def test_import_leaves_jax_out():
         " 'roms_tpu_torch.'):\n"
         "    __import__(m.name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in"
-        " ('jax', 'jaxlib', 'flax', 'roms_tpu'))\n"
+        " ('jax', 'jaxlib', 'flax', 'roms_tpu', 'yaml'))\n"
         "assert not bad, bad\n"
+        "want = {'driver', 'forcing', '__main__', 'io.varinfo',"
+        " 'io.netcdf', 'io.checkpoint', 'io.stations', 'utils.timers',"
+        " 'utils.diag', 'utils.yamlcfg', 'utils.dateclock',"
+        " 'utils.fields'}\n"
+        "missing = {m for m in want if 'roms_tpu_torch.' + m not in"
+        " sys.modules}\n"
+        "assert not missing, missing\n"
+        "from roms_tpu_torch import stepping\n"
+        "assert stepping.run_accum and stepping.make_stepper\n"
         "print('ok')\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)

@@ -9,8 +9,9 @@ launch bitwise equal to its first, also on the small BENCHMARK (1-3
 tracers; closed and masked variants for the momentum and uv kernels;
 uv3dmix2 on 2, 4 and 8 level slots), on a grid smaller than one tile and
 at their largest shared-memory plans;
-the UPWELLING anchor with ten kernels on, and the small-BENCHMARK fixture
-(tests/data/torch_benchmark_small.npz) with all eleven on.
+the UPWELLING anchor with ten kernels on, the small-BENCHMARK fixture
+(tests/data/torch_benchmark_small.npz) with all eleven on, and the run
+driver's restarts across the card and the CPU.
 
 Marked ``gpu``; each test skips without a CUDA device.  This file imports
 no jax, so it also runs where jax is absent:
@@ -891,3 +892,32 @@ def test_benchmark_fixture_with_kernels(device):
     errors = fixture.errors(cfg, s0, s, ref, factor=CARD_FACTOR)
     bad = {k: e for k, e in errors.items() if not e[0] <= e[1]}
     assert not bad, bad
+
+
+@pytest.mark.parametrize("saved_on", ["cuda", "cpu"])
+def test_restart_across_devices(device, tmp_path, saved_on):
+    """A restart the driver writes from the card restores on the CPU, and
+    one written from the CPU restores on the card, bitwise; one written
+    and restored on the card continues bitwise as the straight run."""
+    from roms_tpu_torch.driver import Simulation, restart
+    from roms_tpu_torch.state import TENSOR_FIELDS
+    devices = {"cuda": device, "cpu": torch.device("cpu")}
+    other = "cpu" if saved_on == "cuda" else "cuda"
+    cfg = upwelling.make_config(Lm=20, Mm=16, N=6, ndtfast=8)
+    cfg, grid, s0, ffn = upwelling.build(cfg, device=devices[saved_on])
+    s0_o = upwelling.build(cfg, device=devices[other])[2]
+    sim = Simulation(cfg, grid, s0, ffn, rst_file=str(tmp_path / "rst"),
+                     nrst=3, ninfo=0, log=lambda *a: None)
+    sim.run(3)
+    r = restart(cfg, sim.rst_paths[0], s0_o)
+    assert (r.time, r.iic) == (sim.state.time, sim.state.iic)
+    for k in TENSOR_FIELDS:
+        a = getattr(r, k)
+        assert a.device.type == other and a.dtype == torch.float64, k
+        assert torch.equal(a.cpu(), getattr(sim.state, k).cpu()), k
+    if saved_on == "cuda":
+        card = restart(cfg, sim.rst_paths[0], s0)
+        straight = stepping.run(cfg, grid, s0, 5, ffn)
+        resumed = stepping.run(cfg, grid, card, 2, ffn)
+        for k in TENSOR_FIELDS:
+            assert torch.equal(getattr(resumed, k), getattr(straight, k)), k
