@@ -6,6 +6,7 @@ BENCHMARK1 steps through them, and checks the results.
     python3 chip_smoke.py --column-times TREE    # rows 1-4 and 6-10's
                                                  # times only,
                                                  # roms_tpu_torch from TREE
+    python3 chip_smoke.py --regional             # the build and phase 13
 
 Phases, one or more lines each; any failure exits non-zero:
   1. device: card name and power limit (nvidia-smi), torch and CUDA versions;
@@ -76,6 +77,28 @@ restarts):
      launch a step of all eleven kernels, the HIS record bitwise equal to
      stepping.run's state, the QCK surface slice, and each AVG record's
      zeta within 10 x 2^-23 x max|zeta| of the mean of its 10 states.
+Then the regional cases KELVIN (50x30x10), ESTUARY_TEST (200x3x20) and
+RIVERPLUME1 (39x67x13) at their published sizes, whose open boundaries or
+river keep rows 8-11 on their plain versions (the general fast loop):
+ 13. (a) each kernel a case's step launches (rows 1-3, 6, 7; 4 and 5 on
+     RIVERPLUME1) against its plain version on that step's arguments
+     (three plain float64 steps from rest), float64 and float32, with the
+     checks of phase 3 but untimed, and no other kernel called; (b) three
+     float64 steps with the kernels on against cfg.pallas2d=False, each
+     field within 1e-9 x max|field| (a v-like field against its u-like
+     partner's max too), one launch a step of each of its kernels and none
+     of the others; (c) the small cases against
+     tests/data/torch_regional_small.npz at CARD_FACTOR x the CPU bounds;
+     (d) the physics of roms_tpu's case tests in float64: KELVIN after 24
+     steps (coastal amplitude over twice the offshore), ESTUARY_TEST after
+     720 (6 h: |zeta| > 0.05, salt in [-0.5, 30.5], |u| > 0.05),
+     RIVERPLUME1 after 120 (4 h: salt below S0 - 1 near the source, u
+     exactly 0 on masked faces), with ms/step; (e) ESTUARY_TEST through the
+     CLI (20 steps, HIS and a restart every 10): the restart of step 10 +
+     10 Simulation steps and 20 straight steps bitwise the restart of step
+     20, which holds the GLS fields, and the last HIS record; (f) float32
+     ms/step of each case (5 steps) beside (d)'s float64, with its
+     launches a step.
 The last two lines are a JSON object of per-kernel results (BENCHMARK1
 float32, launches of phase 10) and a JSON object {"ok": true, "device":
 {...}}.  Without CUDA it exits non-zero and prints no result.
@@ -96,6 +119,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 ANCHOR = os.path.join(ROOT, "tests", "data", "upwelling_anchor.npz")
 BENCH_FIXTURE = os.path.join(ROOT, "tests", "data",
                              "torch_benchmark_small.npz")
+REGIONAL_FIXTURE = os.path.join(ROOT, "tests", "data",
+                                "torch_regional_small.npz")
 # kernels-on against kernels-off over three full-size BENCHMARK1 float64
 # steps, relative to max|field|
 BENCH_EQUIV_RTOL = 1e-9
@@ -581,9 +606,10 @@ def island(grid):
                                pmask=umask * torch.roll(umask, 1, -2))
 
 
-def check_variants(tag, grid, cases, dtype, results):
+def check_variants(tag, grid, cases, dtype, results, timed=True):
     """Each (label, kernel, args, kw) of `cases` against its plain version:
-    agreement, times, bound; one line each, into results[label][dtype]."""
+    agreement, and with `timed` the times and the bound; one line each,
+    into results[label][dtype]."""
     import torch
     table = wrappers()
     for label, name, args, kw in cases:
@@ -603,30 +629,34 @@ def check_variants(tag, grid, cases, dtype, results):
         bitwise = ",".join(map(str, equal)) or "none"
         equal = set(exact) <= set(equal)
         repeat = same(kern(*fresh(args), **kw), out_k)
-        per_call = name in IN_PLACE
-        ms = device_ms(kern, args, kw, per_call)
-        plain_ms = device_ms(plain, args, kw, per_call)
-        ops = count_ops(plain, args, kw)
-        b_ms, b_by = bound(name, grid, args, kw, out_k, ops, dtype)
         ok = finite and repeat and equal and ratio <= 1.0
         bar = f"tol={rtol[dtype]:g}*max|field|"
         if len(exact) == nout:
             bar = "bitwise"
         elif exact:
             bar = f"outputs {','.join(map(str, exact))} bitwise, {bar}"
-        dev = f" (device {profiled_ms(kern, args, kw, per_call):.4f} ms)" \
-            if exact else ""
+        times = ""
+        if timed:
+            per_call = name in IN_PLACE
+            ms = device_ms(kern, args, kw, per_call)
+            plain_ms = device_ms(plain, args, kw, per_call)
+            ops = count_ops(plain, args, kw)
+            b_ms, b_by = bound(name, grid, args, kw, out_k, ops, dtype)
+            dev = f" (device {profiled_ms(kern, args, kw, per_call):.4f} " \
+                "ms)" if exact else ""
+            times = f" kernel {ms:.4f} ms{dev}, plain {plain_ms:.4f} ms, " \
+                f"bound {b_ms:.5f} ms by {b_by} ({ops:.4e} ops)"
         print(f"[{tag}] {label:30s} {dtype}: max_abs_err={err:.3e} "
               f"{bar} (worst err/tol {ratio:.3e}; outputs bitwise equal: "
               f"{bitwise}) finite={finite} repeat "
-              f"bitwise={repeat} kernel {ms:.4f} ms{dev}, plain "
-              f"{plain_ms:.4f} ms, bound {b_ms:.5f} ms by {b_by} "
-              f"({ops:.4e} ops)  {'OK' if ok else 'FAIL'}", flush=True)
+              f"bitwise={repeat}{times}  {'OK' if ok else 'FAIL'}",
+              flush=True)
         check(ok, f"{label} {dtype}: kernel disagrees with its plain "
                   "version or with its own second launch")
-        results.setdefault(label, {})[dtype] = dict(
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-            bound_by=b_by)
+        results.setdefault(label, {})[dtype] = dict(max_abs_err=err)
+        if timed:
+            results[label][dtype].update(ms=ms, plain_ms=plain_ms,
+                                         bound_ms=b_ms, bound_by=b_by)
         if label == "fast_loop":
             fast_loop_launches(tag, args, kw, dtype, out_k)
 
@@ -1043,16 +1073,24 @@ def bench_equivalence(device, cfg, grid, s0, ffn):
     return launches
 
 
-def fixture_script():
-    """scripts/torch_benchmark_fixture.py as a module: its CASE, NSTEPS
-    and errors() (importing it imports no jax)."""
+def _script(name):
+    """scripts/<name>.py as a module (importing it imports no jax)."""
     import importlib.util
-    path = os.path.join(ROOT, "scripts", "torch_benchmark_fixture.py")
-    spec = importlib.util.spec_from_file_location("torch_benchmark_fixture",
-                                                  path)
+    path = os.path.join(ROOT, "scripts", name + ".py")
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def fixture_script():
+    """scripts/torch_benchmark_fixture.py: its CASE, NSTEPS and errors()."""
+    return _script("torch_benchmark_fixture")
+
+
+def regional_fixture_script():
+    """scripts/torch_regional_fixture.py: its CASES, NSTEPS and errors()."""
+    return _script("torch_regional_fixture")
 
 
 def bench_fixture(device):
@@ -1371,6 +1409,293 @@ def driver_phase(device, smi):
           flush=True)
 
 
+# phase 13: the regional cases at their published sizes, the kernels each
+# one's step launches (bry or sources keep rows 8-11 on their plain
+# versions, as the JAX gates keep their Pallas kernels off)
+REGIONAL = ("kelvin", "estuary", "riverplume")
+_ROWS_1_7 = ("grid_flux", "eos", "omega", "prsgrd32", "rhs3d")
+REGIONAL_KERNELS = {"kelvin": _ROWS_1_7, "estuary": _ROWS_1_7,
+                    "riverplume": _ROWS_1_7 + ("uv3dmix2", "t3dmix2_geo")}
+REGIONAL_EQUIV_STEPS = 3
+# the physics signatures of tests/test_cases.py:70-77 and
+# tests/test_cases_extra.py:73-106: KELVIN 6 h, ESTUARY_TEST 6 h (half an
+# M2 cycle), RIVERPLUME1 4 h
+REGIONAL_PHYSICS_STEPS = {"kelvin": 24, "estuary": 720, "riverplume": 120}
+REGIONAL_TIMED_STEPS = 5
+REGIONAL_CLI_STEPS = 20
+GLS_FIELDS = ("tke", "gls", "tke_prev", "gls_prev", "Akk", "Akp", "Lscale")
+
+
+def regional_case(name, device, dtype="float64", **sizes):
+    """(cfg, grid, state0, forcing_fn) of a regional case, at its published
+    sizes unless `sizes` cut them."""
+    from roms_tpu_torch.models import cases
+    cfg = getattr(cases, name + "_config")(dtype=dtype, **sizes)
+    return getattr(cases, name)(cfg, device=device)
+
+
+def regional_kernel_checks(results, device, developed):
+    """Phase 13 (a): every kernel each case's step launches, against its
+    plain version on that step's arguments, float64 and float32; returns
+    nothing, fails on a disagreement or a kernel set other than the
+    table's."""
+    from roms_tpu_torch.state import TENSOR_FIELDS
+    for name in REGIONAL:
+        s = developed[name][2]
+        for dtype in ("float64", "float32"):
+            cfg, grid, _, ffn = regional_case(name, device, dtype)
+            state = s.replace(**{k: getattr(s, k).to(grid.h.dtype)
+                                 for k in TENSOR_FIELDS})
+            calls = captured_calls(cfg, grid, state, ffn)
+            check(set(calls) == set(REGIONAL_KERNELS[name]),
+                  f"{name}: the step called {sorted(calls)}, not "
+                  f"{sorted(REGIONAL_KERNELS[name])}")
+            check_variants("regional", grid,
+                           [(f"{name}:{k}", k, *calls[k]) for k in calls],
+                           dtype, results, timed=False)
+
+
+def _rel_errors(case, fx, a, b):
+    """{field: (|a - b| / max|b|, a finite)} over the fields the case's
+    step writes, a velocity-like field against the larger of its own and
+    its partner's max (fx.PARTNER)."""
+    import torch
+    out = {}
+    for k in fx.fields_of(case):
+        x, y = getattr(a, k), getattr(b, k)
+        scale = float(y.abs().max())
+        if k in fx.PARTNER:
+            scale = max(scale, float(getattr(b, fx.PARTNER[k]).abs().max()))
+        out[k] = (float((x - y).abs().max()) / max(scale, 1e-300),
+                  bool(torch.isfinite(x).all()))
+    return out
+
+
+def regional_equivalence(device, name, cfg, grid, s0, ffn):
+    """Phase 13 (b): REGIONAL_EQUIV_STEPS float64 steps from s0 with the
+    kernels on against cfg.pallas2d=False; returns the launches a step."""
+    import torch
+    from roms_tpu_torch import stepping
+    fx = regional_fixture_script()
+    table = {k: getattr(mod, attr) for k, (mod, attr, _) in
+             wrappers().items()}
+    n = REGIONAL_EQUIV_STEPS
+    for w in table.values():
+        w.launches = 0
+    s_on = stepping.run(cfg, grid, s0, n, ffn)
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in table.items()}
+    s_off = stepping.run(cfg.replace(pallas2d=False), grid, s0, n, ffn)
+    want = {k: n if k in REGIONAL_KERNELS[name] else 0 for k in table}
+    print(f"[regional-equiv] {name}: {n} float64 steps, kernels on: "
+          f"launches {launches}", flush=True)
+    check(launches == want, f"{name}: launches {launches}, not {want}")
+    errs = _rel_errors(name, fx, s_on, s_off)
+    worst = max(e for e, _ in errs.values())
+    print(f"[regional-equiv] {name}: |kernels on - off| / max|field| "
+          + ", ".join(f"{k} {e:.3e}" for k, (e, _) in errs.items())
+          + f"; worst {worst:.3e} (bound {BENCH_EQUIV_RTOL:g})", flush=True)
+    check(all(f and e <= BENCH_EQUIV_RTOL for e, f in errs.values()),
+          f"{name}: kernels on and off disagree")
+    return {k: v / n for k, v in launches.items() if v}
+
+
+def regional_fixture(device):
+    """Phase 13 (c): the small cases with the kernels on against
+    tests/data/torch_regional_small.npz, at CARD_FACTOR times the CPU
+    test's bounds."""
+    import numpy as np
+    from roms_tpu_torch import stepping
+    fx = regional_fixture_script()
+    ref = np.load(fx.OUT)
+    for name in fx.CASES:
+        cfg, grid, s0, ffn = regional_case(name, device, **fx.CASES[name])
+        s = stepping.run(cfg, grid, s0, fx.NSTEPS, ffn)
+        errors = fx.errors(name, cfg, s0, s, ref, factor=CARD_FACTOR)
+        worst = max(errors.items(), key=lambda kv: kv[1][0] / kv[1][1])
+        print(f"[regional-fixture] {name}: " + ", ".join(
+            f"{k} {e:.3e}" for k, (e, _) in errors.items()) +
+            f"; worst against its bound: {worst[0]} {worst[1][0]:.3e} "
+            f"(bound {worst[1][1]:g})", flush=True)
+        bad = {k: e for k, e in errors.items() if not e[0] <= e[1]}
+        check(not bad, f"the small {name} misses its fixture: {bad}")
+
+
+def regional_physics(device, smi):
+    """Phase 13 (d): the physics signatures of roms_tpu's case tests, at
+    the published sizes in float64; returns {case: ms/step}."""
+    import numpy as np
+    import torch
+    from roms_tpu_torch import stepping
+    ms = {}
+    for name in REGIONAL:
+        cfg, grid, s0, ffn = regional_case(name, device)
+        n = REGIONAL_PHYSICS_STEPS[name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s = stepping.run(cfg, grid, s0, n, ffn)
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) * 1e3 / n
+        z = interior(cfg, s.zeta).cpu().numpy()
+        u = interior(cfg, s.u).cpu().numpy()
+        salt = interior(cfg, s.t[1]).cpu().numpy()
+        finite = bool(np.isfinite(z).all() and np.isfinite(u).all() and
+                      np.isfinite(salt).all())
+        head = (f"[regional-physics] {name} {cfg.Lm}x{cfg.Mm}x{cfg.N}, {n} "
+                f"float64 steps ({n * cfg.dt / 3600.0:g} h): "
+                f"{ms[name]:.1f} ms/step on {smi}; finite={finite}")
+        if name == "kelvin":
+            coast = float(np.abs(z[2, :10]).max())
+            off = float(np.abs(z[-3, :10]).max())
+            ok = finite and coast > 2.0 * off and np.abs(z).max() < 2.0
+            print(f"{head}; |zeta| near the coast {coast:.4f} m, offshore "
+                  f"{off:.4f} m (coast > 2 x offshore), max "
+                  f"{np.abs(z).max():.4f} m  {'OK' if ok else 'FAIL'}",
+                  flush=True)
+        elif name == "estuary":
+            umax = float(np.abs(s.u.cpu().numpy()).max())
+            ok = finite and np.abs(z).max() > 0.05 and \
+                salt.min() > -0.5 and salt.max() < 30.5 and umax > 0.05
+            print(f"{head}; max|zeta| {np.abs(z).max():.4f} m (> 0.05), "
+                  f"salt in [{salt.min():.4f}, {salt.max():.4f}] (within "
+                  f"[-0.5, 30.5]), max|u| {umax:.4f} m/s (> 0.05)  "
+                  f"{'OK' if ok else 'FAIL'}", flush=True)
+        else:
+            masked = float(np.abs(s.u.cpu().numpy() *
+                                  (1.0 - grid.umask.cpu().numpy())).max())
+            ok = finite and salt.min() < cfg.S0 - 1.0 and \
+                salt[:, :, 4:].max() < cfg.S0 + 0.5 and masked == 0.0
+            print(f"{head}; min salt {salt.min():.4f} (< S0 - 1 = "
+                  f"{cfg.S0 - 1.0:g}), max salt away from the channel "
+                  f"{salt[:, :, 4:].max():.4f} (< S0 + 0.5), max|u| on "
+                  f"masked faces {masked:g} (= 0)  {'OK' if ok else 'FAIL'}",
+                  flush=True)
+        check(ok, f"{name}: the physics signature failed")
+    return ms
+
+
+def regional_cli(device):
+    """Phase 13 (e): ESTUARY_TEST through the CLI with HIS and restarts; a
+    restart plus the remaining steps through Simulation, and the straight
+    run, bitwise equal to the last restart, which holds the GLS fields."""
+    import contextlib
+    import io
+    import tempfile
+    import numpy as np
+    import torch
+    from roms_tpu_torch import stepping
+    from roms_tpu_torch.__main__ import main as cli
+    from roms_tpu_torch.driver import Simulation, restart
+    from roms_tpu_torch.io.netcdf import read_history
+    from roms_tpu_torch.state import TENSOR_FIELDS
+    n = REGIONAL_CLI_STEPS
+    half = n // 2
+    with tempfile.TemporaryDirectory() as tmp:
+        his, rst = os.path.join(tmp, "his.nc"), os.path.join(tmp, "rst")
+        argv = ["run", "--case", "estuary", "--nsteps", str(n), "--his",
+                his, "--nhis", str(half), "--rst", rst, "--nrst", str(half),
+                "--ninfo", str(half), "--device", "cuda"]
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli(argv)
+        lines = out.getvalue().splitlines()
+        print(f"[regional-cli] python -m roms_tpu_torch {' '.join(argv)}: "
+              f"exit {rc}", flush=True)
+        for ln in lines[:2] + [ln for ln in lines if "KE=" in ln]:
+            print(f"[regional-cli] | {ln}")
+        check(rc == 0, f"the CLI exited {rc}")
+        cfg, grid, s0, ffn = regional_case("estuary", device)
+        h = read_history(his)
+        rsts = [f"{rst}_{k:07d}.pt" for k in (half, n)]
+        check(all(os.path.exists(p) for p in rsts), "missing restarts")
+        check(np.array_equal(h["ocean_time"],
+                             half * cfg.dt * np.arange(1, 3)),
+              "HIS record times")
+        saved = torch.load(rsts[-1], weights_only=True)
+        gls_in = all(k in saved for k in GLS_FIELDS) and not torch.equal(
+            saved["tke"].to(s0.tke.device), s0.tke)
+        last = restart(cfg, rsts[-1], s0)
+        sim = Simulation(cfg, grid, restart(cfg, rsts[0], s0), ffn, ninfo=0,
+                         log=lambda *a: None)
+        sim.run(n - half)
+        straight = stepping.run(cfg, grid, s0, n, ffn)
+        resumed = all(torch.equal(getattr(sim.state, k), getattr(last, k))
+                      for k in TENSOR_FIELDS)
+        whole = all(torch.equal(getattr(straight, k), getattr(last, k))
+                    for k in TENSOR_FIELDS)
+        record = _same(cfg, h["salt"][-1], last.t[1])
+        print(f"[regional-cli] restart of step {half} + {n - half} "
+              f"Simulation steps bitwise the restart of step {n}: "
+              f"{resumed}; {n} straight steps bitwise it: {whole}; the GLS "
+              f"fields {', '.join(GLS_FIELDS)} in the restart and tke "
+              f"evolved: {gls_in}; last HIS salt record bitwise it: "
+              f"{record}", flush=True)
+        check(resumed and whole, "the restarted run is not the straight run")
+        check(gls_in, "the GLS fields are not in the restart")
+        check(record, "the HIS record is not the restart's state")
+
+
+def regional_times(device, smi, launches, ms64):
+    """Phase 13 (f): float32 ms/step of each case (host clock,
+    REGIONAL_TIMED_STEPS steps after one) beside the float64 ms/step of
+    its physics run (ms64), with its launches a step."""
+    import torch
+    from roms_tpu_torch import stepping
+    for name in REGIONAL:
+        cfg, grid, s0, ffn = regional_case(name, device, "float32")
+        s = stepping.run(cfg, grid, s0, 1, ffn)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stepping.run(cfg, grid, s, REGIONAL_TIMED_STEPS, ffn)
+        torch.cuda.synchronize()
+        ms32 = (time.perf_counter() - t0) * 1e3 / REGIONAL_TIMED_STEPS
+        print(f"[regional-times] {name} {cfg.Lm}x{cfg.Mm}x{cfg.N} nfast "
+              f"{cfg.nfast}: float32 {ms32:.1f} ms/step "
+              f"({REGIONAL_TIMED_STEPS} steps), float64 {ms64[name]:.1f} "
+              f"ms/step ({REGIONAL_PHYSICS_STEPS[name]} steps); kernel "
+              f"launches a step {launches[name]}; on {smi}", flush=True)
+
+
+def regional_phase(device, smi):
+    """Phase 13: KELVIN, ESTUARY_TEST and RIVERPLUME1 at their published
+    sizes: (a) kernels against plain on each case's arguments, (b) kernels
+    on against off, (c) the small fixture, (d) the physics signatures,
+    (e) ESTUARY_TEST through the CLI with restarts, (f) ms/step."""
+    from roms_tpu_torch import stepping
+    t_phase = t_part = time.perf_counter()
+    parts = {}
+
+    def lap(part):
+        nonlocal t_part
+        now = time.perf_counter()
+        parts[part] = now - t_part
+        t_part = now
+
+    developed = {}
+    for name in REGIONAL:
+        cfg, grid, s0, ffn = regional_case(name, device)
+        developed[name] = (cfg, grid, stepping.run(
+            cfg.replace(pallas2d=False), grid, s0, 3, ffn), ffn)
+    lap("set-up")
+    regional_kernel_checks({}, device, developed)
+    lap("a")
+    launches = {name: regional_equivalence(device, name, *developed[name])
+                for name in REGIONAL}
+    del developed
+    lap("b")
+    regional_fixture(device)
+    lap("c")
+    ms64 = regional_physics(device, smi)
+    lap("d")
+    regional_cli(device)
+    lap("e")
+    regional_times(device, smi, launches, ms64)
+    lap("f")
+    print(f"[regional] phase 13 took {time.perf_counter() - t_phase:.1f} s ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()) + ")",
+          flush=True)
+
+
 def column_times(device):
     """`--column-times TREE`: the time a call of rows 1-4 and 6-10, with
     the host's time (device_ms) and on the device alone (profiled_ms), on
@@ -1424,6 +1749,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     timing = sys.argv[1:2] == ["--column-times"]
+    regional_only = sys.argv[1:2] == ["--regional"]
     sys.path.insert(0, os.path.abspath(sys.argv[2]) if timing else ROOT)
     try:
         import roms_tpu_torch  # noqa: F401
@@ -1432,7 +1758,7 @@ def main() -> int:
         print(f"chip_smoke: roms_tpu_torch is not importable beside this "
               f"script ({exc})", file=sys.stderr)
         return 2
-    for path in (ANCHOR, BENCH_FIXTURE):
+    for path in (ANCHOR, BENCH_FIXTURE, REGIONAL_FIXTURE):
         if not os.path.exists(path):
             print(f"chip_smoke: missing {path}", file=sys.stderr)
             return 2
@@ -1461,6 +1787,9 @@ def main() -> int:
                                        "spill")):
                 print(f"[build] {line.strip()}")
 
+        if regional_only:
+            regional_phase(device, smi)
+            return 0
         results = {}
         kernel_checks(results, device)
         main_path(device)
@@ -1475,6 +1804,7 @@ def main() -> int:
         launches = bench_long_run(device, name)
         profile(device, "benchmark")
         driver_phase(device, smi)
+        regional_phase(device, smi)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

@@ -1,9 +1,10 @@
 """Conversion between the JAX package's objects and the port's.
 
 The JAX side is handed over as plain Python and numpy: a ``roms_tpu``
-Config (a frozen dataclass, read field by field), and Grid/State as
-``dict[str, np.ndarray]`` (the caller does the ``np.asarray``).  This
-module imports no jax.
+Config (a frozen dataclass, read field by field), Grid/State as
+``dict[str, np.ndarray]`` (the caller does the ``np.asarray``), the
+open-boundary data ``bry`` as a dict of arrays or scalars, and point
+sources as the fields of a ``PointSources``.  This module imports no jax.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 from . import config as _config
 from .config import Config
 from .grid import Grid, torch_dtype
+from .ops.sources import PointSources
 from .state import State, TENSOR_FIELDS
 
 # nested frozen dataclasses of the reference Config, rebuilt as the port's
@@ -64,6 +66,28 @@ def state_from_numpy(cfg: Config, arrays: dict,
     dtype = torch_dtype(cfg)
     kw = {k: _tensor(arrays[k], dtype, device) for k in TENSOR_FIELDS}
     return State(time=float(arrays["time"]), iic=int(arrays["iic"]), **kw)
+
+
+def bry_from_numpy(cfg: Config, bry: dict,
+                   device=torch.device("cuda")) -> dict:
+    """Open-boundary data (ops/obc.py) from {key: array or scalar}: arrays
+    become tensors in the configuration's dtype, scalars stay floats."""
+    dtype = torch_dtype(cfg)
+    return {k: float(v) if np.ndim(v) == 0 else _tensor(v, dtype, device)
+            for k, v in bry.items()}
+
+
+def sources_from_numpy(cfg: Config, arrays: dict,
+                       device=torch.device("cuda")) -> PointSources:
+    """PointSources from {field: array} (the JAX PointSources' fields):
+    the indices as int64, the transports and tracer values in the
+    configuration's dtype."""
+    dtype = torch_dtype(cfg)
+    ints = ("isrc", "jsrc", "dsrc")
+    kw = {k: None if a is None else
+          _tensor(a, torch.int64 if k in ints else dtype, device)
+          for k, a in arrays.items()}
+    return PointSources(**kw)
 
 
 def state_to_numpy(state: State) -> dict:

@@ -4,11 +4,13 @@ views and other operations that launch nothing, plus one launch for each
 kernel-wrapper call (whose plain version then runs uncounted).  The
 momentum phase takes the chain it takes on the card.
 
-    python roms_tpu_torch/launch_count.py [--case upwelling|benchmark]
-                                          [--root CHECKOUT]
+    python roms_tpu_torch/launch_count.py [--case CASE] [--root CHECKOUT]
 
---case benchmark counts a BENCHMARK1 step at 64x32 instead of 512x64 (the
-count depends on N, not on the horizontal size), float32 as on the card.
+CASE is upwelling (the default), benchmark, kelvin, estuary or riverplume,
+float32 as on the card.  --case benchmark counts a BENCHMARK1 step at
+64x32 instead of 512x64 (the count depends on N, not on the horizontal
+size); the regional cases run at their published sizes, with their
+general fast loop, plain 3-D stages and GLS counted as stages.
 
 --root counts the roms_tpu_torch of another checkout (an older tree has
 fewer kernel wrappers; the ones it lacks are skipped).  Prints the count
@@ -43,12 +45,17 @@ WRAPPERS = {
 STAGES = {"stepping": ("set_vbc", "momentum_init", "rhs3d_momentum",
                        "uv3dmix2", "t3dmix2", "bulk_flux", "lmd_vmix",
                        "swfrac"),
-          "vgrid": ("set_depth",)}
+          "vgrid": ("set_depth",),
+          "ops.step2d": ("fast_loop",),
+          "ops.step3d_cuda": ("tracer_predictor_plain", "uv_corrector_plain",
+                              "tracer_corrector_plain"),
+          "ops.gls": ("gls_prestep", "gls_corstep")}
+REGIONAL = ("kelvin", "estuary", "riverplume")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--case", choices=("upwelling", "benchmark"),
+    ap.add_argument("--case", choices=("upwelling", "benchmark") + REGIONAL,
                     default="upwelling")
     ap.add_argument("--root", default=os.path.dirname(
         os.path.dirname(os.path.abspath(__file__))))
@@ -103,7 +110,12 @@ def main() -> int:
             if hasattr(mod, name):
                 setattr(mod, name, span(name, getattr(mod, name), False))
 
-    if args.case == "benchmark":
+    if args.case in REGIONAL:
+        from roms_tpu_torch.models import cases
+        cfg, grid, s, ffn = getattr(cases, args.case)(
+            getattr(cases, args.case + "_config")(dtype="float32"),
+            device="cpu")
+    elif args.case == "benchmark":
         from roms_tpu_torch.models import benchmark
         cfg, grid, s, ffn = benchmark.build(
             benchmark.make_config(Lm=64, Mm=32, dtype="float32"),

@@ -1,0 +1,267 @@
+"""Regional analytic cases with open boundaries, tides, rivers and GLS
+(counterpart of the KELVIN, ESTUARY_TEST and RIVERPLUME1 builders of
+``roms_tpu/models/cases.py``; ROMS/Include/<app>.h with the ana_grid,
+ana_initial and ana_*obc fixtures and the roms_<app>.in runtime values).
+
+Each case has a ``<case>_config(...)``, whose defaults are the published
+sizes, and a ``<case>(cfg=None, device=cuda)`` builder that returns
+(cfg, grid, state0, forcing_fn) with every tensor on `device`.  The
+forcing functions build their open-boundary dict ``bry`` or their
+``PointSources`` with torch on the grid's device.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from .. import constants as C
+from ..config import (Config, LBC, BC_CHAPMAN_EXPLICIT, BC_CLAMPED,
+                      BC_CLOSED, BC_GRADIENT, BC_RADIATION)
+from ..grid import build_grid, hc_of, torch_dtype
+from .. import vgrid
+from ..state import initial_state
+from ..ops import bc
+from ..ops.sources import PointSources
+
+
+def _build_flat(cfg, Xsize, Esize, f0, beta, depth, device):
+    return build_grid(cfg, Xsize, Esize, f0=f0, beta=beta,
+                      depth_fn=lambda x, y, i, j, c: depth + 0 * x,
+                      device=device)
+
+
+def _rest_z_r(cfg, grid):
+    """z_r at rest (zeta = 0)."""
+    z_r, _, _ = vgrid.set_depth(grid.h, torch.zeros_like(grid.h), hc_of(cfg),
+                                grid.sc_r, grid.Cs_r, grid.sc_w, grid.Cs_w,
+                                cfg.vtransform)
+    return z_r
+
+
+def _rest_state(cfg, grid, temp_fn, device, salt=None):
+    """A state at rest with temperature temp_fn(z_r) and salinity `salt`
+    (S0 when None); returns (state0, z_r)."""
+    z_r = _rest_z_r(cfg, grid)
+    temp = temp_fn(z_r)
+    fields = [bc.fill_halo(cfg, temp)]
+    if cfg.ntracers >= 2:
+        s = salt if salt is not None else torch.full_like(temp, cfg.S0)
+        fields.append(bc.fill_halo(cfg, s))
+    return initial_state(cfg, device=device,
+                         t=torch.stack(fields, dim=0)), z_r
+
+
+# ---------------------------------------------------------------------------
+# KELVIN
+# ---------------------------------------------------------------------------
+def kelvin_config(Lm: int = 50, Mm: int = 30, N: int = 10, dt: float = 900.0,
+                  ndtfast: int = 60, dtype: str = "float64") -> Config:
+    """KELVIN (kelvin.h; roms_kelvin.in): west boundary clamped to an M2
+    Kelvin wave, east radiation, closed north and south."""
+    return Config(
+        name="kelvin", Lm=Lm, Mm=Mm, N=N, ntracers=2,
+        ew_periodic=False, ns_periodic=False,
+        dt=dt, ndtfast=ndtfast,
+        uv_vis2=False, visc2=0.0, tnu2=(20.0, 0.0),
+        t_hadv=("U3", "U3"), t_vadv=("C4", "C4"),
+        akv_bak=1.0e-5, akt_bak=(1.0e-6, 1.0e-6),
+        bottom_drag=None,
+        eos="linear", R0=1027.0, T0=14.0, S0=35.0, Tcoef=1.7e-4,
+        Scoef=0.0,
+        theta_s=3.0, theta_b=0.0, tcline=25.0,
+        lbc_zeta=LBC(BC_CLAMPED, BC_CLOSED, BC_RADIATION, BC_CLOSED),
+        lbc_ubar=LBC(BC_CLAMPED, BC_CLOSED, BC_RADIATION, BC_CLOSED),
+        lbc_vbar=LBC(BC_CLAMPED, BC_CLOSED, BC_RADIATION, BC_CLOSED),
+        lbc_u=LBC(BC_RADIATION, BC_GRADIENT, BC_RADIATION, BC_GRADIENT),
+        lbc_v=LBC(BC_RADIATION, BC_GRADIENT, BC_RADIATION, BC_GRADIENT),
+        lbc_t=LBC(BC_RADIATION, BC_GRADIENT, BC_RADIATION, BC_GRADIENT),
+        dtype=dtype)
+
+
+def kelvin(cfg: Config | None = None,
+           device: torch.device | str = torch.device("cuda")):
+    """KELVIN: coastal Kelvin wave with radiation open boundaries, a flat
+    100 m f-plane basin of 20 km cells (ana_grid.h), at rest with T0/S0."""
+    cfg = cfg or kelvin_config()
+    grid, cfg = _build_flat(cfg, 20e3 * cfg.Lm, 20e3 * cfg.Mm, 1.0e-4, 0.0,
+                            100.0, device)
+    state0, _ = _rest_state(cfg, grid,
+                            lambda z: torch.full_like(z, cfg.T0), device)
+    f0, depth, zeta0 = 1.0e-4, 100.0, 1.0
+    omega_m2 = 2.0 * math.pi / (12.42 * 3600.0)
+    cph = math.sqrt(C.g * depth)
+
+    def forcing_fn(cfg, grid, time):
+        # western boundary: analytic Kelvin wave (ana_fsobc/ana_m2obc)
+        y_west = grid.yr[:, cfg.halo]
+        zw = zeta0 * torch.exp(-f0 * y_west / cph) * \
+            math.cos(omega_m2 * time)
+        ubw = zw * cph / depth
+        return {"bry": {"zeta_west": zw, "ubar_west": ubw}}
+
+    return cfg, grid, state0, forcing_fn
+
+
+# ---------------------------------------------------------------------------
+# ESTUARY_TEST
+# ---------------------------------------------------------------------------
+def estuary_config(Lm: int = 200, Mm: int = 3, N: int = 20, dt: float = 30.0,
+                   ndtfast: int = 20, dtype: str = "float64") -> Config:
+    """ESTUARY_TEST (estuary_test.h; roms_estuary_test.in): Chapman and
+    clamped tidal boundaries, GLS k-epsilon, logarithmic drag, HSIMT."""
+    return Config(
+        name="estuary", Lm=Lm, Mm=Mm, N=N, ntracers=2,
+        ew_periodic=False, ns_periodic=False,
+        dt=dt, ndtfast=ndtfast,
+        uv_vis2=False, visc2=0.0, tnu2=(0.0, 0.0),
+        t_hadv=("HSIMT", "HSIMT"), t_vadv=("HSIMT", "HSIMT"),
+        splines_vdiff=True, splines_vvisc=True,
+        akv_bak=5.0e-6, akt_bak=(5.0e-6, 5.0e-6),
+        bottom_drag="logarithmic", zob=0.005,
+        vmix="gls",
+        eos="linear", R0=1027.0, T0=10.0, S0=30.0,
+        Tcoef=1.7e-4, Scoef=7.6e-4,
+        theta_s=0.0, theta_b=0.0, tcline=1e16, vtransform=1,
+        vstretching=1,
+        lbc_zeta=LBC(BC_CHAPMAN_EXPLICIT, BC_CLOSED, BC_GRADIENT,
+                     BC_CLOSED),
+        lbc_ubar=LBC(BC_CLAMPED, BC_CLOSED, BC_CLAMPED, BC_CLOSED),
+        lbc_vbar=LBC(BC_CLAMPED, BC_CLOSED, BC_CLAMPED, BC_CLOSED),
+        lbc_u=LBC(BC_GRADIENT, BC_CLOSED, BC_GRADIENT, BC_CLOSED),
+        lbc_v=LBC(BC_GRADIENT, BC_CLOSED, BC_GRADIENT, BC_CLOSED),
+        lbc_t=LBC(BC_RADIATION, BC_CLOSED, BC_CLAMPED, BC_CLOSED),
+        dtype=dtype)
+
+
+def estuary(cfg: Config | None = None,
+            device: torch.device | str = torch.device("cuda")):
+    """ESTUARY_TEST: tidal salt-wedge estuary.  Linear 10 -> 5 m depth over
+    100 km (ana_grid.h:943-948), salinity 30 in the west grading to river
+    water in the east (ana_initial.h:625-641); M2 tide and the river
+    outflow imposed at the west (ana_fsobc.h:106-113, ana_m2obc.h:127-147,
+    the flux over the rest-depth cross-section as in the JAX case), the
+    river inflow at the east (ana_m2obc.h:150-167, ana_tobc.h:98-112)."""
+    cfg = cfg or estuary_config()
+    Xsize = 100.0e3
+    Lm, Mm = cfg.Lm, cfg.Mm
+
+    def depth_fn(x, y, i, j, c):
+        return 5.0 + (Xsize - x) / Xsize * 5.0
+
+    grid, cfg = build_grid(cfg, Xsize, 300.0, f0=0.0, beta=0.0,
+                           depth_fn=depth_fn, device=device)
+    z_r = _rest_z_r(cfg, grid)
+    xr3 = grid.xr.expand_as(z_r)
+    salt = torch.where(xr3 <= 30.0e3, torch.full_like(z_r, 30.0),
+                       torch.where(xr3 <= 80.0e3,
+                                   (80.0e3 - xr3) / 50.0e3 * 30.0,
+                                   torch.zeros_like(z_r)))
+    t0 = torch.stack([bc.fill_halo(cfg, torch.full_like(z_r, 10.0)),
+                      bc.fill_halo(cfg, salt)])
+    state0 = initial_state(cfg, device=device, t=t0)
+
+    H = cfg.halo
+    ny = cfg.ny_tot
+    # boundary cross-sections at rest
+    h_np = grid.h.cpu().numpy()
+    on_np = 1.0 / grid.pn.cpu().numpy()
+    area_w = float((h_np[H:H + Mm, H] * on_np[H:H + Mm, H]).sum())
+    area_e = float((h_np[H:H + Mm, H + Lm - 1] *
+                    on_np[H:H + Mm, H + Lm - 1]).sum())
+    riv_flow = 0.08 * 300.0 * 5.0
+    tid_flow = 0.40 * 300.0 * 10.0
+    kw = dict(dtype=torch_dtype(cfg), device=grid.h.device)
+
+    def forcing_fn(cfg_, grid_, time):
+        pha = 2.0 * math.pi * time / (12.0 * 3600.0)
+        ones = torch.ones((ny,), **kw)
+        zeros = torch.zeros((ny,), **kw)
+        zw = math.sin(pha) * ones
+        ubw = ((-tid_flow * math.sin(pha) - riv_flow) / area_w) * ones
+        ube = (-riv_flow / area_e) * ones
+        t_east = torch.stack([torch.full((cfg_.N, ny), 10.0, **kw),
+                              torch.zeros((cfg_.N, ny), **kw)])
+        return {"bry": {"zeta_west": zw, "ubar_west": ubw,
+                        "vbar_west": zeros, "ubar_east": ube,
+                        "vbar_east": zeros.clone(), "t_east": t_east}}
+
+    return cfg, grid, state0, forcing_fn
+
+
+# ---------------------------------------------------------------------------
+# RIVERPLUME1
+# ---------------------------------------------------------------------------
+def riverplume_config(Lm: int = 39, Mm: int = 67, N: int = 13,
+                      dt: float = 120.0, ndtfast: int = 20,
+                      dtype: str = "float64") -> Config:
+    """RIVERPLUME1 (riverplume1.h; roms_riverplume1.in): JM95, KPP with its
+    bottom layer, rotated harmonic tracer mixing, quadratic drag."""
+    clo = LBC()
+    return Config(
+        name="riverplume", Lm=Lm, Mm=Mm, N=N, ntracers=2,
+        ew_periodic=False, ns_periodic=False,
+        dt=dt, ndtfast=ndtfast,
+        uv_vis2=True, visc2=5.0,
+        ts_dif2=True, tnu2=(5.0, 5.0), ts_mix_geo=True,
+        t_hadv=("U3", "U3"), t_vadv=("C4", "C4"),
+        splines_vdiff=True, splines_vvisc=True,
+        akv_bak=1.0e-5, akt_bak=(1.0e-6, 1.0e-6),
+        bottom_drag="quadratic", rdrg2=3.0e-3,
+        vmix="kpp", kpp_bottom=True,
+        eos="jm95", T0=14.0, S0=32.0,
+        theta_s=3.0, theta_b=0.0, tcline=25.0, vtransform=1,
+        vstretching=1,
+        lbc_zeta=clo, lbc_ubar=clo, lbc_vbar=clo, lbc_u=clo, lbc_v=clo,
+        lbc_t=clo, dtype=dtype)
+
+
+def riverplume(cfg: Config | None = None,
+               device: torch.device | str = torch.device("cuda")):
+    """RIVERPLUME1: river discharge into a rotating coastal basin with land
+    masking.  Shelf sloping from 15 m at the coast to 150 m
+    (ana_grid.h:1001-1010); land strip i <= 5 with a one-cell channel at
+    j = Mm-17 (ana_mask.h:175-188); a river source Qbar = 1500 m3/s at the
+    u-face (i=2, j=50) with T=10, S=0 (ana_psource.h:156-162,340-348,
+    488-503; the reference's 10 vertical-influx rain cells are not
+    modelled, as in the JAX case)."""
+    cfg = cfg or riverplume_config()
+
+    def depth_fn(x, y, i, j, c):
+        return np.where(i <= 5, 15.0,
+                        150.0 + (c.Lm - i) * (15.0 - 150.0) /
+                        (c.Lm - 6.0))
+
+    def mask_fn(x, y, i, j, c):
+        land = (i <= 5) & ((j <= c.Mm - 18) | (j >= c.Mm - 16))
+        return np.where(land, 0.0, 1.0)
+
+    grid, cfg = build_grid(cfg, 58.5e3, 201.0e3, f0=1.0e-4, beta=0.0,
+                           depth_fn=depth_fn, mask_fn=mask_fn,
+                           device=device)
+    z_r = _rest_z_r(cfg, grid)
+    k3 = torch.arange(1, cfg.N + 1, dtype=z_r.dtype,
+                      device=z_r.device)[:, None, None]
+    temp = cfg.T0 + 0.01 * k3 + 0.0 * z_r
+    salt = torch.full_like(temp, cfg.S0)
+    state0 = initial_state(cfg, device=device, t=torch.stack(
+        [bc.fill_halo(cfg, temp), bc.fill_halo(cfg, salt)]))
+
+    H = cfg.halo
+    kw = dict(dtype=torch_dtype(cfg), device=grid.h.device)
+    idx = dict(dtype=torch.int64, device=grid.h.device)
+    src = PointSources(
+        isrc=torch.tensor([2 + H - 1], **idx),
+        jsrc=torch.tensor([50 + H - 1], **idx),
+        dsrc=torch.tensor([0], **idx),
+        Qbar=torch.tensor([1500.0], **kw),
+        Qshape=torch.full((cfg.N, 1), 1.0 / cfg.N, **kw),
+        Tsrc=torch.stack([torch.full((cfg.N, 1), 10.0, **kw),
+                          torch.zeros((cfg.N, 1), **kw)]))
+
+    def forcing_fn(cfg_, grid_, time):
+        return {"sources": src}
+
+    return cfg, grid, state0, forcing_fn

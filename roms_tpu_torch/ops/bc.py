@@ -1,8 +1,9 @@
 """Lateral boundary conditions and halo filling.
 
 Counterpart of ``roms_tpu/ops/bc.py`` for one device: the periodic, closed
-and gradient kinds.  Open-boundary kinds (radiation, Chapman, Flather,
-clamped; ``roms_tpu/ops/obc.py``) raise NotImplementedError.
+and gradient kinds, and the clamped rho-point ring from a `clamp` dict.
+The open-boundary kinds leave their sides to ``ops/obc.py``, which the
+caller runs after these.
 
 Index map (ops/stencil.py): padded array index a = roms_index + H - 1.
 Boundary rho ring: west a=H-1, east a=H+Lm; u-wall west a=H, east a=H+Lm;
@@ -14,13 +15,12 @@ from __future__ import annotations
 
 import torch
 
-from ..config import (Config, BC_PERIODIC, BC_CLOSED, BC_GRADIENT,
+from ..config import (Config, BC_CLOSED, BC_GRADIENT,
                       BC_CLAMPED, BC_RADIATION, BC_CHAPMAN_EXPLICIT,
                       BC_CHAPMAN_IMPLICIT, BC_FLATHER, LBC)
 
 _ADVANCED = {BC_RADIATION, BC_CHAPMAN_EXPLICIT, BC_CHAPMAN_IMPLICIT,
              BC_FLATHER, BC_CLAMPED}
-_SIMPLE = {BC_PERIODIC, BC_CLOSED, BC_GRADIENT}
 _SIDES = ("west", "south", "east", "north")
 
 
@@ -28,17 +28,6 @@ def has_advanced(lbc: LBC) -> bool:
     """True when any side uses an open BC that needs the previous time
     level or external data (``roms_tpu/ops/obc.py``)."""
     return any(getattr(lbc, s) in _ADVANCED for s in _SIDES)
-
-
-def _check_simple(cfg: Config, lbc: LBC):
-    for side in _SIDES:
-        periodic = cfg.ew_periodic if side in ("west", "east") \
-            else cfg.ns_periodic
-        kind = getattr(lbc, side)
-        if not periodic and kind not in _SIMPLE:
-            raise NotImplementedError(
-                f"lateral BC {kind!r} on the {side} side (open boundaries, "
-                "ops/obc.py, are not ported)")
 
 
 # ---------------------------------------------------------------------------
@@ -96,33 +85,42 @@ def add_row(f, a_dst, delta):
     return out
 
 
-def apply_bc_rho(cfg: Config, lbc: LBC, f, mask=None):
+def apply_bc_rho(cfg: Config, lbc: LBC, f, mask=None, clamp=None,
+                 fill: bool = True):
     """BCs for a rho-point field (zetabc.F closed == zero gradient onto
-    the boundary ring), then mask, then halo fill."""
-    _check_simple(cfg, lbc)
+    the boundary ring; clamped sides take clamp[side] when a dict `clamp`
+    is given), then mask, then halo fill unless fill=False."""
     H = cfg.halo
     L, M = cfg.Lm, cfg.Mm
     grad = (BC_CLOSED, BC_GRADIENT)
     if not cfg.ew_periodic:
         if lbc.west in grad:
             f = set_col(f, H - 1, f[..., :, H])
+        elif lbc.west == BC_CLAMPED and clamp is not None:
+            f = set_col(f, H - 1, clamp["west"])
         if lbc.east in grad:
             f = set_col(f, H + L, f[..., :, H + L - 1])
+        elif lbc.east == BC_CLAMPED and clamp is not None:
+            f = set_col(f, H + L, clamp["east"])
     if not cfg.ns_periodic:
         if lbc.south in grad:
             f = set_row(f, H - 1, f[..., H, :])
+        elif lbc.south == BC_CLAMPED and clamp is not None:
+            f = set_row(f, H - 1, clamp["south"])
         if lbc.north in grad:
             f = set_row(f, H + M, f[..., H + M - 1, :])
+        elif lbc.north == BC_CLAMPED and clamp is not None:
+            f = set_row(f, H + M, clamp["north"])
     if mask is not None:
         f = f * mask
-    return fill_halo(cfg, f)
+    return fill_halo(cfg, f) if fill else f
 
 
-def apply_bc_u(cfg: Config, lbc: LBC, f, gamma2: float = 1.0, mask=None):
+def apply_bc_u(cfg: Config, lbc: LBC, f, gamma2: float = 1.0, mask=None,
+               fill: bool = True):
     """BCs for a u-point field (u2dbc_im.F): west/east normal (closed ->
     u=0 on the wall face), south/north tangential (closed -> gamma2 slip).
     The write order decides the corners and follows the reference."""
-    _check_simple(cfg, lbc)
     H = cfg.halo
     L, M = cfg.Lm, cfg.Mm
     if not cfg.ew_periodic:
@@ -148,13 +146,13 @@ def apply_bc_u(cfg: Config, lbc: LBC, f, gamma2: float = 1.0, mask=None):
             f = set_row(f, H + M, f[..., H + M - 1, :])
     if mask is not None:
         f = f * mask
-    return fill_halo(cfg, f)
+    return fill_halo(cfg, f) if fill else f
 
 
-def apply_bc_v(cfg: Config, lbc: LBC, f, gamma2: float = 1.0, mask=None):
+def apply_bc_v(cfg: Config, lbc: LBC, f, gamma2: float = 1.0, mask=None,
+               fill: bool = True):
     """BCs for a v-point field (v2dbc_im.F): south/north normal, west/east
     tangential."""
-    _check_simple(cfg, lbc)
     H = cfg.halo
     L, M = cfg.Lm, cfg.Mm
     if not cfg.ns_periodic:
@@ -179,7 +177,7 @@ def apply_bc_v(cfg: Config, lbc: LBC, f, gamma2: float = 1.0, mask=None):
             f = set_col(f, H + L, f[..., :, H + L - 1])
     if mask is not None:
         f = f * mask
-    return fill_halo(cfg, f)
+    return fill_halo(cfg, f) if fill else f
 
 
 # ---------------------------------------------------------------------------

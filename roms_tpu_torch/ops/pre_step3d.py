@@ -23,11 +23,11 @@ def pre_step3d(cfg: Config, grid: Grid, iic: int, t, t_prev, u, v,
                Hz, z_r, Huon, Hvom, W, Akt,
                sustr, svstr, bustr, bvstr, stflx, btflx,
                ru_prev, ru_prev2, rv_prev, rv_prev2,
-               srflx=None, ghats=None, swdk_w=None):
+               srflx=None, ghats=None, swdk_w=None, sources=None):
     """Returns (t3, t_nnew, u_nnew, v_nnew)."""
     t3, t_nnew = tracer_phase(cfg, grid, iic, t, t_prev, Hz, Huon, Hvom, W,
                               Akt, stflx, btflx, srflx=srflx, ghats=ghats,
-                              swdk_w=swdk_w)
+                              swdk_w=swdk_w, sources=sources)
     a1, a2 = ab3_start_coefs(iic)
     u_nnew, v_nnew = momentum_init(
         cfg, grid.pm, grid.pn, a1, a2, u, v, Hz, ru_prev, ru_prev2, rv_prev,
@@ -37,9 +37,10 @@ def pre_step3d(cfg: Config, grid: Grid, iic: int, t, t_prev, u, v,
 
 def tracer_phase(cfg: Config, grid: Grid, iic: int, t, t_prev, Hz, Huon,
                  Hvom, W, Akt, stflx, btflx, srflx=None, ghats=None,
-                 swdk_w=None):
+                 swdk_w=None, sources=None):
     """The tracer loop of pre_step3d (pre_step3d.F:336-598): returns the
-    stacks (t3, t_nnew)."""
+    stacks (t3, t_nnew).  `sources` (ops/sources.PointSources) sets the
+    advective fluxes at river faces."""
     pmn = grid.pm * grid.pn
     t3_list = []
     tn_list = []
@@ -51,7 +52,7 @@ def tracer_phase(cfg: Config, grid: Grid, iic: int, t, t_prev, Hz, Huon,
             ghats[itrc] if (ghats is not None
                             and itrc < ghats.shape[0]) else None,
             srflx if itrc == 0 else None, swdk_w,
-            stflx[itrc], btflx[itrc])
+            stflx[itrc], btflx[itrc], sources=sources)
         t3_list.append(t3_i)
         tn_list.append(tn_i)
     t3 = torch.stack(t3_list, dim=0) if t3_list else t
@@ -60,32 +61,45 @@ def tracer_phase(cfg: Config, grid: Grid, iic: int, t, t_prev, Hz, Huon,
 
 
 def predictor_coefs(cfg: Config, iic: int, itrc: int):
-    """The iic-dependent LF/AM3 predictor weights (cff, cff1, cff2, cffv)."""
+    """The iic-dependent LF/AM3 predictor weights (cff, cff1, cff2, cffv);
+    gamma is 1/2 for an HSIMT scheme, 1/6 otherwise."""
     dt = cfg.dt
     hscheme = cfg.t_hadv[itrc]
     vscheme = cfg.t_vadv[itrc]
-    if "HSIMT" in (hscheme, vscheme) or "MPDATA" in (hscheme, vscheme):
+    if "MPDATA" in (hscheme, vscheme):
         raise NotImplementedError(f"tracer advection {hscheme}/{vscheme}")
-    gam = 1.0 / 6.0
+    gam_h = 0.5 if hscheme == "HSIMT" else 1.0 / 6.0
+    gam_v = 0.5 if vscheme == "HSIMT" else 1.0 / 6.0
     if iic == 0:
         return 0.5 * dt, 1.0, 0.0, 0.5 * dt
-    return (1.0 - gam) * dt, 0.5 + gam, 0.5 - gam, (1.0 - gam) * dt
+    return (1.0 - gam_h) * dt, 0.5 + gam_h, 0.5 - gam_h, (1.0 - gam_v) * dt
 
 
 def tracer_predictor(cfg: Config, pmn, itrc: int, coefs, q, q_prev,
                      Hz, Huon, Hvom, W, Akt_l, ghats_i, srflx, swdk_w,
-                     stflx_i, btflx_i):
+                     stflx_i, btflx_i, sources=None):
     """One tracer's LF-AM3 predictor (pre_step3d.F:336-598 loop body):
-    returns (t3_i, t_nnew_i)."""
+    returns (t3_i, t_nnew_i).  HSIMT takes first-order upstream fluxes
+    here (pre_step3d.F:76-77, 98-100)."""
     dt = cfg.dt
     cff, cff1, cff2, cffv = coefs
+    hscheme = cfg.t_hadv[itrc]
+    vscheme = cfg.t_vadv[itrc]
 
-    FX, FE = hadv_fluxes(cfg, cfg.t_hadv[itrc], q, Huon, Hvom)
+    FX, FE = hadv_fluxes(cfg, "U1" if hscheme == "HSIMT" else hscheme, q,
+                         Huon, Hvom)
+    if sources is not None:
+        # river faces carry Huon*Tsrc, not the advective stencil
+        # (pre_step3d.F:530-548 LuvSrc)
+        from .sources import apply_tracer_flux_sources
+        FX, FE = apply_tracer_flux_sources(sources, itrc, FX, FE, Huon,
+                                           Hvom)
     t3 = Hz * (cff1 * q + cff2 * q_prev) - \
         cff * pmn * ((ip1(FX) - FX) + (jp1(FE) - FE))
 
     # vertical advection + artificial continuity (pre_step3d.F:556-598)
-    FC = vadv_flux(cfg.t_vadv[itrc], q, W, Hz, "predictor")
+    FC = vadv_flux("U1" if vscheme == "HSIMT" else vscheme, q, W, Hz,
+                   "predictor")
     DC = 1.0 / (Hz - cffv * pmn *
                 ((ip1(Huon) - Huon) + (jp1(Hvom) - Hvom) +
                  (W[1:] - W[:-1])))

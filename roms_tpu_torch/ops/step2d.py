@@ -3,10 +3,12 @@
 
 Fast2DState carries the rotating storage of the reference's fast loop as
 named fields.  depth_fluxes, _rhs_momentum and _step_momentum are the
-building blocks of the fast loop; the loop itself, on the configuration
-subset its kernel covers, lives beside that kernel in ops/step2d_cuda.py.
-The general loop (wetting-drying, open boundaries, sources, climatology)
-is not ported.
+building blocks of the fast loop.  ``fast_loop`` is the general plain loop
+(open boundaries, volume conservation, point sources), which the step
+takes where the fused kernel of ops/step2d_cuda.py does not apply, as the
+JAX step takes ``roms_tpu/ops/step2d.py::fast_loop`` where its Pallas
+kernel does not.  Wetting-drying, climatology nudging and the Stokes drift
+raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import torch
 from .. import constants as C
 from ..config import Config
 from ..grid import Grid
-from . import bc
+from . import bc, obc
 from .stencil import ip1, im1, jp1, jm1, at_u, at_v, at_p
 
 FS_FIELDS = ("zeta_n", "zeta_nm1", "ubar_n", "ubar_nm1", "vbar_n",
@@ -187,3 +189,225 @@ def _step_momentum(cfg: Config, grid: Grid, u_kstp, v_kstp, Dstp, Dnew,
         (Dnew + jm1(Dnew))
     vbar_new = vbar_new * grid.vmask
     return ubar_new, vbar_new
+
+
+def ab3_coupling_weights(iic: int):
+    """(w_now, w_m1, w_m2) of the first predictor's 2-D/3-D coupling
+    (step2d_LF_AM3.h:1868-1990), chosen on the host from the step count."""
+    if iic == 0:
+        return 1.0, 0.0, 0.0
+    if iic == 1:
+        return 1.5, 0.5, 0.0
+    return 23.0 / 12.0, 16.0 / 12.0, 5.0 / 12.0
+
+
+def fast_loop(cfg: Config, grid: Grid, fs: Fast2DState, rufrc=None,
+              rvfrc=None, ru0_nm1=None, ru0_nm2=None, rv0_nm1=None,
+              rv0_nm2=None, iic: int = 0, bry=None, sources=None, clm=None,
+              us2d=None):
+    """The full fast loop of one slow step (SOLVE3D mode): the peeled FE
+    predictor and first corrector, nfast-1 LF/AM3 predictor/corrector
+    pairs, and the auxiliary averaging step (roms_tpu/ops/step2d.py:
+    271-632; step2d_LF_AM3.h).
+
+    rufrc/rvfrc are the depth-integrated slow RHS; the first predictor
+    turns them into forcing increments with the AB3-like extrapolation
+    against the (ru0_nm1, ru0_nm2) history (step2d_LF_AM3.h:1868-1990);
+    iic is the host step count that picks the start-up weights.  Open
+    boundaries go through obc.zetabc/u2dbc/v2dbc after the simple kinds,
+    cfg.volcons through obc.obc_volcons, and `sources` through
+    sources.apply_ubar_sources.  Returns (fs, rufrc_c, rvfrc_c); every
+    tensor is new, so the caller's fs, bry and sources are unchanged."""
+    if cfg.wetdry:
+        raise NotImplementedError("the general fast loop: wetting-drying "
+                                  "(WET_DRY)")
+    if clm is not None:
+        raise NotImplementedError("the general fast loop: climatology "
+                                  "nudging (clm)")
+    if us2d is not None or cfg.nearshore is not None:
+        raise NotImplementedError("the general fast loop: Stokes drift "
+                                  "(NEARSHORE)")
+    dtfast = cfg.dtfast
+    h = grid.h
+    pmn = grid.pm * grid.pn
+    w1, w2 = grid.weight1, grid.weight2
+    nfast = cfg.nfast
+    zero = torch.zeros_like(fs.zeta_n)
+
+    adv_z = bc.has_advanced(cfg.lbc_zeta)
+    adv_u = bc.has_advanced(cfg.lbc_ubar)
+    adv_v = bc.has_advanced(cfg.lbc_vbar)
+
+    def zbc(z_new, z_know, dt2d):
+        z_new = bc.apply_bc_rho(cfg, cfg.lbc_zeta, z_new, mask=grid.rmask)
+        if adv_z:
+            z_new = bc.fill_halo(cfg, obc.zetabc(
+                cfg, grid, cfg.lbc_zeta, z_know, z_new, dt2d, bry))
+        return z_new
+
+    def ubc(u_new, u_know, z_know, dt2d, z_new, v_know):
+        u_new = bc.apply_bc_u(cfg, cfg.lbc_ubar, u_new, gamma2=cfg.gamma2,
+                              mask=grid.umask)
+        if adv_u:
+            u_new = bc.fill_halo(cfg, obc.u2dbc(
+                cfg, grid, cfg.lbc_ubar, u_know, u_new, z_know, dt2d, bry,
+                z_kout=z_new, vb_know=v_know))
+        return u_new
+
+    def vbc(v_new, v_know, z_know, dt2d, z_new, u_know):
+        v_new = bc.apply_bc_v(cfg, cfg.lbc_vbar, v_new, gamma2=cfg.gamma2,
+                              mask=grid.vmask)
+        if adv_v:
+            v_new = bc.fill_halo(cfg, obc.v2dbc(
+                cfg, grid, cfg.lbc_vbar, v_know, v_new, z_know, dt2d, bry,
+                z_kout=z_new, ub_know=u_know))
+        return v_new
+
+    def srcs(u_new, v_new, z_new):
+        if cfg.volcons:
+            u_new, v_new = obc.obc_volcons(cfg, grid, u_new, v_new, z_new,
+                                           set(cfg.volcons))
+            u_new = bc.fill_halo(cfg, u_new)
+            v_new = bc.fill_halo(cfg, v_new)
+        if sources is None:
+            return u_new, v_new
+        from .sources import apply_ubar_sources
+        u_new, v_new = apply_ubar_sources(sources, u_new, v_new, z_new,
+                                          grid.h, grid.on_u, grid.om_v)
+        return bc.fill_halo(cfg, u_new), bc.fill_halo(cfg, v_new)
+
+    if rufrc is None:
+        rufrc = rvfrc = zero
+        ru0_nm1 = ru0_nm2 = rv0_nm1 = rv0_nm2 = zero
+
+    # ================= fast step 1 (peeled: FE predictor) =================
+    Drhs, DUon, DVom = depth_fluxes(grid, fs.zeta_n, fs.ubar_n, fs.vbar_n)
+    # averaging reset (:611-634); weight(2,iif+1) with iif=1 -> w2[1]
+    cff2 = (-1.0 / 12.0) * w2[1]
+    fs = fs.replace(Zt_avg1=zero, DU_avg1=zero, DV_avg1=zero,
+                    DU_avg2=cff2 * DUon, DV_avg2=cff2 * DVom)
+
+    rhs_zeta = (DUon - ip1(DUon)) + (DVom - jp1(DVom))
+    zeta_new = (fs.zeta_n + pmn * dtfast * rhs_zeta) * grid.rmask
+    Dnew = zeta_new + h
+    zwrk = 0.5 * (fs.zeta_n + zeta_new)
+    zeta_p = zbc(zeta_new, fs.zeta_n, dtfast)
+
+    rhs_ubar, rhs_vbar = _rhs_momentum(cfg, grid, fs.ubar_n, fs.vbar_n,
+                                       Drhs, DUon, DVom, zwrk, zwrk * zwrk)
+
+    # --- 2D-3D coupling on the first predictor (:1868-1990) ---
+    rufrc_c = rufrc - rhs_ubar
+    rvfrc_c = rvfrc - rhs_vbar
+    w_now, w_m1, w_m2 = ab3_coupling_weights(iic)
+    rhs_ubar = rhs_ubar + w_now * rufrc_c - w_m1 * ru0_nm1 + w_m2 * ru0_nm2
+    rhs_vbar = rhs_vbar + w_now * rvfrc_c - w_m1 * rv0_nm1 + w_m2 * rv0_nm2
+
+    # momentum FE step (:2104-2140): cff1 = 0.5*dtfast
+    ubar_p, vbar_p = _step_momentum(
+        cfg, grid, fs.ubar_n, fs.vbar_n, fs.zeta_n + h, Dnew,
+        0.5 * dtfast * rhs_ubar, 0.5 * dtfast * rhs_vbar)
+    ubar_p = ubc(ubar_p, fs.ubar_n, fs.zeta_n, dtfast, zeta_p, fs.vbar_n)
+    vbar_p = vbc(vbar_p, fs.vbar_n, fs.zeta_n, dtfast, zeta_p, fs.ubar_n)
+    ubar_p, vbar_p = srcs(ubar_p, vbar_p, zeta_p)
+    fs = fs.replace(
+        rzeta_nm1=fs.rzeta_n, rzeta_n=bc.fill_halo(cfg, rhs_zeta),
+        rubar_nm1=fs.rubar_n, rubar_n=rhs_ubar,
+        rvbar_nm1=fs.rvbar_n, rvbar_n=rhs_vbar)
+
+    def corrector(i, fs, zeta_p, ubar_p, vbar_p, first: bool):
+        Drhs, DUon, DVom = depth_fluxes(grid, zeta_p, ubar_p, vbar_p)
+        # averaging, corrector branch (:688-713): weight(2,iif) -> w2[i-1]
+        cff2 = w2[i - 1] if first else (5.0 / 12.0) * w2[i - 1]
+        fs = fs.replace(DU_avg2=fs.DU_avg2 + cff2 * DUon,
+                        DV_avg2=fs.DV_avg2 + cff2 * DVom)
+
+        rhs_zeta = (DUon - ip1(DUon)) + (DVom - jp1(DVom))
+        c1 = dtfast * 5.0 / 12.0
+        c2 = dtfast * 8.0 / 12.0
+        c3 = dtfast * 1.0 / 12.0
+        zeta_new = (fs.zeta_n + pmn * (c1 * rhs_zeta + c2 * fs.rzeta_n -
+                                       c3 * fs.rzeta_nm1)) * grid.rmask
+        Dnew = zeta_new + h
+        cff4 = 2.0 / 5.0
+        zwrk = (1.0 - cff4) * zeta_new + cff4 * zeta_p
+        zeta_new = zbc(zeta_new, fs.zeta_n, dtfast)
+
+        rhs_ubar, rhs_vbar = _rhs_momentum(cfg, grid, ubar_p, vbar_p, Drhs,
+                                           DUon, DVom, zwrk, zwrk * zwrk)
+        rhs_ubar = rhs_ubar + rufrc_c
+        rhs_vbar = rhs_vbar + rvfrc_c
+
+        cm1 = 0.5 * dtfast * 5.0 / 12.0
+        cm2 = 0.5 * dtfast * 8.0 / 12.0
+        cm3 = 0.5 * dtfast * 1.0 / 12.0
+        ubar_new, vbar_new = _step_momentum(
+            cfg, grid, fs.ubar_n, fs.vbar_n, fs.zeta_n + h, Dnew,
+            cm1 * rhs_ubar + cm2 * fs.rubar_n - cm3 * fs.rubar_nm1,
+            cm1 * rhs_vbar + cm2 * fs.rvbar_n - cm3 * fs.rvbar_nm1)
+        ubar_new = ubc(ubar_new, fs.ubar_n, fs.zeta_n, dtfast, zeta_new,
+                       fs.vbar_n)
+        vbar_new = vbc(vbar_new, fs.vbar_n, fs.zeta_n, dtfast, zeta_new,
+                       fs.ubar_n)
+        ubar_new, vbar_new = srcs(ubar_new, vbar_new, zeta_new)
+        return fs.replace(
+            zeta_nm1=fs.zeta_n, zeta_n=zeta_new,
+            ubar_nm1=fs.ubar_n, ubar_n=ubar_new,
+            vbar_nm1=fs.vbar_n, vbar_n=vbar_new)
+
+    fs = corrector(1, fs, zeta_p, ubar_p, vbar_p, True)
+
+    # ============== fast steps 2..nfast (LF / AM3) ==============
+    for i in range(2, nfast + 1):
+        Drhs, DUon, DVom = depth_fluxes(grid, fs.zeta_n, fs.ubar_n,
+                                        fs.vbar_n)
+        cff1 = w1[i - 2]                                  # weight(1,iif-1)
+        cff2 = (8.0 / 12.0) * w2[i - 1] - (1.0 / 12.0) * w2[i]
+        fs = fs.replace(
+            Zt_avg1=fs.Zt_avg1 + cff1 * fs.zeta_n,
+            DU_avg1=fs.DU_avg1 + cff1 * DUon,
+            DV_avg1=fs.DV_avg1 + cff1 * DVom,
+            DU_avg2=fs.DU_avg2 + cff2 * DUon,
+            DV_avg2=fs.DV_avg2 + cff2 * DVom)
+
+        rhs_zeta = (DUon - ip1(DUon)) + (DVom - jp1(DVom))
+        zeta_new = (fs.zeta_nm1 + pmn * (2.0 * dtfast) * rhs_zeta) * \
+            grid.rmask
+        Dnew = zeta_new + h
+        cff4 = 4.0 / 25.0
+        cff5 = 1.0 - 2.0 * cff4
+        zwrk = cff5 * fs.zeta_n + cff4 * (fs.zeta_nm1 + zeta_new)
+        zeta_p = zbc(zeta_new, fs.zeta_n, 2.0 * dtfast)
+
+        rhs_ubar, rhs_vbar = _rhs_momentum(cfg, grid, fs.ubar_n, fs.vbar_n,
+                                           Drhs, DUon, DVom, zwrk,
+                                           zwrk * zwrk)
+        rhs_ubar = rhs_ubar + rufrc_c
+        rhs_vbar = rhs_vbar + rvfrc_c
+
+        ubar_p, vbar_p = _step_momentum(
+            cfg, grid, fs.ubar_nm1, fs.vbar_nm1, fs.zeta_nm1 + h, Dnew,
+            dtfast * rhs_ubar, dtfast * rhs_vbar)
+        ubar_p = ubc(ubar_p, fs.ubar_n, fs.zeta_n, 2.0 * dtfast, zeta_p,
+                     fs.vbar_n)
+        vbar_p = vbc(vbar_p, fs.vbar_n, fs.zeta_n, 2.0 * dtfast, zeta_p,
+                     fs.ubar_n)
+        ubar_p, vbar_p = srcs(ubar_p, vbar_p, zeta_p)
+        fs = fs.replace(
+            rzeta_nm1=fs.rzeta_n, rzeta_n=bc.fill_halo(cfg, rhs_zeta),
+            rubar_nm1=fs.rubar_n, rubar_n=rhs_ubar,
+            rvbar_nm1=fs.rvbar_n, rvbar_n=rhs_vbar)
+        fs = corrector(i, fs, zeta_p, ubar_p, vbar_p, False)
+
+    # ========== auxiliary predictor (iif = nfast+1): averages only ==========
+    _, DUon, DVom = depth_fluxes(grid, fs.zeta_n, fs.ubar_n, fs.vbar_n)
+    i = nfast + 1
+    cff1 = w1[i - 2]
+    cff2 = (8.0 / 12.0) * w2[i - 1] - (1.0 / 12.0) * w2[i]
+    fs = fs.replace(
+        Zt_avg1=bc.fill_halo(cfg, fs.Zt_avg1 + cff1 * fs.zeta_n),
+        DU_avg1=bc.fill_halo(cfg, fs.DU_avg1 + cff1 * DUon),
+        DV_avg1=bc.fill_halo(cfg, fs.DV_avg1 + cff1 * DVom),
+        DU_avg2=bc.fill_halo(cfg, fs.DU_avg2 + cff2 * DUon),
+        DV_avg2=bc.fill_halo(cfg, fs.DV_avg2 + cff2 * DVom))
+    return fs, rufrc_c, rvfrc_c

@@ -1,8 +1,9 @@
 """Tracer corrector (counterpart of ``roms_tpu/ops/step3d_t.py``;
 step3d_t.F): horizontal and vertical advection of the intermediate tracer
 t3, implicit vertical diffusion (parabolic splines under SPLINES_VDIFF,
-else the standard tridiagonal solve) and lateral BCs.  MPDATA, climatology
-nudging and open boundaries are not ported."""
+else the standard tridiagonal solve), point-source fluxes and lateral BCs,
+open boundaries included (obc.t3dbc with the previous level and `bry`).
+MPDATA and climatology nudging raise NotImplementedError."""
 
 from __future__ import annotations
 
@@ -10,17 +11,19 @@ import torch
 
 from ..config import Config
 from ..grid import Grid
-from . import bc
+from . import bc, obc
 from .advection import hadv_fluxes, vadv_flux
 from .stencil import ip1, jp1
 from .tridiag import spline_vdiff_flux, thomas_implicit
 
 
 def step3d_t(cfg: Config, grid: Grid, t_nnew, t3, Huon, Hvom, W,
-             Hz_new, z_r_new, Akt):
-    """Returns the new tracers (NT,N,Ny,Nx), halo-filled."""
-    if bc.has_advanced(cfg.lbc_t):
-        raise NotImplementedError("open-boundary tracer BCs")
+             Hz_new, z_r_new, Akt, t_old=None, bry=None, sources=None,
+             clm=None):
+    """Returns the new tracers (NT,N,Ny,Nx), halo-filled.  t_old: the
+    tracers at the previous level, which the open-boundary BCs read."""
+    if clm is not None:
+        raise NotImplementedError("tracer climatology nudging (clm)")
     pmn = grid.pm * grid.pn
     oHz = 1.0 / Hz_new
     out = []
@@ -28,22 +31,32 @@ def step3d_t(cfg: Config, grid: Grid, t_nnew, t3, Huon, Hvom, W,
         ltrc = min(1, itrc) if cfg.ntracers >= 2 else 0
         out.append(tracer_corrector(
             cfg, pmn, itrc, t_nnew[itrc], t3[itrc], Huon, Hvom, W, Hz_new,
-            z_r_new, oHz, Akt[ltrc]))
+            z_r_new, oHz, Akt[ltrc], grid=grid,
+            t_old_i=t_old[itrc] if t_old is not None else None, bry=bry,
+            sources=sources))
     return torch.stack(out, dim=0)
 
 
 def tracer_corrector(cfg: Config, pmn, itrc: int, tn_i, t3_i, Huon, Hvom,
-                     W, Hz_new, z_r_new, oHz, Akt_l):
-    """One tracer's corrector (the step3d_t.F:227-1142 loop body)."""
+                     W, Hz_new, z_r_new, oHz, Akt_l, grid=None,
+                     t_old_i=None, bry=None, sources=None):
+    """One tracer's corrector (the step3d_t.F:227-1142 loop body); HSIMT
+    and the open boundaries need `grid`."""
     dt = cfg.dt
     hscheme = cfg.t_hadv[itrc]
     vscheme = cfg.t_vadv[itrc]
     if "MPDATA" in (hscheme, vscheme):
         raise NotImplementedError("MPDATA tracer advection")
-    FX, FE = hadv_fluxes(cfg, hscheme, t3_i, Huon, Hvom)
+    FX, FE = hadv_fluxes(cfg, hscheme, t3_i, Huon, Hvom, grid=grid,
+                         Hz=Hz_new, dt=dt)
+    if sources is not None:
+        from .sources import apply_tracer_flux_sources
+        FX, FE = apply_tracer_flux_sources(sources, itrc, FX, FE, Huon,
+                                           Hvom)
     tn = tn_i - dt * pmn * ((ip1(FX) - FX) + (jp1(FE) - FE))
 
-    FC = vadv_flux(vscheme, t3_i, W, Hz_new, "corrector")
+    FC = vadv_flux(vscheme, t3_i, W, Hz_new, "corrector", z_r=z_r_new,
+                   pmn=pmn, dt=dt)
     tn = (tn - dt * pmn * (FC[1:] - FC[:-1])) * oHz
 
     if cfg.splines_vdiff:
@@ -51,4 +64,16 @@ def tracer_corrector(cfg: Config, pmn, itrc: int, tn_i, t3_i, Huon, Hvom,
         tn = tn + dt * oHz * (flux[1:] - flux[:-1])
     else:
         tn = thomas_implicit(dt, 1.0, Hz_new, z_r_new, Akt_l, tn * Hz_new)
-    return bc.apply_bc_rho(cfg, cfg.lbc_t, tn)
+    return _finalize_tracer(cfg, grid, itrc, tn, t_old_i, bry)
+
+
+def _finalize_tracer(cfg: Config, grid, itrc: int, tn, t_old_i, bry):
+    """Lateral BCs (step3d_t.F:1172-1185 without the nudging): the simple
+    kinds, then the open sides from the previous level t_old_i."""
+    tn = bc.apply_bc_rho(cfg, cfg.lbc_t, tn)
+    if t_old_i is not None and bc.has_advanced(cfg.lbc_t):
+        tname = "temp" if itrc == 0 else ("salt" if itrc == 1
+                                          else f"trc{itrc}")
+        tn = bc.fill_halo(cfg, obc.t3dbc(cfg, grid, cfg.lbc_t, t_old_i, tn,
+                                         bry, name=tname))
+    return tn

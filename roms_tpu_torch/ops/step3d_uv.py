@@ -4,7 +4,9 @@ step3d_uv.F).
 1. add the 23/12 AB3 term of the new RHS and divide by the new thicknesses,
 2. implicit vertical viscosity by parabolic splines (SPLINES_VVISC),
 3. replace the vertical mean with the fast-time-averaged transport DU_avg1,
-4. lateral BCs, with boundary-ring-only replacement at non-periodic edges,
+4. lateral BCs (open sides through obc.u3dbc/v3dbc from the previous
+   level), point sources, boundary-ring-only replacement at non-periodic
+   edges,
 5. ubar/vbar from DU_avg1 / (D * on_u),
 6. time-centered mass fluxes corrected to integrate to DU_avg2.
 """
@@ -15,7 +17,7 @@ import torch
 
 from ..config import Config
 from ..grid import Grid
-from . import bc
+from . import bc, obc
 from .stencil import im1, jm1
 from .tridiag import spline_vdiff_flux
 
@@ -29,10 +31,11 @@ def corrector_cff(dt: float, iic: int) -> float:
 
 def step3d_uv(cfg: Config, grid: Grid, iic: int, u_nnew, v_nnew, ru, rv,
               Hz_new, Akv, DU_avg1, DV_avg1, DU_avg2, DV_avg2,
-              Huon_old, Hvom_old):
-    """Returns (u, v, ubar, vbar, Huon, Hvom), all halo-filled."""
-    if bc.has_advanced(cfg.lbc_u) or bc.has_advanced(cfg.lbc_v):
-        raise NotImplementedError("open-boundary 3-D momentum BCs")
+              Huon_old, Hvom_old, u_old=None, v_old=None, bry=None,
+              sources=None, z_w_new=None):
+    """Returns (u, v, ubar, vbar, Huon, Hvom), all halo-filled.  u_old and
+    v_old (the previous level) feed the open-boundary BCs; `sources`
+    imposes the river profile, which needs the new depths z_w_new."""
     dt = cfg.dt
     pm, pn = grid.pm, grid.pn
     H = cfg.halo
@@ -69,7 +72,15 @@ def step3d_uv(cfg: Config, grid: Grid, iic: int, u_nnew, v_nnew, ru, rv,
 
     # ---------------- lateral BCs ----------------
     u = bc.apply_bc_u(cfg, cfg.lbc_u, u, gamma2=cfg.gamma2, mask=grid.umask)
+    if u_old is not None and bc.has_advanced(cfg.lbc_u):
+        u = bc.fill_halo(cfg, obc.u3dbc(cfg, grid, cfg.lbc_u, u_old, u, bry))
     v = bc.apply_bc_v(cfg, cfg.lbc_v, v, gamma2=cfg.gamma2, mask=grid.vmask)
+    if v_old is not None and bc.has_advanced(cfg.lbc_v):
+        v = bc.fill_halo(cfg, obc.v3dbc(cfg, grid, cfg.lbc_v, v_old, v, bry))
+    if sources is not None and z_w_new is not None:
+        from .sources import apply_uv_sources
+        u, v = apply_uv_sources(sources, u, v, z_w_new, grid.on_u,
+                                grid.om_v)
 
     # ---------------- 2D/3D coupling (step3d_uv.F:997-1213) ----------------
     DCk_u = 0.5 * grid.on_u * (Hz_new + im1(Hz_new))

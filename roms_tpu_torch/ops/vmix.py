@@ -1,11 +1,11 @@
 """K-profile vertical mixing (counterpart of ``roms_tpu/ops/vmix.py``):
-interior shear and internal-wave mixing (lmd_vmix.F, RI_SPLINES) and the
-surface boundary layer (lmd_skpp.F with LMD_RIMIX, CONVEC and NONLOCAL),
-with the Paulson & Simpson solar absorption (lmd_swfrac.F).
+interior shear and internal-wave mixing (lmd_vmix.F, RI_SPLINES), the
+surface boundary layer (lmd_skpp.F with LMD_RIMIX, CONVEC and NONLOCAL)
+and the bottom boundary layer (lmd_bkpp.F, ``cfg.kpp_bottom``), with the
+Paulson & Simpson solar absorption (lmd_swfrac.F).
 
-Ported: the branches the BENCHMARK configuration takes.  The bottom layer
-(``cfg.kpp_bottom``, lmd_bkpp.F), double diffusion (``cfg.lmd_ddmix``) and
-bvf_mix are not; lmd_vmix raises for the first two.  The surface thermal
+Double diffusion (``cfg.lmd_ddmix``) and bvf_mix are not ported;
+lmd_vmix raises for the first.  The surface thermal
 expansion and saline contraction coefficients come from autograd of the
 EOS, as the JAX function takes them from jax.grad.
 
@@ -154,10 +154,9 @@ def lmd_vmix(cfg: Config, grid: Grid, u, v, t, rho, pden, bvf,
 
     Returns (Akv, Akt stack (NAT,N+1,Ny,Nx), hsbl, hbbl, ghats stack).
     srflx: surface shortwave (degC m/s); stflx: (NT,Ny,Nx) surface fluxes.
-    hbbl is hbbl_prev (z_w[0] when None): the bottom layer is not ported.
+    With cfg.kpp_bottom the bottom layer (_lmd_bkpp) sets hbbl and blends
+    its mixing in; otherwise hbbl is hbbl_prev (z_w[0] when None).
     """
-    if cfg.kpp_bottom:
-        raise NotImplementedError("KPP bottom boundary layer (LMD_BKPP)")
     if cfg.lmd_ddmix and cfg.ntracers >= 2:
         raise NotImplementedError("KPP double-diffusive mixing (LMD_DDMIX)")
     N = cfg.N
@@ -353,9 +352,150 @@ def lmd_vmix(cfg: Config, grid: Grid, u, v, t, rho, pden, bvf,
     ghat_T = _set_ends(ghat_T, 0.0, 0.0)
     ghat_S = _set_ends(ghat_S, 0.0, 0.0)
 
+    # ============ bottom boundary layer (lmd_bkpp.F) ============
     hbbl = hbbl_prev if hbbl_prev is not None else z_w[0]
+    if cfg.kpp_bottom:
+        Akv, Akt_t, Akt_s, hbbl = _lmd_bkpp(
+            cfg, grid, Akv, Akt_t, Akt_s, pden, bvf, Hz, z_w,
+            u_r, v_r, dR, dU, dV, Ustarb, alpha, beta,
+            btflx if btflx is not None else torch.zeros_like(stflx),
+            srflx, hbbl, ks_eff, kk)
+
     fh = lambda a: bc.fill_halo(cfg, a)     # noqa: E731
     nat = min(cfg.ntracers, 2)
     Akt = torch.stack([fh(Akt_t), fh(Akt_s)][:nat], dim=0)
     ghats = torch.stack([fh(ghat_T), fh(ghat_S)][:nat], dim=0)
     return fh(Akv), Akt, hsbl, hbbl, ghats
+
+
+def _lmd_bkpp(cfg: Config, grid: Grid, Akv, Akt_t, Akt_s, pden, bvf,
+              Hz, z_w, u_r, v_r, dR, dU, dV, Ustar, alpha, beta,
+              btflx, srflx, hbbl_prev, ksbl, kidx):
+    """KPP bottom boundary layer (lmd_bkpp.F:240-806): the bulk Richardson
+    number measured upward from the bottom, hbbl where Rib/Ric crosses 1,
+    cubic shape-function mixing below hbbl, the larger value where it
+    overlaps the surface layer.  Returns (Akv, Akt_t, Akt_s, hbbl)."""
+    N = cfg.N
+    g = C.g
+    gorho0 = g / cfg.rho0
+    zbot = z_w[0]
+    zsurf = z_w[-1]
+    third, sixth = 1.0 / 3.0, 1.0 / 6.0
+
+    bl_dpth = lmd_epsilon * (hbbl_prev - zbot)
+    # bottom buoyancy forcing (lmd_bkpp.F:268-279); the radiative part can
+    # reach the bottom in shallow water
+    btflx_T = btflx[0]
+    btflx_S = btflx[1] if cfg.ntracers >= 2 else torch.zeros_like(btflx[0])
+    Bo = g * (alpha * btflx_T - beta * btflx_S)
+    srf = srflx if srflx is not None else torch.zeros_like(Bo)
+    Bosol = g * alpha * srf
+    swdk = swfrac(zsurf[None] - z_w)
+    Bflux = Bo[None] + Bosol[None] * (1.0 - swdk)        # (N+1,...)
+
+    # bottom reference values (lmd_bkpp.F:404-412)
+    Rref = pden[0] - Hz[0] * (third * dR[0] + sixth * dR[1])
+    Uref = u_r[0] - Hz[0] * (third * dU[0] + sixth * dU[1])
+    Vref = v_r[0] - Hz[0] * (third * dV[0] + sixth * dV[1])
+
+    Vtc = lmd_Cv * math.sqrt(-lmd_betaT) / (
+        math.sqrt(lmd_cs * lmd_epsilon) * lmd_Ric * vonKar * vonKar)
+
+    # critical function FC at interfaces k=1..N (lmd_bkpp.F:414-463)
+    depth = z_w[1:] - zbot[None]                        # (N,...)
+    sigma = torch.where(Bflux[1:] < 0.0,
+                        torch.minimum(bl_dpth[None], depth), depth)
+    wm_b, ws_b = _wscale(Ustar[None], vonKar * sigma * Bflux[1:])
+    Rk = pden + Hz * (third * dR[1:] + sixth * dR[:-1])
+    Uk = u_r + Hz * (third * dU[1:] + sixth * dU[:-1])
+    Vk = v_r + Hz * (third * dV[1:] + sixth * dV[:-1])
+    Ritop = -gorho0 * (Rk - Rref[None]) * depth
+    Ribot = (Uk - Uref[None]) ** 2 + (Vk - Vref[None]) ** 2 + \
+        Vtc * depth * ws_b * torch.sqrt(torch.abs(bvf[1:]))
+    FC = Ritop / (Ribot + eps)
+    FC = torch.cat([torch.zeros_like(FC[:1]), FC], dim=0)  # k=0..N
+
+    # first k in 1..N with FC(k-1) < Ric <= FC(k) (lmd_bkpp.F:484-494)
+    cross = (FC[:-1] < lmd_Ric) & (FC[1:] >= lmd_Ric)   # k=1..N
+    karr = torch.arange(1, N + 1, device=z_w.device)[:, None, None]
+    big = torch.full_like(karr, N)
+    kb = torch.where(cross, karr, big).amin(dim=0)
+    FC_k = take_k(FC, kb)
+    FC_km1 = take_k(FC, kb - 1)
+    zw_k = take_k(z_w, kb)
+    zw_km1 = take_k(z_w, kb - 1)
+    den = FC_k - FC_km1
+    den = torch.where(torch.abs(den) > 1e-30, den,
+                      torch.full_like(den, 1e-30))
+    any_cross = cross.any(dim=0)
+    hbbl = torch.where(any_cross,
+                       ((lmd_Ric - FC_km1) * zw_k +
+                        (FC_k - lmd_Ric) * zw_km1) / den,
+                       zsurf)
+
+    # Ekman limit (lmd_bkpp.F:526-535; height above bottom as z level)
+    hekman = lmd_cekman * Ustar / torch.clamp(torch.abs(grid.f), min=eps) \
+        - grid.h
+    hbbl = torch.minimum(hekman, hbbl)
+    hbbl = torch.minimum(torch.maximum(hbbl, zbot), zsurf)
+    hbbl = bc.fill_halo(cfg, hbbl)
+
+    # final kbbl: first k in 1..N with z_w(k) > hbbl (lmd_bkpp.F:589-600)
+    above = z_w[1:] > hbbl[None]
+    kbbl = torch.where(above, karr, big).amin(dim=0)
+
+    # buoyancy flux and velocity scales at hbbl (lmd_bkpp.F:603-663)
+    swdk_h = swfrac(zsurf - hbbl)
+    Bfbot = Bo + Bosol * (1.0 - swdk_h)
+    bl_dpth = lmd_epsilon * (hbbl - zbot)
+    sigma_h = torch.where(Bfbot > 0.0, torch.ones_like(Bfbot),
+                          torch.full_like(Bfbot, lmd_epsilon)) * \
+        (hbbl - zbot)
+    wm1, ws1 = _wscale(Ustar, vonKar * sigma_h * Bfbot)
+
+    # shape-function matching at hbbl (lmd_bkpp.F:665-721); the sign of
+    # dK_bl is opposite the surface case (increasing k moves away from
+    # the bottom boundary)
+    f1 = 5.0 * torch.clamp(Bfbot, min=0.0) * vonKar / (Ustar ** 4 + eps)
+    zbl = hbbl - zbot
+    zw_k = take_k(z_w, kbbl)
+    zw_km1 = take_k(z_w, kbbl - 1)
+
+    def g1(Ak, wscale):
+        Ak_k = take_k(Ak, kbbl)
+        Ak_km1 = take_k(Ak, kbbl - 1)
+        cffk = 1.0 / (zw_k - zw_km1)
+        K_bl = cffk * (hbbl - zw_km1) * Ak_k + cffk * (zw_k - hbbl) * Ak_km1
+        dK_bl = -cffk * (Ak_k - Ak_km1)
+        G1 = K_bl / (zbl * wscale + eps)
+        dG1 = torch.clamp(K_bl * f1 - dK_bl / (wscale + eps), max=0.0)
+        return G1, dG1
+
+    Gm1, dGm1 = g1(Akv, wm1)
+    Gt1, dGt1 = g1(Akt_t, ws1)
+    Gs1, dGs1 = g1(Akt_s, ws1)
+
+    # profile at interior interfaces k=1..N-1 (lmd_bkpp.F:723-806)
+    depth_k = z_w[1:N] - zbot[None]
+    in_bbl = z_w[1:N] < hbbl[None]
+    sigma_k = torch.where(Bflux[1:N] < 0.0,
+                          torch.minimum(bl_dpth[None], depth_k), depth_k)
+    wm_k, ws_k = _wscale(Ustar[None], vonKar * sigma_k * Bflux[1:N])
+    sig = depth_k / (zbl[None] + eps)
+    a1 = sig - 2.0
+    a2 = 3.0 - 2.0 * sig
+    a3 = sig - 1.0
+
+    overlap = kidx > ksbl[None]        # the surface layer owns these points
+
+    def blend(Ak, G1v, dG1v, wsc):
+        G = a1 + a2 * G1v[None] + a3 * dG1v[None]
+        K_new = depth_k * wsc * (1.0 + sig * G)
+        K_new = torch.where(overlap, torch.maximum(Ak[1:N], K_new), K_new)
+        return torch.cat([Ak[:1], torch.where(in_bbl, K_new, Ak[1:N]),
+                          Ak[N:]], dim=0)
+
+    Akv = blend(Akv, Gm1, dGm1, wm_k)
+    Akt_t = blend(Akt_t, Gt1, dGt1, ws_k)
+    Akt_s = blend(Akt_s, Gs1, dGs1, ws_k)
+    return Akv, Akt_t, Akt_s, hbbl

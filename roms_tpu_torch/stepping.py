@@ -2,12 +2,14 @@
 main3d.F:183-868).
 
 One call advances the State by one slow step, the nfast-substep barotropic
-loop included, in main3d's order.  Ported here: the branches the UPWELLING
-and BENCHMARK configurations take (analytic surface stress or COARE bulk
-fluxes from an analytic atmosphere, linear or quadratic drag, constant
-mixing coefficients or the KPP surface layer, prsgrd32, U3/C4/SPLINES
+loop included, in main3d's order.  Ported here: the branches the UPWELLING,
+BENCHMARK, KELVIN, ESTUARY_TEST and RIVERPLUME1 configurations take
+(analytic surface stress or COARE bulk fluxes from an analytic atmosphere,
+linear, quadratic or logarithmic drag, constant mixing coefficients, the
+KPP surface and bottom layers or GLS, prsgrd32, U3/C4/SPLINES/HSIMT
 advection, harmonic viscosity, harmonic tracer diffusion along s-surfaces
-or rotated to geopotential surfaces).  Every other branch raises
+or rotated to geopotential surfaces, open boundaries with their `bry`
+data, volume conservation and point sources).  Every other branch raises
 NotImplementedError naming the missing feature.
 
 Kernels: with ``cfg.pallas2d`` true (the default), the kernel stages go
@@ -19,9 +21,15 @@ dispatch: where ``rhs3d_cuda.use_kernels`` holds (as the JAX gate
 uv3dmix2); otherwise its stages run one by one, uv3dmix2 as kernel or
 plain by ``mix3d_cuda.use_kernels``, which also sends the geopotential
 tracer diffusion to ``mix3d_cuda.t3dmix2_geo`` or its plain version.  The
-wrappers launch the CUDA kernels for CUDA tensors and take the plain
-versions for CPU tensors.  ``cfg.pallas2d=False`` runs the plain versions
-on any device.
+tracer, momentum-corrector and fast-loop kernels are taken where their
+gates hold with the step's `bry`, `sources` and `clm`
+(``step3d_cuda.use_tracer``/``use_uv``, ``step2d_cuda.supported``, as the
+JAX step asks ``step3d_pallas.use_tracer_pallas``/``use_uv_pallas`` and
+``step2d_pallas.use_pallas``); otherwise the step runs the general plain
+stages (ops/pre_step3d.py, step3d_t.py, step3d_uv.py, step2d.fast_loop)
+on whatever device the state is on.  The wrappers launch the CUDA kernels
+for CUDA tensors and take the plain versions for CPU tensors.
+``cfg.pallas2d=False`` runs the plain versions on any device.
 """
 
 from __future__ import annotations
@@ -34,8 +42,8 @@ from .config import Config
 from .grid import Grid, hc_of
 from .state import State
 from . import vgrid
-from .ops import diag_cuda, mix3d_cuda, prsgrd, prsgrd_cuda, rhs3d_cuda, \
-    step2d_cuda, step3d_cuda
+from .ops import diag_cuda, eos, gls as gls_mod, mix3d_cuda, prsgrd, \
+    prsgrd_cuda, rhs3d_cuda, step2d, step2d_cuda, step3d_cuda
 from .ops.bulk_flux import bulk_flux
 from .ops.mix3d import t3dmix2
 from .ops.vmix import lmd_vmix, swfrac
@@ -45,7 +53,9 @@ from .ops.step2d import Fast2DState
 from .ops.vbc import set_vbc
 
 DIAGS_NOT_PORTED = "budget diagnostics (collect_diags)"
-_FORCING_KEYS = {"sustr", "svstr", "stflux", "btflux"}
+# open-boundary data and point sources, taken with either set below
+_BOUNDARY_KEYS = {"bry", "sources"}
+_FORCING_KEYS = {"sustr", "svstr", "stflux", "btflux", "srflx"}
 # the analytic atmosphere that feeds the bulk fluxes (cfg.bulk_fluxes)
 _BULK_KEYS = {"Uwind", "Vwind", "Tair", "Pair", "Hair", "cloud", "rain",
               "srflx", "btflux"}
@@ -65,10 +75,8 @@ def _check_slice(cfg: Config, grid: Grid, frc: dict, collect_diags: bool):
         missing.append(f"nearshore radiation stress ({cfg.nearshore})")
     if cfg.bbl is not None:
         missing.append(f"bottom boundary layer ({cfg.bbl})")
-    if cfg.vmix not in (None, "kpp"):
+    if cfg.vmix not in (None, "kpp", "gls"):
         missing.append(f"vertical mixing closure ({cfg.vmix})")
-    if cfg.vmix == "kpp" and cfg.kpp_bottom:
-        missing.append("KPP bottom boundary layer (LMD_BKPP)")
     if cfg.vmix == "kpp" and cfg.lmd_ddmix and cfg.ntracers >= 2:
         missing.append("KPP double-diffusive mixing (LMD_DDMIX)")
     if cfg.tide_gen_forces:
@@ -85,10 +93,12 @@ def _check_slice(cfg: Config, grid: Grid, frc: dict, collect_diags: bool):
         missing.append("mean-age tracers (AGE_MEAN)")
     if cfg.biology is not None:
         missing.append(f"biology ({cfg.biology})")
-    if not step2d_cuda.supported(cfg):
-        missing.append("the general fast loop (wetting-drying, volume "
-                       "conservation, open boundaries, other BC kinds)")
-    extra = set(frc) - (_BULK_KEYS if cfg.bulk_fluxes else _FORCING_KEYS)
+    if cfg.wetdry:
+        missing.append("the general fast loop with wetting-drying (WET_DRY)")
+    if "clm" in frc:
+        missing.append("climatology nudging (clm)")
+    extra = set(frc) - (_BULK_KEYS if cfg.bulk_fluxes else _FORCING_KEYS) \
+        - _BOUNDARY_KEYS - {"clm"}
     if extra:
         missing.append(f"forcing fields {sorted(extra)}")
     if missing:
@@ -99,11 +109,12 @@ def step(cfg: Config, grid: Grid, state: State,
          forcing_fn: Optional[Callable] = None,
          collect_diags: bool = False) -> State:
     """One slow (baroclinic) step.  forcing_fn(cfg, grid, time) returns a
-    dict with sustr, svstr (kinematic wind stress, m2/s2) and stflux,
-    btflux ((NT,Ny,Nx) surface/bottom tracer fluxes); with cfg.bulk_fluxes
-    it returns the atmosphere instead (Uwind, Vwind, Tair, Pair, Hair,
-    cloud, rain, srflx), from which the COARE fluxes give the stress and
-    the surface heat flux."""
+    dict with sustr, svstr (kinematic wind stress, m2/s2), stflux, btflux
+    ((NT,Ny,Nx) surface/bottom tracer fluxes) and srflx; with
+    cfg.bulk_fluxes it returns the atmosphere instead (Uwind, Vwind, Tair,
+    Pair, Hair, cloud, rain, srflx), from which the COARE fluxes give the
+    stress and the surface heat flux.  Either may add "bry" (open-boundary
+    data, ops/obc.py) and "sources" (ops/sources.PointSources)."""
     frc = forcing_fn(cfg, grid, state.time) if forcing_fn is not None else {}
     _check_slice(cfg, grid, frc, collect_diags)
     hc = hc_of(cfg)
@@ -112,7 +123,10 @@ def step(cfg: Config, grid: Grid, state: State,
     nt = max(cfg.ntracers, 1)
     zero_nt = torch.zeros((nt,) + zero2.shape, dtype=zero2.dtype,
                           device=zero2.device)
-    srflx = None
+    srflx = frc.get("srflx")
+    bry = frc.get("bry")
+    sources = frc.get("sources")
+    clm = frc.get("clm")
     if cfg.bulk_fluxes:
         # COARE air-sea fluxes from the atmosphere and the SST
         # (main3d.F:386)
@@ -144,10 +158,12 @@ def step(cfg: Config, grid: Grid, state: State,
 
     # --- surface/bottom fluxes (main3d.F:386-396) ---
     bustr, bvstr, stflx, btflx = set_vbc(cfg, grid, state.u, state.v,
-                                         state.t, stflux, btflux)
+                                         state.t, stflux, btflux,
+                                         z_r=z_r, z_w=z_w)
 
-    # --- vertical mixing coefficients (main3d.F:465-469): KPP, or the
-    #     constant background values (vmix None) ---
+    # --- vertical mixing coefficients (main3d.F:465-469): KPP, or last
+    #     step's values (constant background with vmix None; GLS updates
+    #     them in its corrector below) ---
     hsbl, hbbl = state.hsbl, state.hbbl
     ghats = swdk_w = None
     if kpp:
@@ -163,13 +179,18 @@ def step(cfg: Config, grid: Grid, state: State,
 
     # --- rhs3d phase (main3d.F:563): pre_step3d, prsgrd, t3dmix, rhs,
     #     uv3dmix ---
-    tr_kernels = step3d_cuda.use_tracer(cfg)
-    tracer_predictor = step3d_cuda.tracer_predictor if tr_kernels \
-        else step3d_cuda.tracer_predictor_plain
-    t3, t_nnew = tracer_predictor(cfg, grid, iic, state.t, state.t_prev, Hz,
-                                  Huon, Hvom, W, Akt, stflx, btflx,
-                                  srflx=srflx, ghats=ghats, swdk_w=swdk_w)
-    if rhs3d_cuda.use_kernels(cfg):
+    tr_kernels = step3d_cuda.use_tracer(cfg, bry=bry, clm=clm,
+                                        sources=sources)
+    if tr_kernels:
+        t3, t_nnew = step3d_cuda.tracer_predictor(
+            cfg, grid, iic, state.t, state.t_prev, Hz, Huon, Hvom, W, Akt,
+            stflx, btflx, srflx=srflx, ghats=ghats, swdk_w=swdk_w)
+    else:
+        t3, t_nnew = step3d_cuda.tracer_predictor_plain(
+            cfg, grid, iic, state.t, state.t_prev, Hz, Huon, Hvom, W, Akt,
+            stflx, btflx, srflx=srflx, ghats=ghats, swdk_w=swdk_w,
+            sources=sources)
+    if rhs3d_cuda.use_kernels(cfg, clm=clm):
         # momentum_init -> prsgrd32 -> rhs3d -> uv3dmix2 as one phase
         u_nnew, v_nnew, ru, rv, rufrc, rvfrc = rhs3d_cuda.momentum_rhs(
             cfg, grid, iic, state.u, state.v, Hz, z_r, z_w, rho, Huon, Hvom,
@@ -202,7 +223,14 @@ def step(cfg: Config, grid: Grid, state: State,
         else:
             t_nnew = t3dmix2(cfg, grid, state.t, Hz, t_nnew, cfg.dt)
 
-    # --- fast barotropic loop (main3d.F:592-713).  Every field is its own
+    # --- GLS predictor (main3d.F:565-567) ---
+    if cfg.vmix == "gls":
+        tke3, gls3, tke_nnew, gls_nnew = gls_mod.gls_prestep(
+            cfg, grid, cfg.gls_params, iic, state.tke, state.gls,
+            state.tke_prev, state.gls_prev, Hz, Huon, Hvom, W)
+
+    # --- fast barotropic loop (main3d.F:592-713): the fused kernel where
+    #     its gate holds, else the general loop.  Every field is its own
     #     tensor: the kernel updates them in place ---
     fs = Fast2DState(
         zeta_n=state.zeta.clone(), zeta_nm1=state.zeta.clone(),
@@ -214,11 +242,15 @@ def step(cfg: Config, grid: Grid, state: State,
         Zt_avg1=torch.zeros_like(zero2), DU_avg1=torch.zeros_like(zero2),
         DV_avg1=torch.zeros_like(zero2), DU_avg2=torch.zeros_like(zero2),
         DV_avg2=torch.zeros_like(zero2))
-    loop = step2d_cuda.fast_loop if cfg.pallas2d \
-        else step2d_cuda.fast_loop_plain
-    fs, rufrc_c, rvfrc_c = loop(
-        cfg, grid, fs, rufrc, rvfrc, state.rufrc0_prev, state.rufrc0_prev2,
-        state.rvfrc0_prev, state.rvfrc0_prev2, iic)
+    if cfg.pallas2d and step2d_cuda.supported(cfg, bry, sources, clm):
+        fs, rufrc_c, rvfrc_c = step2d_cuda.fast_loop(
+            cfg, grid, fs, rufrc, rvfrc, state.rufrc0_prev,
+            state.rufrc0_prev2, state.rvfrc0_prev, state.rvfrc0_prev2, iic)
+    else:
+        fs, rufrc_c, rvfrc_c = step2d.fast_loop(
+            cfg, grid, fs, rufrc, rvfrc, state.rufrc0_prev,
+            state.rufrc0_prev2, state.rvfrc0_prev, state.rvfrc0_prev2, iic,
+            bry=bry, sources=sources, clm=clm)
 
     # --- new depths from the filtered free surface (main3d.F:736) ---
     z_r2, z_w2, Hz2 = vgrid.set_depth(grid.h, fs.Zt_avg1, hc, grid.sc_r,
@@ -226,21 +258,42 @@ def step(cfg: Config, grid: Grid, state: State,
                                       cfg.vtransform)
 
     # --- 3D momentum corrector (main3d.F:762) ---
-    uv_corrector = step3d_cuda.uv_corrector if step3d_cuda.use_uv(cfg) \
-        else step3d_cuda.uv_corrector_plain
-    u2, v2, ubar2, vbar2, Huon2, Hvom2 = uv_corrector(
-        cfg, grid, iic, u_nnew, v_nnew, ru, rv, Hz2, Akv, fs.DU_avg1,
-        fs.DV_avg1, fs.DU_avg2, fs.DV_avg2, Huon, Hvom)
+    if step3d_cuda.use_uv(cfg, bry=bry, sources=sources):
+        u2, v2, ubar2, vbar2, Huon2, Hvom2 = step3d_cuda.uv_corrector(
+            cfg, grid, iic, u_nnew, v_nnew, ru, rv, Hz2, Akv, fs.DU_avg1,
+            fs.DV_avg1, fs.DU_avg2, fs.DV_avg2, Huon, Hvom)
+    else:
+        u2, v2, ubar2, vbar2, Huon2, Hvom2 = step3d_cuda.uv_corrector_plain(
+            cfg, grid, iic, u_nnew, v_nnew, ru, rv, Hz2, Akv, fs.DU_avg1,
+            fs.DV_avg1, fs.DU_avg2, fs.DV_avg2, Huon, Hvom, u_old=state.u,
+            v_old=state.v, bry=bry, sources=sources, z_w_new=z_w2)
 
     # --- omega with corrected fluxes (main3d.F:789) ---
     omega = diag_cuda.omega if cfg.pallas2d else diag_cuda.omega_plain
     W2 = omega(cfg, grid, Huon2, Hvom2, z_w2)
 
+    # --- GLS corrector (main3d.F:791-793): new Akv/Akt for the tracer
+    #     step ---
+    tke_new, gls_new = state.tke, state.gls
+    Akk_new, Akp_new, Lscale_new = state.Akk, state.Akp, state.Lscale
+    if cfg.vmix == "gls":
+        bvf_g = eos.brunt_vaisala(cfg, state.t, z_r, z_w)
+        (tke_new, gls_new, Akv, Akt, Akk_new, Akp_new,
+         Lscale_new) = gls_mod.gls_corstep(
+            cfg, grid, cfg.gls_params, iic, state.tke, state.gls, tke3,
+            gls3, tke_nnew, gls_nnew, state.u, state.v, bvf_g, Hz2, z_r2,
+            z_w2, Huon2, Hvom2, W2, state.Akv, state.Akt, state.Akk,
+            state.Akp, state.Lscale, sustr, svstr, bustr, bvstr,
+            Hwave=frc.get("Hwave"))
+
     # --- tracer corrector (main3d.F:814) ---
-    tracer_corrector = step3d_cuda.tracer_corrector if tr_kernels \
-        else step3d_cuda.tracer_corrector_plain
-    t2 = tracer_corrector(cfg, grid, t_nnew, t3, Huon2, Hvom2, W2, Hz2, z_r2,
-                          Akt)
+    if tr_kernels:
+        t2 = step3d_cuda.tracer_corrector(cfg, grid, t_nnew, t3, Huon2,
+                                          Hvom2, W2, Hz2, z_r2, Akt)
+    else:
+        t2 = step3d_cuda.tracer_corrector_plain(
+            cfg, grid, t_nnew, t3, Huon2, Hvom2, W2, Hz2, z_r2, Akt,
+            t_old=state.t, bry=bry, sources=sources)
 
     return state.replace(
         time=state.time + cfg.dt, iic=iic + 1,
@@ -252,7 +305,8 @@ def step(cfg: Config, grid: Grid, state: State,
         rvfrc0_prev=rvfrc_c, rvfrc0_prev2=state.rvfrc0_prev,
         rzeta=fs.rzeta_n, rubar=fs.rubar_n, rvbar=fs.rvbar_n,
         Akv=Akv, Akt=Akt, hsbl=hsbl, hbbl=hbbl,
-        tke_prev=state.tke, gls_prev=state.gls,
+        tke=tke_new, gls=gls_new, tke_prev=state.tke, gls_prev=state.gls,
+        Akk=Akk_new, Akp=Akp_new, Lscale=Lscale_new,
         DU_avg1=fs.DU_avg1, DV_avg1=fs.DV_avg1,
         DU_avg2=fs.DU_avg2, DV_avg2=fs.DV_avg2)
 

@@ -31,6 +31,10 @@ import torch
 CASES = {
     "upwelling": ("roms_tpu_torch.models.upwelling", "build", "make_config"),
     "benchmark": ("roms_tpu_torch.models.benchmark", "build", "make_config"),
+    "kelvin": ("roms_tpu_torch.models.cases", "kelvin", "kelvin_config"),
+    "estuary": ("roms_tpu_torch.models.cases", "estuary", "estuary_config"),
+    "riverplume": ("roms_tpu_torch.models.cases", "riverplume",
+                   "riverplume_config"),
 }
 
 
@@ -51,7 +55,7 @@ def build_from_dict(doc: dict,
     if case == "file":
         raise NotImplementedError(
             "not ported: case 'file' (io/gridfile with the curvilinear "
-            "grid, and GLS)")
+            "grid)")
     if case not in CASES:
         raise NotImplementedError(
             f"not ported: case '{case}'; this package has {sorted(CASES)}")

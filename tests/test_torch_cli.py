@@ -20,7 +20,26 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def test_cases(capsys):
     assert main(["cases"]) == 0
-    assert capsys.readouterr().out.split() == ["benchmark", "upwelling"]
+    assert capsys.readouterr().out.split() == [
+        "benchmark", "estuary", "kelvin", "riverplume", "upwelling"]
+
+
+def test_cases_registered():
+    """`python -m roms_tpu_torch cases` lists the regional cases."""
+    res = subprocess.run([sys.executable, "-m", "roms_tpu_torch", "cases"],
+                         capture_output=True, text=True, cwd=ROOT,
+                         timeout=120)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert {"kelvin", "estuary", "riverplume"} <= set(res.stdout.split())
+
+
+def test_run_estuary_on_the_cpu(capsys):
+    """The published ESTUARY_TEST (200x3x20) runs two steps on the CPU."""
+    assert main(["run", "--case", "estuary", "--nsteps", "2", "--device",
+                 "cpu", "--ninfo", "1"]) == 0
+    out = capsys.readouterr().out
+    assert "roms_tpu_torch: case=estuary grid=200x3x20" in out
+    assert out.count("KE=") == 2
 
 
 def test_run_yaml_writes_history(tmp_path, capsys):
@@ -51,7 +70,7 @@ def test_module_entry_point():
     assert res.stdout.count("KE=") == 2
 
 
-@pytest.mark.parametrize("case", ["file", "estuary", "no_such_case"])
+@pytest.mark.parametrize("case", ["file", "lake_signell", "no_such_case"])
 def test_cases_not_ported_raise(case):
     with pytest.raises(NotImplementedError,
                        match=f"not ported: case '{case}'"):

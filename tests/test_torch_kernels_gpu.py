@@ -10,8 +10,12 @@ tracers; closed and masked variants for the momentum and uv kernels;
 uv3dmix2 on 2, 4 and 8 level slots), on a grid smaller than one tile and
 at their largest shared-memory plans;
 the UPWELLING anchor with ten kernels on, the small-BENCHMARK fixture
-(tests/data/torch_benchmark_small.npz) with all eleven on, and the run
-driver's restarts across the card and the CPU.
+(tests/data/torch_benchmark_small.npz) with all eleven on, the run
+driver's restarts across the card and the CPU, and on KELVIN, ESTUARY_TEST
+and RIVERPLUME1 at their published sizes the kernels each step launches
+against their plain versions on its arguments, the steps with kernels on
+against off, and the small regional fixture
+(tests/data/torch_regional_small.npz).
 
 Marked ``gpu``; each test skips without a CUDA device.  This file imports
 no jax, so it also runs where jax is absent:
@@ -26,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from chip_smoke import BITWISE, CARD_FACTOR, fixture_script
 from roms_tpu_torch import stepping
 from roms_tpu_torch.config import LBC, BC_CLOSED, BC_GRADIENT
@@ -921,3 +926,47 @@ def test_restart_across_devices(device, tmp_path, saved_on):
         resumed = stepping.run(cfg, grid, card, 2, ffn)
         for k in TENSOR_FIELDS:
             assert torch.equal(getattr(resumed, k), getattr(straight, k)), k
+
+
+@pytest.fixture(scope="module", params=chip_smoke.REGIONAL)
+def regional(request, device):
+    """A regional case at its published sizes, float64, three plain steps
+    from rest."""
+    name = request.param
+    cfg, grid, s0, ffn = chip_smoke.regional_case(name, device)
+    s = stepping.run(cfg.replace(pallas2d=False), grid, s0, 3, ffn)
+    return name, cfg, grid, s, ffn
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_regional_kernels_on_case_arguments(regional, dtype):
+    """Each kernel the case's step launches, and only those of
+    chip_smoke.REGIONAL_KERNELS, against its plain version on the step's
+    arguments (chip_smoke phase 13 (a))."""
+    from roms_tpu_torch.state import TENSOR_FIELDS
+    name, _, _, s, _ = regional
+    cfg, grid, _, ffn = chip_smoke.regional_case(name, s.zeta.device, dtype)
+    state = s.replace(**{k: getattr(s, k).to(grid.h.dtype)
+                         for k in TENSOR_FIELDS})
+    calls = chip_smoke.captured_calls(cfg, grid, state, ffn)
+    assert set(calls) == set(chip_smoke.REGIONAL_KERNELS[name])
+    chip_smoke.check_variants(
+        "regional", grid, [(f"{name}:{k}", k, *calls[k]) for k in calls],
+        dtype, {}, timed=False)
+
+
+def test_regional_kernels_on_against_off(regional):
+    """Three float64 steps with the kernels on against cfg.pallas2d=False,
+    each field within 1e-9 x max|field|, one launch a step of each kernel
+    of the case (chip_smoke phase 13 (b))."""
+    name, cfg, grid, s, ffn = regional
+    launches = chip_smoke.regional_equivalence(s.zeta.device, name, cfg,
+                                               grid, s, ffn)
+    assert launches == dict.fromkeys(chip_smoke.REGIONAL_KERNELS[name], 1.0)
+
+
+def test_regional_fixture_with_kernels(device):
+    """The small KELVIN, ESTUARY_TEST and RIVERPLUME1 with the kernels on
+    hold tests/data/torch_regional_small.npz at 100x the CPU test's
+    bounds (chip_smoke phase 13 (c))."""
+    chip_smoke.regional_fixture(device)

@@ -101,9 +101,9 @@ def _constancy_error(cfg, s):
 
 @pytest.mark.parametrize("change, feature", [
     (dict(wetdry=True), "general fast loop"),
-    (dict(vmix="kpp", kpp_bottom=True), "KPP bottom boundary layer"),
+    (dict(vmix="my25"), "vertical mixing closure"),
     (dict(vmix="kpp", lmd_ddmix=True), "KPP double-diffusive mixing"),
-    (dict(vmix="gls"), "vertical mixing closure"),
+    (dict(ts_dif4=True, tnu4=(1.0e8, 1.0e8)), "biharmonic tracer mixing"),
     (dict(ts_mix_iso=True, tnu2=(5.0, 5.0)), "isopycnal"),
 ])
 def test_step_raises_for_unported_branches(upw, change, feature):
