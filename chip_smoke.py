@@ -7,6 +7,7 @@ BENCHMARK1 steps through them, and checks the results.
                                                  # times only,
                                                  # roms_tpu_torch from TREE
     python3 chip_smoke.py --regional             # the build and phase 13
+    python3 chip_smoke.py --coastal              # the build and phase 14
 
 Phases, one or more lines each; any failure exits non-zero:
   1. device: card name and power limit (nvidia-smi), torch and CUDA versions;
@@ -99,6 +100,29 @@ river keep rows 8-11 on their plain versions (the general fast loop):
      20, which holds the GLS fields, and the last HIS record; (f) float32
      ms/step of each case (5 steps) beside (d)'s float64, with its
      launches a step.
+Then the coastal path at full size: LAB_CANYON (110x250x25, the polar
+annulus of roms_lab_canyon.in, north-south periodic, curvilinear), INLET_TEST
+(100x100x8 on a grid file scripts/torch_coastal_fixture.py generates;
+wetting-drying, an open-boundary tide, GLS, so rows 7-11 stay plain as
+the JAX gates keep them) and BENCHMARK1 with the tide-generating force:
+ 14. (a) each kernel a case's step launches (rows 1-4 and 6-11 on
+     LAB_CANYON; 1-4 and 6 on INLET_TEST; 1-3 and 6-11, prsgrd32 with
+     eq_tide, on BENCHMARK1) against its plain version on that step's
+     arguments (three plain float64 steps from rest), float64 and
+     float32, untimed, and no other kernel called; three float64 steps
+     with the kernels on against cfg.pallas2d=False, each field within
+     1e-9 x max|field|, one launch a step of each; (b) LAB_CANYON's grid
+     written with save_grid and its initial state with HistoryWriter, run
+     through the CLI (`case: file`, 20 float64 steps, HIS at 20), the
+     record against 20 analytic steps within roms_tpu's 1e-10; (c)
+     LAB_CANYON's physics (|u|, |v| < 2e-3 after 20 steps, angler spanning
+     (-3, 3), a constant tracer within 2e-5 after 10 steps); (d)
+     INLET_TEST's ebb through the throat growing from step 15 to 45, dry
+     cells, no total depth below half the critical depth, with ms/step;
+     (e) BENCHMARK1 with the tide force: 0 < |u| < 0.5 after 5 steps; (f)
+     the small cases and the wet/dry fast loop against
+     tests/data/torch_coastal_small.npz at CARD_FACTOR x the CPU bounds;
+     and float32 ms/step beside float64 with the launches a step.
 The last two lines are a JSON object of per-kernel results (BENCHMARK1
 float32, launches of phase 10) and a JSON object {"ok": true, "device":
 {...}}.  Without CUDA it exits non-zero and prints no result.
@@ -121,6 +145,8 @@ BENCH_FIXTURE = os.path.join(ROOT, "tests", "data",
                              "torch_benchmark_small.npz")
 REGIONAL_FIXTURE = os.path.join(ROOT, "tests", "data",
                                 "torch_regional_small.npz")
+COASTAL_FIXTURE = os.path.join(ROOT, "tests", "data",
+                               "torch_coastal_small.npz")
 # kernels-on against kernels-off over three full-size BENCHMARK1 float64
 # steps, relative to max|field|
 BENCH_EQUIV_RTOL = 1e-9
@@ -1093,6 +1119,11 @@ def regional_fixture_script():
     return _script("torch_regional_fixture")
 
 
+def coastal_fixture_script():
+    """scripts/torch_coastal_fixture.py as a module."""
+    return _script("torch_coastal_fixture")
+
+
 def bench_fixture(device):
     """Phase 9: the small BENCHMARK with the kernels on against the
     fixture, at CARD_FACTOR times the CPU test's bounds."""
@@ -1421,7 +1452,8 @@ REGIONAL_EQUIV_STEPS = 3
 # tests/test_cases_extra.py:73-106: KELVIN 6 h, ESTUARY_TEST 6 h (half an
 # M2 cycle), RIVERPLUME1 4 h
 REGIONAL_PHYSICS_STEPS = {"kelvin": 24, "estuary": 720, "riverplume": 120}
-REGIONAL_TIMED_STEPS = 5
+# float32 steps timed on every phase-13 and phase-14 case
+TIMED_STEPS = 5
 REGIONAL_CLI_STEPS = 20
 GLS_FIELDS = ("tke", "gls", "tke_prev", "gls_prev", "Akk", "Akp", "Lscale")
 
@@ -1434,25 +1466,25 @@ def regional_case(name, device, dtype="float64", **sizes):
     return getattr(cases, name)(cfg, device=device)
 
 
-def regional_kernel_checks(results, device, developed):
-    """Phase 13 (a): every kernel each case's step launches, against its
-    plain version on that step's arguments, float64 and float32; returns
-    nothing, fails on a disagreement or a kernel set other than the
-    table's."""
+def case_kernel_checks(tag, names, case_fn, kernels, developed):
+    """Every kernel each case's step launches, against its plain version
+    on that step's arguments (from the developed[name] state), float64
+    and float32, untimed; fails on a disagreement or a kernel set other
+    than kernels[name].  case_fn(name, dtype) builds the case."""
     from roms_tpu_torch.state import TENSOR_FIELDS
-    for name in REGIONAL:
+    for name in names:
         s = developed[name][2]
         for dtype in ("float64", "float32"):
-            cfg, grid, _, ffn = regional_case(name, device, dtype)
+            cfg, grid, _, ffn = case_fn(name, dtype)
             state = s.replace(**{k: getattr(s, k).to(grid.h.dtype)
                                  for k in TENSOR_FIELDS})
             calls = captured_calls(cfg, grid, state, ffn)
-            check(set(calls) == set(REGIONAL_KERNELS[name]),
+            check(set(calls) == set(kernels[name]),
                   f"{name}: the step called {sorted(calls)}, not "
-                  f"{sorted(REGIONAL_KERNELS[name])}")
-            check_variants("regional", grid,
+                  f"{sorted(kernels[name])}")
+            check_variants(tag, grid,
                            [(f"{name}:{k}", k, *calls[k]) for k in calls],
-                           dtype, results, timed=False)
+                           dtype, {}, timed=False)
 
 
 def _rel_errors(case, fx, a, b):
@@ -1474,25 +1506,34 @@ def _rel_errors(case, fx, a, b):
 def regional_equivalence(device, name, cfg, grid, s0, ffn):
     """Phase 13 (b): REGIONAL_EQUIV_STEPS float64 steps from s0 with the
     kernels on against cfg.pallas2d=False; returns the launches a step."""
+    return kernels_on_off("regional-equiv", name, cfg, grid, s0, ffn,
+                          REGIONAL_KERNELS[name], regional_fixture_script(),
+                          REGIONAL_EQUIV_STEPS)
+
+
+def kernels_on_off(tag, name, cfg, grid, s0, ffn, kernels, fx, n):
+    """n float64 steps from s0 with the kernels on against
+    cfg.pallas2d=False, every field fx.fields_of(name) lists within
+    BENCH_EQUIV_RTOL x max|field| (a v-like field against its u-like
+    partner's max too), one launch a step of each of `kernels` and none of
+    the others; returns the launches a step."""
     import torch
     from roms_tpu_torch import stepping
-    fx = regional_fixture_script()
     table = {k: getattr(mod, attr) for k, (mod, attr, _) in
              wrappers().items()}
-    n = REGIONAL_EQUIV_STEPS
     for w in table.values():
         w.launches = 0
     s_on = stepping.run(cfg, grid, s0, n, ffn)
     torch.cuda.synchronize()
     launches = {k: w.launches for k, w in table.items()}
     s_off = stepping.run(cfg.replace(pallas2d=False), grid, s0, n, ffn)
-    want = {k: n if k in REGIONAL_KERNELS[name] else 0 for k in table}
-    print(f"[regional-equiv] {name}: {n} float64 steps, kernels on: "
-          f"launches {launches}", flush=True)
+    want = {k: n if k in kernels else 0 for k in table}
+    print(f"[{tag}] {name}: {n} float64 steps, kernels on: launches "
+          f"{launches}", flush=True)
     check(launches == want, f"{name}: launches {launches}, not {want}")
     errs = _rel_errors(name, fx, s_on, s_off)
     worst = max(e for e, _ in errs.values())
-    print(f"[regional-equiv] {name}: |kernels on - off| / max|field| "
+    print(f"[{tag}] {name}: |kernels on - off| / max|field| "
           + ", ".join(f"{k} {e:.3e}" for k, (e, _) in errs.items())
           + f"; worst {worst:.3e} (bound {BENCH_EQUIV_RTOL:g})", flush=True)
     check(all(f and e <= BENCH_EQUIV_RTOL for e, f in errs.values()),
@@ -1635,25 +1676,26 @@ def regional_cli(device):
         check(record, "the HIS record is not the restart's state")
 
 
-def regional_times(device, smi, launches, ms64):
-    """Phase 13 (f): float32 ms/step of each case (host clock,
-    REGIONAL_TIMED_STEPS steps after one) beside the float64 ms/step of
-    its physics run (ms64), with its launches a step."""
+def case_times(tag, names, case_fn, smi, launches, ms64):
+    """Float32 ms/step of each case (host clock, TIMED_STEPS
+    steps after one) beside the float64 ms/step of its longer run
+    (ms64[name]: (ms, steps)), with its launches a step."""
     import torch
     from roms_tpu_torch import stepping
-    for name in REGIONAL:
-        cfg, grid, s0, ffn = regional_case(name, device, "float32")
+    for name in names:
+        cfg, grid, s0, ffn = case_fn(name, "float32")
         s = stepping.run(cfg, grid, s0, 1, ffn)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        stepping.run(cfg, grid, s, REGIONAL_TIMED_STEPS, ffn)
+        stepping.run(cfg, grid, s, TIMED_STEPS, ffn)
         torch.cuda.synchronize()
-        ms32 = (time.perf_counter() - t0) * 1e3 / REGIONAL_TIMED_STEPS
-        print(f"[regional-times] {name} {cfg.Lm}x{cfg.Mm}x{cfg.N} nfast "
+        ms32 = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
+        ms, steps = ms64[name]
+        print(f"[{tag}] {name} {cfg.Lm}x{cfg.Mm}x{cfg.N} nfast "
               f"{cfg.nfast}: float32 {ms32:.1f} ms/step "
-              f"({REGIONAL_TIMED_STEPS} steps), float64 {ms64[name]:.1f} "
-              f"ms/step ({REGIONAL_PHYSICS_STEPS[name]} steps); kernel "
-              f"launches a step {launches[name]}; on {smi}", flush=True)
+              f"({TIMED_STEPS} steps), float64 {ms:.1f} "
+              f"ms/step ({steps} steps); kernel launches a step "
+              f"{launches[name]}; on {smi}", flush=True)
 
 
 def regional_phase(device, smi):
@@ -1677,7 +1719,9 @@ def regional_phase(device, smi):
         developed[name] = (cfg, grid, stepping.run(
             cfg.replace(pallas2d=False), grid, s0, 3, ffn), ffn)
     lap("set-up")
-    regional_kernel_checks({}, device, developed)
+    case_kernel_checks("regional", REGIONAL,
+                       lambda n, d: regional_case(n, device, d),
+                       REGIONAL_KERNELS, developed)
     lap("a")
     launches = {name: regional_equivalence(device, name, *developed[name])
                 for name in REGIONAL}
@@ -1689,9 +1733,312 @@ def regional_phase(device, smi):
     lap("d")
     regional_cli(device)
     lap("e")
-    regional_times(device, smi, launches, ms64)
+    case_times("regional-times", REGIONAL,
+               lambda n, d: regional_case(n, device, d), smi, launches,
+               {n: (ms, REGIONAL_PHYSICS_STEPS[n]) for n, ms in ms64.items()})
     lap("f")
     print(f"[regional] phase 13 took {time.perf_counter() - t_phase:.1f} s ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()) + ")",
+          flush=True)
+
+
+# phase 14: the coastal path at full size: LAB_CANYON (polar annulus,
+# north-south periodic, all kernels but t3dmix2_geo), INLET_TEST on a
+# generated grid file (wetting-drying and an open-boundary tide keep rows
+# 7-11 on their plain versions, as the JAX gates do) and BENCHMARK1 with
+# the tide-generating force (prsgrd32 with eq_tide)
+COASTAL = ("lab_canyon", "inlet_test", "tide")
+_STEP_KERNELS = ("grid_flux", "eos", "omega", "prsgrd32", "rhs3d",
+                 "tracer_predictor", "tracer_corrector", "uv_corrector",
+                 "fast_loop")
+COASTAL_KERNELS = {
+    "lab_canyon": _STEP_KERNELS + ("uv3dmix2",),
+    "inlet_test": ("grid_flux", "eos", "omega", "prsgrd32", "uv3dmix2"),
+    "tide": _STEP_KERNELS}
+# INLET_TEST at 100 x 100 x 8 on the generated grid (20 m cells), with
+# tests/test_cases4.py's dt = 8 s and ndtfast = 16
+INLET_SIZE = (100, 100)
+INLET_SETTINGS = dict(N=8, dt=8.0, ndtfast=16)
+COASTAL_EQUIV_STEPS = 3
+LAB_STEPS = 20            # tests/test_cases4.py: 20 steps at rest
+LAB_CONSTANCY_STEPS = 10
+INLET_STEPS = 45          # tests/test_cases4.py: fluxes at 15 and 45
+TIDE_STEPS = 5            # tests/test_tides_avg.py
+# roms_tpu's bound between a file-driven and the analytic run
+# (tests/test_gridfile.py)
+FILE_RUN_ATOL = 1e-10
+
+
+def coastal_case(name, device, tmp, dtype="float64"):
+    """(cfg, grid, state0, forcing_fn) of a phase-14 case at full size;
+    INLET_TEST writes its grid file into directory tmp."""
+    from roms_tpu_torch.models import benchmark, cases4
+    fx = coastal_fixture_script()
+    if name == "lab_canyon":
+        return cases4.lab_canyon(cases4.lab_canyon_config(dtype=dtype),
+                                 device=device)
+    if name == "inlet_test":
+        path = fx.inlet_grid(os.path.join(tmp, "inlet_grd.nc"), *INLET_SIZE)
+        return cases4.inlet_test(
+            cases4.inlet_test_config(dtype=dtype, **INLET_SETTINGS),
+            device=device, grid_path=path)
+    cfg, grid, s0, _ = benchmark.build(benchmark.make_config(dtype=dtype),
+                                       device=device)
+    return cfg.replace(**fx.TIDE_CHANGE), grid, s0, None
+
+
+def _jsonable(v):
+    """A Config value as JSON: tuples and LBCs become lists."""
+    from roms_tpu_torch.config import LBC
+    if isinstance(v, LBC):
+        return [v.west, v.south, v.east, v.north]
+    return list(v) if isinstance(v, tuple) else v
+
+
+def lab_canyon_file_run(device, tmp, cfg, grid, s0, straight):
+    """Phase 14 (b): LAB_CANYON's grid written with save_grid and its
+    initial state with HistoryWriter, run through `python -m
+    roms_tpu_torch run lab.yaml` (case: file, LAB_STEPS float64 steps, HIS
+    at the last); its record equals the analytic run's state `straight`
+    within roms_tpu's file-versus-analytic bound."""
+    import contextlib
+    import io
+    import numpy as np
+    from roms_tpu_torch.__main__ import main as cli
+    from roms_tpu_torch.config import Config
+    from roms_tpu_torch.io import gridfile
+    from roms_tpu_torch.io.netcdf import HistoryWriter, read_history
+    from roms_tpu_torch.ops import diag_cuda
+    grd, ini = os.path.join(tmp, "lab_grd.nc"), os.path.join(tmp,
+                                                             "lab_ini.nc")
+    his, run = os.path.join(tmp, "lab_his.nc"), os.path.join(tmp,
+                                                             "lab.yaml")
+    gridfile.save_grid(grd, cfg, grid)
+    w = HistoryWriter(ini, cfg, grid)
+    w.write(s0)
+    w.close()
+    base = Config()
+    settings = {f.name: _jsonable(getattr(cfg, f.name))
+                for f in dataclasses.fields(cfg)
+                if f.name not in ("Lm", "Mm", "hmin", "nfast")
+                and getattr(cfg, f.name) != getattr(base, f.name)}
+    doc = {"case": "file", "grid_file": grd, "ini_file": ini,
+           "nsteps": LAB_STEPS, "config": settings,
+           "output": {"his_file": his, "nhis": LAB_STEPS,
+                      "ninfo": LAB_STEPS // 2}}
+    with open(run, "w") as f:      # JSON, which is YAML too
+        json.dump(doc, f, indent=1)
+    argv = ["run", run, "--device", str(device)]
+    before = diag_cuda.grid_flux.launches
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli(argv)
+    lines = out.getvalue().splitlines()
+    print(f"[coastal-file] python -m roms_tpu_torch {' '.join(argv)} "
+          f"(case: file, {len(settings)} config fields): exit {rc}",
+          flush=True)
+    for ln in lines[:1] + [ln for ln in lines if "KE=" in ln]:
+        print(f"[coastal-file] | {ln}")
+    check(rc == 0, f"the file-driven CLI run exited {rc}")
+    check(diag_cuda.grid_flux.launches - before == LAB_STEPS,
+          "the file-driven run did not launch grid_flux once a step")
+    h = read_history(his)
+    worst = 0.0
+    errs = []
+    for var, ref in (("zeta", straight.zeta), ("u", straight.u),
+                     ("v", straight.v), ("temp", straight.t[0])):
+        want = interior(cfg, ref).cpu().numpy()
+        err = float(np.abs(np.asarray(h[var][-1], np.float64) - want).max())
+        errs.append(f"{var} {err:.3e}")
+        worst = max(worst, err)
+    print(f"[coastal-file] HIS record of step {LAB_STEPS} against "
+          f"{LAB_STEPS} analytic steps: max |file - analytic| "
+          f"{', '.join(errs)} (bound {FILE_RUN_ATOL:g}, roms_tpu's "
+          f"tests/test_gridfile.py)  {'OK' if worst <= FILE_RUN_ATOL else 'FAIL'}",
+          flush=True)
+    check(worst <= FILE_RUN_ATOL, "the file-driven run misses the analytic")
+
+
+def lab_canyon_physics(device, cfg, grid, s0, straight):
+    """Phase 14 (c): tests/test_cases4.py's LAB_CANYON checks at full
+    size: |u|, |v| < 2e-3 m/s after LAB_STEPS steps at rest, angler
+    spanning (-3, 3), and a constant tracer under a free-surface bump
+    within 2e-5 of its value after LAB_CONSTANCY_STEPS steps."""
+    import torch
+    from roms_tpu_torch import stepping
+    from roms_tpu_torch.ops import bc
+    umax = float(straight.u.abs().max())
+    vmax = float(straight.v.abs().max())
+    amin, amax = float(grid.angler.min()), float(grid.angler.max())
+    t3 = torch.full_like(s0.t, 3.0)
+    s2 = s0.replace(t=t3, t_prev=t3.clone(), zeta=bc.fill_halo(
+        cfg, 5.0e-4 * torch.cos(3.0 * grid.angler)))
+    s2 = stepping.run(cfg, grid, s2, LAB_CONSTANCY_STEPS, None)
+    drift = float((s2.t - 3.0).abs().max())
+    finite = bool(torch.isfinite(straight.zeta).all())
+    ok = finite and umax < 2e-3 and vmax < 2e-3 and amin < -3.0 and \
+        amax > 3.0 and drift < 2e-5
+    print(f"[coastal-physics] lab_canyon {cfg.Lm}x{cfg.Mm}x{cfg.N} after "
+          f"{LAB_STEPS} float64 steps: max|u| {umax:.3e}, max|v| "
+          f"{vmax:.3e} m/s (< 2e-3); angler in [{amin:.4f}, {amax:.4f}] "
+          f"(spans (-3, 3)); constant tracer after {LAB_CONSTANCY_STEPS} "
+          f"steps off by {drift:.3e} (< 2e-5); finite={finite}  "
+          f"{'OK' if ok else 'FAIL'}", flush=True)
+    check(ok, "lab_canyon: the physics checks failed")
+
+
+def inlet_physics(device, smi, cfg, grid, s0, ffn):
+    """Phase 14 (d): INLET_TEST's checks (tests/test_cases4.py and
+    tests/test_wetdry.py) in float64: the ebb through the throat grows
+    from step 15 to INLET_STEPS, some water cells are dry at the end, and
+    no cell's total depth falls below half the critical depth; returns
+    ms/step."""
+    import torch
+    from roms_tpu_torch import stepping
+    from roms_tpu_torch.ops import wetdry
+    H = cfg.halo
+    s = s0
+    fluxes = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for n in range(INLET_STEPS):
+        s = stepping.step(cfg, grid, s, ffn)
+        if n % 15 == 14:
+            fluxes.append(float(s.vbar[H + cfg.Mm // 2,
+                                       H:H + cfg.Lm].sum()))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / INLET_STEPS
+    dry = (wetdry.rho_wet(cfg, grid, s.zeta) == 0) & (grid.rmask == 1)
+    ndry = int(interior(cfg, dry).sum())
+    depth = float(interior(cfg, s.zeta + grid.h).min())
+    finite = bool(torch.isfinite(s.zeta).all() and torch.isfinite(s.u).all())
+    ok = finite and abs(fluxes[-1]) > abs(fluxes[0]) and ndry > 0 and \
+        depth > 0.5 * cfg.dcrit
+    print(f"[coastal-physics] inlet_test {cfg.Lm}x{cfg.Mm}x{cfg.N} "
+          f"(generated grid, nfast {cfg.nfast}), {INLET_STEPS} float64 "
+          f"steps ({INLET_STEPS * cfg.dt:g} s): {ms:.1f} ms/step on {smi}; "
+          f"sum of vbar across the throat at steps 15, 30, 45: "
+          + ", ".join(f"{f:.4e}" for f in fluxes)
+          + f" (|45| > |15|); dry water cells {ndry} (> 0); min total depth "
+          f"{depth:.6f} m (> 0.5 dcrit = {0.5 * cfg.dcrit:g}); "
+          f"finite={finite}  {'OK' if ok else 'FAIL'}", flush=True)
+    check(ok, "inlet_test: the physics checks failed")
+    return ms
+
+
+def tide_physics(device, cfg, grid, s0):
+    """Phase 14 (e): tests/test_tides_avg.py's check at BENCHMARK1's size:
+    from rest, TIDE_STEPS steps with the equilibrium-tide force give
+    0 < |u| < 0.5 m/s; returns ms/step."""
+    import torch
+    from roms_tpu_torch import stepping
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s = stepping.run(cfg, grid, s0, TIDE_STEPS, None)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / TIDE_STEPS
+    umax = float(s.u.abs().max())
+    ok = bool(torch.isfinite(s.u).all()) and 0.0 < umax < 0.5
+    print(f"[coastal-physics] BENCHMARK1 {cfg.Lm}x{cfg.Mm}x{cfg.N} with the "
+          f"tide-generating force, {TIDE_STEPS} float64 steps from rest: "
+          f"max|u| {umax:.4e} m/s (0 < |u| < 0.5)  {'OK' if ok else 'FAIL'}",
+          flush=True)
+    check(ok, "tide: the physics check failed")
+    return ms
+
+
+def coastal_fixture(device, tmp):
+    """Phase 14 (f): the small cases and the wet/dry fast loop against
+    tests/data/torch_coastal_small.npz at CARD_FACTOR times the CPU
+    bounds."""
+    import numpy as np
+    from roms_tpu_torch import stepping
+    from roms_tpu_torch.ops import step2d
+    fx = coastal_fixture_script()
+    ref = np.load(fx.OUT)
+    for name in fx.CASES:
+        cfg, grid, s0, ffn = fx.build_port(name, tmp, device=device)
+        s = stepping.run(cfg, grid, s0, fx.NSTEPS, ffn)
+        errors = fx.errors(name, cfg, s0, s, ref, factor=CARD_FACTOR)
+        worst = max(errors.items(), key=lambda kv: kv[1][0] / kv[1][1])
+        print(f"[coastal-fixture] {name}: worst against its bound: "
+              f"{worst[0]} {worst[1][0]:.3e} (bound {worst[1][1]:g})",
+              flush=True)
+        bad = {k: e for k, e in errors.items() if not e[0] <= e[1]}
+        check(not bad, f"the small {name} misses its fixture: {bad}")
+    cfg, grid, _, _ = fx.build_port("inlet_test", tmp, device=device)
+    errors = fx.wetdry_errors(fx.port_wetdry_loop(step2d, cfg, grid), ref,
+                              factor=CARD_FACTOR)
+    worst = max(errors.items(), key=lambda kv: kv[1][0] / kv[1][1])
+    print(f"[coastal-fixture] wet/dry fast loop: worst against its bound: "
+          f"{worst[0]} {worst[1][0]:.3e} (bound {worst[1][1]:g})",
+          flush=True)
+    bad = {k: e for k, e in errors.items() if not e[0] <= e[1]}
+    check(not bad, f"the wet/dry fast loop misses its fixture: {bad}")
+
+
+def coastal_phase(device, smi):
+    """Phase 14: LAB_CANYON, INLET_TEST and BENCHMARK1 with tides at full
+    size: (a) kernels against plain on each case's arguments and (a')
+    kernels on against off, (b) LAB_CANYON through a grid file and the
+    CLI, (c) LAB_CANYON's physics, (d) INLET_TEST's, (e) the tide's,
+    (f) the small fixture, and ms/step."""
+    import tempfile
+    import torch
+    from roms_tpu_torch import stepping
+    t_phase = t_part = time.perf_counter()
+    parts = {}
+
+    def lap(part):
+        nonlocal t_part
+        now = time.perf_counter()
+        parts[part] = now - t_part
+        t_part = now
+
+    fx = coastal_fixture_script()
+    with tempfile.TemporaryDirectory() as tmp:
+        developed = {}
+        for name in COASTAL:
+            cfg, grid, s0, ffn = coastal_case(name, device, tmp)
+            developed[name] = (cfg, grid, stepping.run(
+                cfg.replace(pallas2d=False), grid, s0, 3, ffn), ffn)
+        lap("set-up")
+        case_kernel_checks("coastal", COASTAL,
+                           lambda n, d: coastal_case(n, device, tmp, d),
+                           COASTAL_KERNELS, developed)
+        lap("a")
+        launches = {name: kernels_on_off(
+            "coastal-equiv", name, *developed[name], COASTAL_KERNELS[name],
+            fx, COASTAL_EQUIV_STEPS) for name in COASTAL}
+        del developed
+        lap("a'")
+        ms64 = {}
+        cfg, grid, s0, ffn = coastal_case("lab_canyon", device, tmp)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        straight = stepping.run(cfg, grid, s0, LAB_STEPS, ffn)
+        torch.cuda.synchronize()
+        ms64["lab_canyon"] = ((time.perf_counter() - t0) * 1e3 / LAB_STEPS,
+                              LAB_STEPS)
+        lab_canyon_file_run(device, tmp, cfg, grid, s0, straight)
+        lap("b")
+        lab_canyon_physics(device, cfg, grid, s0, straight)
+        del straight
+        lap("c")
+        ms64["inlet_test"] = (inlet_physics(
+            device, smi, *coastal_case("inlet_test", device, tmp)),
+            INLET_STEPS)
+        lap("d")
+        cfg, grid, s0, _ = coastal_case("tide", device, tmp)
+        ms64["tide"] = (tide_physics(device, cfg, grid, s0), TIDE_STEPS)
+        lap("e")
+        coastal_fixture(device, tmp)
+        lap("f")
+        case_times("coastal-times", COASTAL,
+                   lambda n, d: coastal_case(n, device, tmp, d), smi,
+                   launches, ms64)
+        lap("times")
+    print(f"[coastal] phase 14 took {time.perf_counter() - t_phase:.1f} s ("
           + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()) + ")",
           flush=True)
 
@@ -1750,6 +2097,7 @@ def main() -> int:
         return 2
     timing = sys.argv[1:2] == ["--column-times"]
     regional_only = sys.argv[1:2] == ["--regional"]
+    coastal_only = sys.argv[1:2] == ["--coastal"]
     sys.path.insert(0, os.path.abspath(sys.argv[2]) if timing else ROOT)
     try:
         import roms_tpu_torch  # noqa: F401
@@ -1758,7 +2106,7 @@ def main() -> int:
         print(f"chip_smoke: roms_tpu_torch is not importable beside this "
               f"script ({exc})", file=sys.stderr)
         return 2
-    for path in (ANCHOR, BENCH_FIXTURE, REGIONAL_FIXTURE):
+    for path in (ANCHOR, BENCH_FIXTURE, REGIONAL_FIXTURE, COASTAL_FIXTURE):
         if not os.path.exists(path):
             print(f"chip_smoke: missing {path}", file=sys.stderr)
             return 2
@@ -1790,6 +2138,9 @@ def main() -> int:
         if regional_only:
             regional_phase(device, smi)
             return 0
+        if coastal_only:
+            coastal_phase(device, smi)
+            return 0
         results = {}
         kernel_checks(results, device)
         main_path(device)
@@ -1805,6 +2156,7 @@ def main() -> int:
         profile(device, "benchmark")
         driver_phase(device, smi)
         regional_phase(device, smi)
+        coastal_phase(device, smi)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

@@ -3,6 +3,7 @@ counterpart of ``python -m roms_tpu``:
 
     python -m roms_tpu_torch run config.yaml
     python -m roms_tpu_torch run --case upwelling --nsteps 100 --his his.nc
+    python -m roms_tpu_torch run file_driven.yaml --device cpu
     python -m roms_tpu_torch cases
 
 The run goes on the CUDA card unless `--device` names another; without a
@@ -39,6 +40,7 @@ def main(argv=None):
     if args.cmd == "cases":
         for name in sorted(CASES):
             print(name)
+        print("file")       # a YAML run with grid_file, ini_file, frc_file
         return 0
 
     if args.yaml:

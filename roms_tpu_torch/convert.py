@@ -2,9 +2,10 @@
 
 The JAX side is handed over as plain Python and numpy: a ``roms_tpu``
 Config (a frozen dataclass, read field by field), Grid/State as
-``dict[str, np.ndarray]`` (the caller does the ``np.asarray``), the
-open-boundary data ``bry`` as a dict of arrays or scalars, and point
-sources as the fields of a ``PointSources``.  This module imports no jax.
+``dict[str, np.ndarray]`` (the caller does the ``np.asarray``; a grid read
+by roms_tpu's io/gridfile.load_grid is a Grid like any other), the step's
+dicts ``bry``, ``clm`` and ``wet`` as dicts of arrays or scalars, and
+point sources as the fields of a ``PointSources``.  This module imports no jax.
 """
 
 from __future__ import annotations
@@ -68,13 +69,16 @@ def state_from_numpy(cfg: Config, arrays: dict,
     return State(time=float(arrays["time"]), iic=int(arrays["iic"]), **kw)
 
 
-def bry_from_numpy(cfg: Config, bry: dict,
-                   device=torch.device("cuda")) -> dict:
-    """Open-boundary data (ops/obc.py) from {key: array or scalar}: arrays
-    become tensors in the configuration's dtype, scalars stay floats."""
+def fields_from_numpy(cfg: Config, fields: dict,
+                      device=torch.device("cuda")) -> dict:
+    """A dict of fields from {key: array or scalar}: arrays become tensors
+    in the configuration's dtype, scalars stay floats.  It carries the
+    step's dicts across: open-boundary data `bry` (ops/obc.py), the
+    climatology `clm` (ubarclm/vbarclm/m2nudg, uclm/vclm/m3nudg,
+    tclm/tnudg) and the fast loop's averaged wet/dry masks `wet`."""
     dtype = torch_dtype(cfg)
     return {k: float(v) if np.ndim(v) == 0 else _tensor(v, dtype, device)
-            for k, v in bry.items()}
+            for k, v in fields.items()}
 
 
 def sources_from_numpy(cfg: Config, arrays: dict,

@@ -1,4 +1,5 @@
-"""Grid container and the analytic Cartesian and spherical grid builders.
+"""Grid container, the analytic Cartesian, spherical and curvilinear grid
+builders, and sponge layers.
 
 Counterpart of ``roms_tpu/grid.py``.  Grids are built in float64 numpy at
 set-up time (the fast-filter weights with longdouble sums, as the reference's
@@ -10,6 +11,7 @@ ops/stencil.py for the index convention.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Callable, Optional
 
@@ -287,6 +289,55 @@ def build_spherical_grid(
                      rmask.copy(), rmask.copy(), device)
 
 
+def build_curvilinear_grid(cfg: Config, xr, yr, pm, pn, f, h, rmask=None,
+                           angler=None,
+                           device: torch.device | str = torch.device("cuda")):
+    """A grid from caller-supplied curvilinear arrays (padded (ny_tot,
+    nx_tot) numpy): the generic analytic-curvilinear path (ana_grid.h
+    LAB_CANYON-style polar set-ups).  dndx/dmde follow from pm/pn as in
+    metrics.F, the staggered masks as in set_masks.F.  Returns (grid, cfg)
+    with hmin and nfast set."""
+    xr = np.asarray(xr, np.float64)
+    h, f, pm, pn = (_fill_periodic(cfg, np.asarray(a, np.float64))
+                    for a in (h, f, pm, pn))
+    if rmask is None:
+        rmask = np.ones_like(h)
+    else:
+        rmask = _fill_periodic(cfg, np.asarray(rmask, np.float64))
+    umask = rmask * np.roll(rmask, 1, axis=-1)
+    vmask = rmask * np.roll(rmask, 1, axis=-2)
+    pmask = umask * np.roll(umask, 1, axis=-2)
+    return _assemble(cfg, h, f, pm, pn, xr, np.asarray(yr, np.float64),
+                     rmask, umask, vmask, pmask, device, angler=angler)
+
+
+def add_sponge(grid: Grid, cfg: Config, width: int, factor: float,
+               sides=("west", "south", "east", "north")) -> Grid:
+    """Linear sponge layers: the viscosity and diffusivity factors ramp
+    from `factor` at the open edges to 1 over `width` interior cells
+    (ini_hmixcoef.F sponge logic; a periodic axis has none).  Returns a
+    new Grid on the same device; the mixing reads the factors when
+    cfg.use_sponge is set."""
+    H = cfg.halo
+    vf = grid.visc_factor.detach().cpu().numpy().astype(np.float64)
+    ramp = np.linspace(factor, 1.0, width, endpoint=False)
+    for w in range(width):
+        r = ramp[w]
+        if "west" in sides and not cfg.ew_periodic:
+            vf[:, H + w] = np.maximum(vf[:, H + w], r)
+        if "east" in sides and not cfg.ew_periodic:
+            vf[:, H + cfg.Lm - 1 - w] = np.maximum(
+                vf[:, H + cfg.Lm - 1 - w], r)
+        if "south" in sides and not cfg.ns_periodic:
+            vf[H + w, :] = np.maximum(vf[H + w, :], r)
+        if "north" in sides and not cfg.ns_periodic:
+            vf[H + cfg.Mm - 1 - w, :] = np.maximum(
+                vf[H + cfg.Mm - 1 - w, :], r)
+    vft = torch.as_tensor(vf).to(device=grid.visc_factor.device,
+                                 dtype=grid.visc_factor.dtype)
+    return dataclasses.replace(grid, visc_factor=vft, diff_factor=vft.clone())
+
+
 def torch_dtype(cfg: Config) -> torch.dtype:
     """The tensor dtype named by cfg.dtype ("float32" or "float64")."""
     try:
@@ -296,7 +347,7 @@ def torch_dtype(cfg: Config) -> torch.dtype:
 
 
 def _assemble(cfg: Config, h, f, pm, pn, xr, yr, rmask, umask, vmask, pmask,
-              device):
+              device, angler=None):
     # curvilinear curvature terms (metrics.F; uniform grids give zero)
     if cfg.curvgrid:
         inv_pn = 1.0 / pn
@@ -325,7 +376,9 @@ def _assemble(cfg: Config, h, f, pm, pn, xr, yr, rmask, umask, vmask, pmask,
         h=ten(h), f=ten(f), pm=ten(pm), pn=ten(pn), xr=ten(xr), yr=ten(yr),
         rmask=ten(rmask), umask=ten(umask), vmask=ten(vmask),
         pmask=ten(pmask), dndx=ten(dndx), dmde=ten(dmde),
-        angler=ten(np.zeros_like(h)),
+        angler=ten(np.zeros_like(h) if angler is None
+                   else _fill_closed_halo(cfg, np.asarray(angler,
+                                                          np.float64))),
         sc_r=ten(sc_r), Cs_r=ten(Cs_r), sc_w=ten(sc_w), Cs_w=ten(Cs_w),
         weight1=ten(w1), weight2=ten(w2),
         visc_factor=ten(np.ones_like(h)), diff_factor=ten(np.ones_like(h)),

@@ -40,7 +40,7 @@ def field(state, name: str):
 
 
 def _host(a) -> np.ndarray:
-    """A grid field as a numpy array (a tensor is copied to the host)."""
+    """A field as a numpy array (a tensor is copied to the host)."""
     if hasattr(a, "detach"):
         return a.detach().cpu().numpy()
     return np.asarray(a)
@@ -66,15 +66,15 @@ class HistoryWriter:
                  fields=("zeta", "ubar", "vbar", "u", "v", "temp", "salt")):
         self.path = path
         self.cfg = cfg
-        # extra tracers (biology etc.): append their registered names
-        # to the default field list (mod_ncparam idTvar analog)
+        # the default list writes every tracer under its registered name
+        # (mod_ncparam idTvar analog): temp alone for one tracer, the
+        # biology's or generic names after salt for more than two
         self._tracer_idx = {}
         from .varinfo import tracer_names
         tnames = tracer_names(cfg)
-        if fields == HistoryWriter.__init__.__defaults__[1] and \
-                cfg.ntracers > 2:
-            fields = tuple(fields) + tuple(
-                tnames[i] for i in range(2, cfg.ntracers))
+        if fields == HistoryWriter.__init__.__defaults__[1]:
+            fields = tuple(fields[:5]) + tuple(
+                tnames[i] for i in range(cfg.ntracers))
         self._tracer_idx = {v: k for k, v in tnames.items()}
         self.fields = fields
         self.checksums = []
@@ -130,17 +130,17 @@ class HistoryWriter:
         """Resolve an output field name against a state (or the
         `extra` dict of derived records - the quadratic averages)."""
         if extra is not None and name in extra:
-            return np.asarray(extra[name])
+            return _host(extra[name])
         if name in self._tracer_idx:
-            return np.asarray(field(state, "t")[self._tracer_idx[name]])
+            return _host(field(state, "t")[self._tracer_idx[name]])
         if name in self.SURFACE:
             attr, tidx = self.SURFACE[name]
             a = field(state, attr)
             if tidx is not None:
                 a = a[tidx]
-            return np.asarray(a[-1])
+            return _host(a[-1])
         attr = self.ATTR_OF.get(name, name)
-        a = np.asarray(field(state, attr))
+        a = _host(field(state, attr))
         if name == "AKt":
             a = a[0]
         return a

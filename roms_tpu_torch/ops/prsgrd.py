@@ -93,7 +93,11 @@ def prsgrd32(cfg: Config, grid, rho, z_r, z_w, Hz, eq_tide=None):
 
 
 def prsgrd(cfg: Config, grid, rho, z_r, z_w, Hz, eq_tide=None):
-    """Dispatch on cfg.prsgrd_scheme; only "djs" is ported."""
+    """Dispatch on cfg.prsgrd_scheme; only "djs" is ported.  The
+    tide-generating force (eq_tide) enters djs only, as in roms_tpu."""
+    if eq_tide is not None and cfg.prsgrd_scheme != "djs":
+        raise ValueError("TIDE_GENERATING_FORCES is wired into the default "
+                         "djs (prsgrd32) scheme only")
     if cfg.prsgrd_scheme != "djs":
         raise NotImplementedError(
             f"pressure-gradient scheme {cfg.prsgrd_scheme!r} (only the "

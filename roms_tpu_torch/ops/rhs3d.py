@@ -5,6 +5,8 @@ Adds to the pressure-gradient ru/rv: Coriolis, curvilinear metric terms,
 3rd-order upstream-biased horizontal advection (Gadv=-0.25) and 4th-order
 centered vertical advection; then integrates vertically into the barotropic
 forcing rufrc/rvfrc and adds the surface - bottom stress difference.
+With `clm` (uclm/vclm and m3nudg) it nudges toward the 3-D momentum
+climatology after the advection (rhs3d.F:211-241).
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ ALL_PIECES = ("cor", "curv", "hadv", "vadv", "clm", "bodyforce", "frc")
 
 def rhs3d_momentum(cfg: Config, grid: Grid, u, v, Huon, Hvom, W, Hz,
                    ru, rv, sustr, svstr, bustr, bvstr,
-                   want_diags: bool = False, parts: str = "uv",
+                   clm=None, want_diags: bool = False, parts: str = "uv",
                    pieces=ALL_PIECES):
     """Returns (ru, rv, rufrc, rvfrc), plus a dict of per-term
     contributions (cor/xadv/yadv/vadv, each a (u, v) pair) when
@@ -157,6 +159,16 @@ def rhs3d_momentum(cfg: Config, grid: Grid, u, v, Huon, Hvom, W, Hz,
         dia["xadv"] = (xadv_u, xadv_v)
         dia["yadv"] = (yadv_u, yadv_v)
         dia["vadv"] = (vadv_u, vadv_v)
+
+    # ---- nudging toward the 3-D momentum climatology (rhs3d.F:211-241) ----
+    if clm is not None and "uclm" in clm and "clm" in pieces:
+        nudg = clm.get("m3nudg", 0.0)
+        if do_u:
+            ru = ru + nudg * (grid.om_u * grid.on_u) * 0.5 * \
+                (Hz + im1(Hz)) * (clm["uclm"] - u)
+        if do_v:
+            rv = rv + nudg * (grid.om_v * grid.on_v) * 0.5 * \
+                (Hz + jm1(Hz)) * (clm["vclm"] - v)
 
     # ---- vertical integral -> barotropic forcing (rhs3d.F:523-559) ----
     if "frc" in pieces:

@@ -4,11 +4,11 @@
 Fast2DState carries the rotating storage of the reference's fast loop as
 named fields.  depth_fluxes, _rhs_momentum and _step_momentum are the
 building blocks of the fast loop.  ``fast_loop`` is the general plain loop
-(open boundaries, volume conservation, point sources), which the step
-takes where the fused kernel of ops/step2d_cuda.py does not apply, as the
-JAX step takes ``roms_tpu/ops/step2d.py::fast_loop`` where its Pallas
-kernel does not.  Wetting-drying, climatology nudging and the Stokes drift
-raise NotImplementedError.
+(open boundaries, volume conservation, point sources, wetting-drying and
+2-D momentum climatology nudging), which the step takes where the fused
+kernel of ops/step2d_cuda.py does not apply, as the JAX step takes
+``roms_tpu/ops/step2d.py::fast_loop`` where its Pallas kernel does not.
+The Stokes drift raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ import torch
 from .. import constants as C
 from ..config import Config
 from ..grid import Grid
-from . import bc, obc
+from . import bc, obc, wetdry
 from .stencil import ip1, im1, jp1, jm1, at_u, at_v, at_p
 
 FS_FIELDS = ("zeta_n", "zeta_nm1", "ubar_n", "ubar_nm1", "vbar_n",
@@ -71,10 +71,13 @@ def _g(cfg: Config) -> float:
 
 
 def _rhs_momentum(cfg: Config, grid: Grid, ubar, vbar, Drhs, DUon, DVom,
-                  gzeta, gzeta2):
-    """RHS of the 2-D momentum equations (step2d_LF_AM3.h:929-1790 under
+                  gzeta, gzeta2, pmask_wet=None, clm=None):
+    """RHS of the 2-D momentum equations (step2d_LF_AM3.h:929-1844 under
     SOLVE3D): surface-slope pressure gradient, 4th-order advection,
-    Coriolis, curvilinear terms and harmonic viscosity."""
+    Coriolis, curvilinear terms, harmonic viscosity (its corner stress
+    times pmask_wet under WET_DRY) and nudging toward the 2-D momentum
+    climatology clm["ubarclm"/"vbarclm"] with clm["m2nudg"] (1/s, a scalar
+    or a rho-point field)."""
     if not cfg.solve3d:
         raise NotImplementedError("2-D-only mode (main2d) fast step")
     H = cfg.halo
@@ -160,6 +163,8 @@ def _rhs_momentum(cfg: Config, grid: Grid, ubar, vbar, Drhs, DUon, DVom,
             (sum_pn / sum_pm) *
             ((im1(pm) + pm) * ubar - (im1(jm1(pm)) + jm1(pm)) * jm1(ubar)))
         cff_p = cff_p * grid.pmask
+        if pmask_wet is not None:              # step2d_LF_AM3.h:1436-1439
+            cff_p = cff_p * pmask_wet
         om_p = 4.0 / sum_pm
         on_p = 4.0 / sum_pn
         UFev = om_p * om_p * cff_p
@@ -171,6 +176,21 @@ def _rhs_momentum(cfg: Config, grid: Grid, ubar, vbar, Drhs, DUon, DVom,
         rhs_vbar = rhs_vbar + \
             0.5 * (jm1(pn) + pn) * (ip1(VFxv) - VFxv) - \
             0.5 * (jm1(pm) + pm) * (VFev - jm1(VFev))
+
+    # --- 2-D momentum climatology nudging (step2d_LF_AM3.h:1822-1844
+    #     LnudgeM2CLM): the face average of m2nudg times the cell area,
+    #     times the face depth ---
+    if clm is not None and "ubarclm" in clm:
+        nud = clm.get("m2nudg", 0.0)
+        field = isinstance(nud, torch.Tensor)
+        cff_u = 0.25 * (im1(nud) + nud) * grid.om_u * grid.on_u if field \
+            else 0.5 * nud * grid.om_u * grid.on_u
+        rhs_ubar = rhs_ubar + cff_u * (im1(Drhs) + Drhs) * \
+            (clm["ubarclm"] - ubar)
+        cff_v = 0.25 * (jm1(nud) + nud) * grid.om_v * grid.on_v if field \
+            else 0.5 * nud * grid.om_v * grid.on_v
+        rhs_vbar = rhs_vbar + cff_v * (jm1(Drhs) + Drhs) * \
+            (clm["vbarclm"] - vbar)
     return rhs_ubar, rhs_vbar
 
 
@@ -208,22 +228,24 @@ def fast_loop(cfg: Config, grid: Grid, fs: Fast2DState, rufrc=None,
     """The full fast loop of one slow step (SOLVE3D mode): the peeled FE
     predictor and first corrector, nfast-1 LF/AM3 predictor/corrector
     pairs, and the auxiliary averaging step (roms_tpu/ops/step2d.py:
-    271-632; step2d_LF_AM3.h).
+    271-630; step2d_LF_AM3.h).
 
     rufrc/rvfrc are the depth-integrated slow RHS; the first predictor
     turns them into forcing increments with the AB3-like extrapolation
     against the (ru0_nm1, ru0_nm2) history (step2d_LF_AM3.h:1868-1990);
     iic is the host step count that picks the start-up weights.  Open
     boundaries go through obc.zetabc/u2dbc/v2dbc after the simple kinds,
-    cfg.volcons through obc.obc_volcons, and `sources` through
-    sources.apply_ubar_sources.  Returns (fs, rufrc_c, rvfrc_c); every
-    tensor is new, so the caller's fs, bry and sources are unchanged."""
-    if cfg.wetdry:
-        raise NotImplementedError("the general fast loop: wetting-drying "
-                                  "(WET_DRY)")
-    if clm is not None:
-        raise NotImplementedError("the general fast loop: climatology "
-                                  "nudging (clm)")
+    cfg.volcons through obc.obc_volcons, `sources` through
+    sources.apply_ubar_sources, and `clm` (ubarclm/vbarclm/m2nudg) into
+    the momentum rhs.  Under cfg.wetdry the wet/dry masks are made anew
+    from zeta at the kstp level of every substep, the directional limiter
+    multiplies the new velocities and the stored rhs, zeta keeps Dcrit on
+    land, and the rho masks are summed for the averaged masks.
+
+    Returns (fs, rufrc_c, rvfrc_c, wet): wet is None unless cfg.wetdry,
+    else {"rmask_wet", "umask_wet", "vmask_wet"}, the fast-time-averaged
+    masks for the 3-D step (wetdry.F wetdry_avg_mask_tile).  Every tensor
+    is new, so the caller's fs, bry and sources are unchanged."""
     if us2d is not None or cfg.nearshore is not None:
         raise NotImplementedError("the general fast loop: Stokes drift "
                                   "(NEARSHORE)")
@@ -237,12 +259,22 @@ def fast_loop(cfg: Config, grid: Grid, fs: Fast2DState, rufrc=None,
     adv_z = bc.has_advanced(cfg.lbc_zeta)
     adv_u = bc.has_advanced(cfg.lbc_ubar)
     adv_v = bc.has_advanced(cfg.lbc_vbar)
+    use_wd = cfg.wetdry
+
+    def wmasks(z_kstp):
+        """New wet/dry masks from zeta at the kstp level
+        (step2d_LF_AM3.h:729 -> wetdry_tile)."""
+        wd = wetdry.rho_wet(cfg, grid, z_kstp)
+        um, vm = wetdry.face_masks(wd)
+        return wd, um, vm, wetdry.psi_wet(wd)
 
     def zbc(z_new, z_know, dt2d):
         z_new = bc.apply_bc_rho(cfg, cfg.lbc_zeta, z_new, mask=grid.rmask)
         if adv_z:
             z_new = bc.fill_halo(cfg, obc.zetabc(
                 cfg, grid, cfg.lbc_zeta, z_know, z_new, dt2d, bry))
+        if use_wd:
+            z_new = wetdry.clamp_zeta(cfg, grid, z_new)
         return z_new
 
     def ubc(u_new, u_know, z_know, dt2d, z_new, v_know):
@@ -276,11 +308,26 @@ def fast_loop(cfg: Config, grid: Grid, fs: Fast2DState, rufrc=None,
                                           grid.h, grid.on_u, grid.om_v)
         return bc.fill_halo(cfg, u_new), bc.fill_halo(cfg, v_new)
 
+    def bcs(u_new, v_new, u_know, v_know, z_know, dt2d, z_new, um, vm):
+        """Lateral BCs of the new velocities, the limiter again after them
+        under WET_DRY (the reference limits the boundary points inside
+        u2dbc/v2dbc, u2dbc_im.F:1187-1234; idempotent inside), then the
+        volume conservation and sources."""
+        u_new = ubc(u_new, u_know, z_know, dt2d, z_new, v_know)
+        v_new = vbc(v_new, v_know, z_know, dt2d, z_new, u_know)
+        if use_wd:
+            u_new = u_new * wetdry.limit(um, u_new)
+            v_new = v_new * wetdry.limit(vm, v_new)
+        return srcs(u_new, v_new, z_new)
+
     if rufrc is None:
         rufrc = rvfrc = zero
         ru0_nm1 = ru0_nm2 = rv0_nm1 = rv0_nm2 = zero
 
     # ================= fast step 1 (peeled: FE predictor) =================
+    um_w = vm_w = pw_w = wet_avg = None
+    if use_wd:                 # FIRST_2D_STEP predictor: kstp = n
+        wet_avg, um_w, vm_w, pw_w = wmasks(fs.zeta_n)
     Drhs, DUon, DVom = depth_fluxes(grid, fs.zeta_n, fs.ubar_n, fs.vbar_n)
     # averaging reset (:611-634); weight(2,iif+1) with iif=1 -> w2[1]
     cff2 = (-1.0 / 12.0) * w2[1]
@@ -294,7 +341,8 @@ def fast_loop(cfg: Config, grid: Grid, fs: Fast2DState, rufrc=None,
     zeta_p = zbc(zeta_new, fs.zeta_n, dtfast)
 
     rhs_ubar, rhs_vbar = _rhs_momentum(cfg, grid, fs.ubar_n, fs.vbar_n,
-                                       Drhs, DUon, DVom, zwrk, zwrk * zwrk)
+                                       Drhs, DUon, DVom, zwrk, zwrk * zwrk,
+                                       pmask_wet=pw_w, clm=clm)
 
     # --- 2D-3D coupling on the first predictor (:1868-1990) ---
     rufrc_c = rufrc - rhs_ubar
@@ -307,15 +355,29 @@ def fast_loop(cfg: Config, grid: Grid, fs: Fast2DState, rufrc=None,
     ubar_p, vbar_p = _step_momentum(
         cfg, grid, fs.ubar_n, fs.vbar_n, fs.zeta_n + h, Dnew,
         0.5 * dtfast * rhs_ubar, 0.5 * dtfast * rhs_vbar)
-    ubar_p = ubc(ubar_p, fs.ubar_n, fs.zeta_n, dtfast, zeta_p, fs.vbar_n)
-    vbar_p = vbc(vbar_p, fs.vbar_n, fs.zeta_n, dtfast, zeta_p, fs.ubar_n)
-    ubar_p, vbar_p = srcs(ubar_p, vbar_p, zeta_p)
+    if use_wd:
+        # the limiter on the new velocity, the stored rhs and (first
+        # predictor only) the coupling forcing (step2d_LF_AM3.h:2123-2146)
+        c7u = wetdry.limit(um_w, ubar_p)
+        c7v = wetdry.limit(vm_w, vbar_p)
+        ubar_p = ubar_p * c7u
+        vbar_p = vbar_p * c7v
+        rhs_ubar = rhs_ubar * c7u
+        rhs_vbar = rhs_vbar * c7v
+        rufrc_c = rufrc_c * c7u
+        rvfrc_c = rvfrc_c * c7v
+    ubar_p, vbar_p = bcs(ubar_p, vbar_p, fs.ubar_n, fs.vbar_n, fs.zeta_n,
+                         dtfast, zeta_p, um_w, vm_w)
     fs = fs.replace(
         rzeta_nm1=fs.rzeta_n, rzeta_n=bc.fill_halo(cfg, rhs_zeta),
         rubar_nm1=fs.rubar_n, rubar_n=rhs_ubar,
         rvbar_nm1=fs.rvbar_n, rvbar_n=rhs_vbar)
 
-    def corrector(i, fs, zeta_p, ubar_p, vbar_p, first: bool):
+    def corrector(i, fs, zeta_p, ubar_p, vbar_p, first: bool, wet_avg):
+        um_c = vm_c = pw_c = None
+        if use_wd:             # corrector: kstp = n -> masks from zeta_n
+            wd_c, um_c, vm_c, pw_c = wmasks(fs.zeta_n)
+            wet_avg = wet_avg + wd_c
         Drhs, DUon, DVom = depth_fluxes(grid, zeta_p, ubar_p, vbar_p)
         # averaging, corrector branch (:688-713): weight(2,iif) -> w2[i-1]
         cff2 = w2[i - 1] if first else (5.0 / 12.0) * w2[i - 1]
@@ -334,7 +396,8 @@ def fast_loop(cfg: Config, grid: Grid, fs: Fast2DState, rufrc=None,
         zeta_new = zbc(zeta_new, fs.zeta_n, dtfast)
 
         rhs_ubar, rhs_vbar = _rhs_momentum(cfg, grid, ubar_p, vbar_p, Drhs,
-                                           DUon, DVom, zwrk, zwrk * zwrk)
+                                           DUon, DVom, zwrk, zwrk * zwrk,
+                                           pmask_wet=pw_c, clm=clm)
         rhs_ubar = rhs_ubar + rufrc_c
         rhs_vbar = rhs_vbar + rvfrc_c
 
@@ -345,20 +408,24 @@ def fast_loop(cfg: Config, grid: Grid, fs: Fast2DState, rufrc=None,
             cfg, grid, fs.ubar_n, fs.vbar_n, fs.zeta_n + h, Dnew,
             cm1 * rhs_ubar + cm2 * fs.rubar_n - cm3 * fs.rubar_nm1,
             cm1 * rhs_vbar + cm2 * fs.rvbar_n - cm3 * fs.rvbar_nm1)
-        ubar_new = ubc(ubar_new, fs.ubar_n, fs.zeta_n, dtfast, zeta_new,
-                       fs.vbar_n)
-        vbar_new = vbc(vbar_new, fs.vbar_n, fs.zeta_n, dtfast, zeta_new,
-                       fs.ubar_n)
-        ubar_new, vbar_new = srcs(ubar_new, vbar_new, zeta_new)
+        if use_wd:
+            ubar_new = ubar_new * wetdry.limit(um_c, ubar_new)
+            vbar_new = vbar_new * wetdry.limit(vm_c, vbar_new)
+        ubar_new, vbar_new = bcs(ubar_new, vbar_new, fs.ubar_n, fs.vbar_n,
+                                 fs.zeta_n, dtfast, zeta_new, um_c, vm_c)
         return fs.replace(
             zeta_nm1=fs.zeta_n, zeta_n=zeta_new,
             ubar_nm1=fs.ubar_n, ubar_n=ubar_new,
-            vbar_nm1=fs.vbar_n, vbar_n=vbar_new)
+            vbar_nm1=fs.vbar_n, vbar_n=vbar_new), wet_avg
 
-    fs = corrector(1, fs, zeta_p, ubar_p, vbar_p, True)
+    fs, wet_avg = corrector(1, fs, zeta_p, ubar_p, vbar_p, True, wet_avg)
 
     # ============== fast steps 2..nfast (LF / AM3) ==============
     for i in range(2, nfast + 1):
+        um_p = vm_p = pw_p = None
+        if use_wd:             # LF predictor: kstp = n-1
+            wd_p, um_p, vm_p, pw_p = wmasks(fs.zeta_nm1)
+            wet_avg = wet_avg + wd_p
         Drhs, DUon, DVom = depth_fluxes(grid, fs.zeta_n, fs.ubar_n,
                                         fs.vbar_n)
         cff1 = w1[i - 2]                                  # weight(1,iif-1)
@@ -381,23 +448,29 @@ def fast_loop(cfg: Config, grid: Grid, fs: Fast2DState, rufrc=None,
 
         rhs_ubar, rhs_vbar = _rhs_momentum(cfg, grid, fs.ubar_n, fs.vbar_n,
                                            Drhs, DUon, DVom, zwrk,
-                                           zwrk * zwrk)
+                                           zwrk * zwrk, pmask_wet=pw_p,
+                                           clm=clm)
         rhs_ubar = rhs_ubar + rufrc_c
         rhs_vbar = rhs_vbar + rvfrc_c
 
         ubar_p, vbar_p = _step_momentum(
             cfg, grid, fs.ubar_nm1, fs.vbar_nm1, fs.zeta_nm1 + h, Dnew,
             dtfast * rhs_ubar, dtfast * rhs_vbar)
-        ubar_p = ubc(ubar_p, fs.ubar_n, fs.zeta_n, 2.0 * dtfast, zeta_p,
-                     fs.vbar_n)
-        vbar_p = vbc(vbar_p, fs.vbar_n, fs.zeta_n, 2.0 * dtfast, zeta_p,
-                     fs.ubar_n)
-        ubar_p, vbar_p = srcs(ubar_p, vbar_p, zeta_p)
+        if use_wd:
+            c7u = wetdry.limit(um_p, ubar_p)
+            c7v = wetdry.limit(vm_p, vbar_p)
+            ubar_p = ubar_p * c7u
+            vbar_p = vbar_p * c7v
+            rhs_ubar = rhs_ubar * c7u
+            rhs_vbar = rhs_vbar * c7v
+        ubar_p, vbar_p = bcs(ubar_p, vbar_p, fs.ubar_n, fs.vbar_n,
+                             fs.zeta_n, 2.0 * dtfast, zeta_p, um_p, vm_p)
         fs = fs.replace(
             rzeta_nm1=fs.rzeta_n, rzeta_n=bc.fill_halo(cfg, rhs_zeta),
             rubar_nm1=fs.rubar_n, rubar_n=rhs_ubar,
             rvbar_nm1=fs.rvbar_n, rvbar_n=rhs_vbar)
-        fs = corrector(i, fs, zeta_p, ubar_p, vbar_p, False)
+        fs, wet_avg = corrector(i, fs, zeta_p, ubar_p, vbar_p, False,
+                                wet_avg)
 
     # ========== auxiliary predictor (iif = nfast+1): averages only ==========
     _, DUon, DVom = depth_fluxes(grid, fs.zeta_n, fs.ubar_n, fs.vbar_n)
@@ -410,4 +483,16 @@ def fast_loop(cfg: Config, grid: Grid, fs: Fast2DState, rufrc=None,
         DV_avg1=bc.fill_halo(cfg, fs.DV_avg1 + cff1 * DVom),
         DU_avg2=bc.fill_halo(cfg, fs.DU_avg2 + cff2 * DUon),
         DV_avg2=bc.fill_halo(cfg, fs.DV_avg2 + cff2 * DVom))
-    return fs, rufrc_c, rvfrc_c
+
+    # --- time-averaged wet masks for the 3-D step (the auxiliary wetdry
+    #     call, wetdry.F:253-271): wet only if wet at all 2*nfast substeps,
+    #     the direction from the sign of the averaged transport ---
+    wet = None
+    if use_wd:
+        wd_avg = torch.floor(wet_avg / (2.0 * nfast))
+        um_avg, vm_avg = wetdry.avg_face_masks(wd_avg, fs.DU_avg1,
+                                               fs.DV_avg1)
+        wet = {"rmask_wet": bc.fill_halo(cfg, wd_avg),
+               "umask_wet": bc.fill_halo(cfg, um_avg),
+               "vmask_wet": bc.fill_halo(cfg, vm_avg)}
+    return fs, rufrc_c, rvfrc_c, wet

@@ -63,8 +63,9 @@ def fast_loop_plain(cfg: Config, grid: Grid, fs: Fast2DState, rufrc, rvfrc,
         raise NotImplementedError(
             "fast loop outside the fused subset (wetting-drying, open "
             "boundaries, sources, climatology, Stokes drift)")
-    return general_fast_loop(cfg, grid, fs, rufrc, rvfrc, ru0_nm1, ru0_nm2,
-                             rv0_nm1, rv0_nm2, iic)
+    fs, rufrc_c, rvfrc_c, _ = general_fast_loop(
+        cfg, grid, fs, rufrc, rvfrc, ru0_nm1, ru0_nm2, rv0_nm1, rv0_nm2, iic)
+    return fs, rufrc_c, rvfrc_c
 
 
 def fast_loop(cfg: Config, grid: Grid, fs: Fast2DState, rufrc, rvfrc,

@@ -1,9 +1,10 @@
 """Tracer corrector (counterpart of ``roms_tpu/ops/step3d_t.py``;
 step3d_t.F): horizontal and vertical advection of the intermediate tracer
 t3, implicit vertical diffusion (parabolic splines under SPLINES_VDIFF,
-else the standard tridiagonal solve), point-source fluxes and lateral BCs,
-open boundaries included (obc.t3dbc with the previous level and `bry`).
-MPDATA and climatology nudging raise NotImplementedError."""
+else the standard tridiagonal solve), point-source fluxes, nudging toward
+the tracer climatology (`clm`: tclm and tnudg) and lateral BCs, open
+boundaries included (obc.t3dbc with the previous level and `bry`).  MPDATA
+raises NotImplementedError."""
 
 from __future__ import annotations
 
@@ -21,9 +22,9 @@ def step3d_t(cfg: Config, grid: Grid, t_nnew, t3, Huon, Hvom, W,
              Hz_new, z_r_new, Akt, t_old=None, bry=None, sources=None,
              clm=None):
     """Returns the new tracers (NT,N,Ny,Nx), halo-filled.  t_old: the
-    tracers at the previous level, which the open-boundary BCs read."""
-    if clm is not None:
-        raise NotImplementedError("tracer climatology nudging (clm)")
+    tracers at the previous level, which the open-boundary BCs read;
+    clm: {"tclm": (NT,N,Ny,Nx), "tnudg": 1/s, one for all tracers or one
+    a tracer}."""
     pmn = grid.pm * grid.pn
     oHz = 1.0 / Hz_new
     out = []
@@ -33,13 +34,13 @@ def step3d_t(cfg: Config, grid: Grid, t_nnew, t3, Huon, Hvom, W,
             cfg, pmn, itrc, t_nnew[itrc], t3[itrc], Huon, Hvom, W, Hz_new,
             z_r_new, oHz, Akt[ltrc], grid=grid,
             t_old_i=t_old[itrc] if t_old is not None else None, bry=bry,
-            sources=sources))
+            sources=sources, clm=clm))
     return torch.stack(out, dim=0)
 
 
 def tracer_corrector(cfg: Config, pmn, itrc: int, tn_i, t3_i, Huon, Hvom,
                      W, Hz_new, z_r_new, oHz, Akt_l, grid=None,
-                     t_old_i=None, bry=None, sources=None):
+                     t_old_i=None, bry=None, sources=None, clm=None):
     """One tracer's corrector (the step3d_t.F:227-1142 loop body); HSIMT
     and the open boundaries need `grid`."""
     dt = cfg.dt
@@ -64,12 +65,18 @@ def tracer_corrector(cfg: Config, pmn, itrc: int, tn_i, t3_i, Huon, Hvom,
         tn = tn + dt * oHz * (flux[1:] - flux[:-1])
     else:
         tn = thomas_implicit(dt, 1.0, Hz_new, z_r_new, Akt_l, tn * Hz_new)
-    return _finalize_tracer(cfg, grid, itrc, tn, t_old_i, bry)
+    return _finalize_tracer(cfg, grid, itrc, tn, t_old_i, bry, clm, dt)
 
 
-def _finalize_tracer(cfg: Config, grid, itrc: int, tn, t_old_i, bry):
-    """Lateral BCs (step3d_t.F:1172-1185 without the nudging): the simple
-    kinds, then the open sides from the previous level t_old_i."""
+def _finalize_tracer(cfg: Config, grid, itrc: int, tn, t_old_i, bry,
+                     clm=None, dt: float = 0.0):
+    """Nudging toward the tracer climatology, then the lateral BCs
+    (step3d_t.F:1172-1185): the simple kinds, then the open sides from the
+    previous level t_old_i."""
+    if clm is not None and "tclm" in clm:
+        nudg = clm.get("tnudg", 0.0)
+        coef = nudg[itrc] if hasattr(nudg, "__len__") else nudg
+        tn = tn + dt * coef * (clm["tclm"][itrc] - tn)
     tn = bc.apply_bc_rho(cfg, cfg.lbc_t, tn)
     if t_old_i is not None and bc.has_advanced(cfg.lbc_t):
         tname = "temp" if itrc == 0 else ("salt" if itrc == 1

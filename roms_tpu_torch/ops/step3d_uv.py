@@ -3,7 +3,8 @@ step3d_uv.F).
 
 1. add the 23/12 AB3 term of the new RHS and divide by the new thicknesses,
 2. implicit vertical viscosity by parabolic splines (SPLINES_VVISC),
-3. replace the vertical mean with the fast-time-averaged transport DU_avg1,
+3. replace the vertical mean with the fast-time-averaged transport DU_avg1
+   (and, under WET_DRY, multiply by the averaged face masks `wet`),
 4. lateral BCs (open sides through obc.u3dbc/v3dbc from the previous
    level), point sources, boundary-ring-only replacement at non-periodic
    edges,
@@ -32,10 +33,12 @@ def corrector_cff(dt: float, iic: int) -> float:
 def step3d_uv(cfg: Config, grid: Grid, iic: int, u_nnew, v_nnew, ru, rv,
               Hz_new, Akv, DU_avg1, DV_avg1, DU_avg2, DV_avg2,
               Huon_old, Hvom_old, u_old=None, v_old=None, bry=None,
-              sources=None, z_w_new=None):
+              sources=None, z_w_new=None, wet=None):
     """Returns (u, v, ubar, vbar, Huon, Hvom), all halo-filled.  u_old and
     v_old (the previous level) feed the open-boundary BCs; `sources`
-    imposes the river profile, which needs the new depths z_w_new."""
+    imposes the river profile, which needs the new depths z_w_new; `wet`
+    (the fast loop's averaged masks) limits u and v after the mean
+    replacement (step3d_uv.F:562)."""
     dt = cfg.dt
     pm, pn = grid.pm, grid.pn
     H = cfg.halo
@@ -55,6 +58,8 @@ def step3d_uv(cfg: Config, grid: Grid, iic: int, u_nnew, v_nnew, ru, rv,
     DCm = torch.sum(u * Hzk_u, dim=0)
     err_u = (DCm * grid.on_u - DU_avg1) / (CF0 * grid.on_u)
     u = (u - err_u) * grid.umask
+    if wet is not None:
+        u = u * wet["umask_wet"]
 
     # ---------------- ETA direction ----------------
     Hzk_v = 0.5 * (Hz_new + jm1(Hz_new))
@@ -69,6 +74,8 @@ def step3d_uv(cfg: Config, grid: Grid, iic: int, u_nnew, v_nnew, ru, rv,
     DCmv = torch.sum(v * Hzk_v, dim=0)
     err_v = (DCmv * grid.om_v - DV_avg1) / (CF0v * grid.om_v)
     v = (v - err_v) * grid.vmask
+    if wet is not None:
+        v = v * wet["vmask_wet"]
 
     # ---------------- lateral BCs ----------------
     u = bc.apply_bc_u(cfg, cfg.lbc_u, u, gamma2=cfg.gamma2, mask=grid.umask)

@@ -2,10 +2,11 @@
 interior shear and internal-wave mixing (lmd_vmix.F, RI_SPLINES), the
 surface boundary layer (lmd_skpp.F with LMD_RIMIX, CONVEC and NONLOCAL)
 and the bottom boundary layer (lmd_bkpp.F, ``cfg.kpp_bottom``), with the
-Paulson & Simpson solar absorption (lmd_swfrac.F).
+Paulson & Simpson solar absorption (lmd_swfrac.F); and the
+Brunt-Vaisala mixing ``bvf_mix`` (bvf_mix.F, ``cfg.vmix = "bvf"``).
 
-Double diffusion (``cfg.lmd_ddmix``) and bvf_mix are not ported;
-lmd_vmix raises for the first.  The surface thermal
+Double diffusion (``cfg.lmd_ddmix``) is not ported; lmd_vmix raises for
+it.  The surface thermal
 expansion and saline contraction coefficients come from autograd of the
 EOS, as the JAX function takes them from jax.grad.
 
@@ -499,3 +500,37 @@ def _lmd_bkpp(cfg: Config, grid: Grid, Akv, Akt_t, Akt_s, pden, bvf,
     Akt_t = blend(Akt_t, Gt1, dGt1, ws_k)
     Akt_s = blend(Akt_s, Gs1, dGs1, ws_k)
     return Akv, Akt_t, Akt_s, hbbl
+
+
+# BVF_MIXING parameters (mod_mixing.F / bvf_mix.F)
+bvf_numax = 4.0e-4
+bvf_numin = 3.0e-5
+bvf_nu0 = 1.0e-7
+bvf_nu0c = 1.0
+
+
+def bvf_mix(cfg: Config, bvf):
+    """Brunt-Vaisala-frequency diffusivities (bvf_mix.F): nu0/sqrt(N2)
+    clipped to [numin, numax] where stable, nu0c where unstable, the
+    background (akv_bak, akt_bak[0]) where N2 is exactly 0; the bottom and
+    surface interfaces keep each coefficient's background.  Returns (Akv,
+    Akt stack of min(NT, 2))."""
+    cff = bvf_nu0 / torch.sqrt(torch.clamp(bvf, min=1e-30))
+    akt_stable = torch.clamp(cff, bvf_numin, bvf_numax)
+    conv = torch.full_like(bvf, bvf_nu0c)
+
+    def interior(bak):
+        return torch.where(bvf < 0.0, conv,
+                           torch.where(bvf == 0.0, torch.full_like(bvf, bak),
+                                       akt_stable))
+
+    def ends(a, bak):
+        a = a.clone()
+        a[0] = bak
+        a[-1] = bak
+        return a
+
+    akt = interior(cfg.akt_bak[0])
+    akv = ends(interior(cfg.akv_bak), cfg.akv_bak)
+    akts = [ends(akt, cfg.akt_bak[it]) for it in range(min(cfg.ntracers, 2))]
+    return akv, torch.stack(akts, dim=0)

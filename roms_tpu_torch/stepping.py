@@ -3,14 +3,19 @@ main3d.F:183-868).
 
 One call advances the State by one slow step, the nfast-substep barotropic
 loop included, in main3d's order.  Ported here: the branches the UPWELLING,
-BENCHMARK, KELVIN, ESTUARY_TEST and RIVERPLUME1 configurations take
-(analytic surface stress or COARE bulk fluxes from an analytic atmosphere,
-linear, quadratic or logarithmic drag, constant mixing coefficients, the
-KPP surface and bottom layers or GLS, prsgrd32, U3/C4/SPLINES/HSIMT
-advection, harmonic viscosity, harmonic tracer diffusion along s-surfaces
-or rotated to geopotential surfaces, open boundaries with their `bry`
-data, volume conservation and point sources).  Every other branch raises
-NotImplementedError naming the missing feature.
+BENCHMARK, KELVIN, ESTUARY_TEST, RIVERPLUME1, LAB_CANYON, INLET_TEST and
+TEST_HEAD configurations and the file-driven case take (analytic or
+file surface stress and heat flux, or COARE bulk fluxes from an analytic
+atmosphere; linear, quadratic or logarithmic drag; constant mixing
+coefficients (vmix None or "none"), Brunt-Vaisala mixing ("bvf"), the KPP
+surface and bottom layers or GLS; prsgrd32 with the tide-generating force;
+U3/C4/SPLINES/HSIMT advection; harmonic viscosity; harmonic tracer
+diffusion along s-surfaces or rotated to geopotential surfaces; open
+boundaries with their `bry` data, volume conservation and point sources;
+wetting-drying; climatology nudging of ubar/vbar, u/v and the tracers
+through `clm`; curvilinear and north-south periodic grids).  Every other
+branch (listed in _check_slice) raises NotImplementedError naming the
+missing feature.
 
 Kernels: with ``cfg.pallas2d`` true (the default), the kernel stages go
 through their wrappers (ops/diag_cuda.py, prsgrd_cuda.py, rhs3d_cuda.py,
@@ -22,10 +27,12 @@ uv3dmix2); otherwise its stages run one by one, uv3dmix2 as kernel or
 plain by ``mix3d_cuda.use_kernels``, which also sends the geopotential
 tracer diffusion to ``mix3d_cuda.t3dmix2_geo`` or its plain version.  The
 tracer, momentum-corrector and fast-loop kernels are taken where their
-gates hold with the step's `bry`, `sources` and `clm`
-(``step3d_cuda.use_tracer``/``use_uv``, ``step2d_cuda.supported``, as the
-JAX step asks ``step3d_pallas.use_tracer_pallas``/``use_uv_pallas`` and
-``step2d_pallas.use_pallas``); otherwise the step runs the general plain
+gates hold with the step's `bry`, `sources`, `clm` and the fast loop's
+wet/dry masks (``step3d_cuda.use_tracer``/``use_uv``,
+``step2d_cuda.supported``, as the JAX step asks
+``step3d_pallas.use_tracer_pallas``/``use_uv_pallas`` and
+``step2d_pallas.use_pallas``; `clm` also keeps the momentum phase staged,
+as ``rhs3d_pallas.use_pallas`` does); otherwise the step runs the general plain
 stages (ops/pre_step3d.py, step3d_t.py, step3d_uv.py, step2d.fast_loop)
 on whatever device the state is on.  The wrappers launch the CUDA kernels
 for CUDA tensors and take the plain versions for CPU tensors.
@@ -46,7 +53,8 @@ from .ops import diag_cuda, eos, gls as gls_mod, mix3d_cuda, prsgrd, \
     prsgrd_cuda, rhs3d_cuda, step2d, step2d_cuda, step3d_cuda
 from .ops.bulk_flux import bulk_flux
 from .ops.mix3d import t3dmix2
-from .ops.vmix import lmd_vmix, swfrac
+from .ops.tides import equilibrium_tide, harmonic_constituents
+from .ops.vmix import bvf_mix, lmd_vmix, swfrac
 from .ops.pre_step3d import ab3_start_coefs, momentum_init
 from .ops.rhs3d import rhs3d_momentum
 from .ops.step2d import Fast2DState
@@ -63,7 +71,13 @@ _BULK_KEYS = {"Uwind", "Vwind", "Tair", "Pair", "Hair", "cloud", "rain",
 
 def _check_slice(cfg: Config, grid: Grid, frc: dict, collect_diags: bool):
     """Raise NotImplementedError for every branch of the reference step
-    that this port does not have yet."""
+    that this port does not have yet: the budget diagnostics, the ice
+    shelf, sediment, the nearshore radiation stress, the bottom boundary
+    layer, the MY2.5 closure, KPP double diffusion, isopycnal and
+    biharmonic tracer mixing, biharmonic and rotated viscosity, mean-age
+    tracers, biology, and forcing fields outside the set the step reads.
+    MPDATA tracer advection and the prsgrd schemes other than djs raise
+    where their stage is called."""
     missing = []
     if collect_diags:
         missing.append(DIAGS_NOT_PORTED)
@@ -75,12 +89,10 @@ def _check_slice(cfg: Config, grid: Grid, frc: dict, collect_diags: bool):
         missing.append(f"nearshore radiation stress ({cfg.nearshore})")
     if cfg.bbl is not None:
         missing.append(f"bottom boundary layer ({cfg.bbl})")
-    if cfg.vmix not in (None, "kpp", "gls"):
+    if cfg.vmix not in (None, "none", "kpp", "gls", "bvf"):
         missing.append(f"vertical mixing closure ({cfg.vmix})")
     if cfg.vmix == "kpp" and cfg.lmd_ddmix and cfg.ntracers >= 2:
         missing.append("KPP double-diffusive mixing (LMD_DDMIX)")
-    if cfg.tide_gen_forces:
-        missing.append("tide-generating forces")
     if any(x != 0.0 for x in cfg.tnu2) and cfg.ts_mix_iso:
         missing.append("isopycnal harmonic tracer mixing (MIX_ISO_TS)")
     if cfg.ts_dif4 and any(x != 0.0 for x in cfg.tnu4):
@@ -93,10 +105,6 @@ def _check_slice(cfg: Config, grid: Grid, frc: dict, collect_diags: bool):
         missing.append("mean-age tracers (AGE_MEAN)")
     if cfg.biology is not None:
         missing.append(f"biology ({cfg.biology})")
-    if cfg.wetdry:
-        missing.append("the general fast loop with wetting-drying (WET_DRY)")
-    if "clm" in frc:
-        missing.append("climatology nudging (clm)")
     extra = set(frc) - (_BULK_KEYS if cfg.bulk_fluxes else _FORCING_KEYS) \
         - _BOUNDARY_KEYS - {"clm"}
     if extra:
@@ -114,7 +122,9 @@ def step(cfg: Config, grid: Grid, state: State,
     cfg.bulk_fluxes it returns the atmosphere instead (Uwind, Vwind, Tair,
     Pair, Hair, cloud, rain, srflx), from which the COARE fluxes give the
     stress and the surface heat flux.  Either may add "bry" (open-boundary
-    data, ops/obc.py) and "sources" (ops/sources.PointSources)."""
+    data, ops/obc.py), "sources" (ops/sources.PointSources) and "clm"
+    (climatology and nudging coefficients: ubarclm/vbarclm with m2nudg,
+    uclm/vclm with m3nudg, tclm with tnudg)."""
     frc = forcing_fn(cfg, grid, state.time) if forcing_fn is not None else {}
     _check_slice(cfg, grid, frc, collect_diags)
     hc = hc_of(cfg)
@@ -154,16 +164,17 @@ def step(cfg: Config, grid: Grid, state: State,
     z_r, z_w, Hz, Huon, Hvom, W = grid_flux(cfg, grid, state.zeta, state.u,
                                             state.v, hc)
     kpp = cfg.vmix == "kpp"
-    rho, pden, *bvf = rho_eos(cfg, state.t, z_r, z_w, want_bvf=kpp)
+    rho, pden, *bvf = rho_eos(cfg, state.t, z_r, z_w,
+                              want_bvf=cfg.vmix in ("kpp", "bvf"))
 
     # --- surface/bottom fluxes (main3d.F:386-396) ---
     bustr, bvstr, stflx, btflx = set_vbc(cfg, grid, state.u, state.v,
                                          state.t, stflux, btflux,
                                          z_r=z_r, z_w=z_w)
 
-    # --- vertical mixing coefficients (main3d.F:465-469): KPP, or last
-    #     step's values (constant background with vmix None; GLS updates
-    #     them in its corrector below) ---
+    # --- vertical mixing coefficients (main3d.F:465-469): KPP, BVF, or
+    #     last step's values (constant background with vmix None or
+    #     "none"; GLS updates them in its corrector below) ---
     hsbl, hbbl = state.hsbl, state.hbbl
     ghats = swdk_w = None
     if kpp:
@@ -174,6 +185,8 @@ def step(cfg: Config, grid: Grid, state: State,
             hbbl_prev=hbbl)
         if srflx is not None:
             swdk_w = swfrac(z_w[-1][None] - z_w)
+    elif cfg.vmix == "bvf":
+        Akv, Akt = bvf_mix(cfg, bvf[0])
     else:
         Akv, Akt = state.Akv, state.Akt
 
@@ -190,12 +203,18 @@ def step(cfg: Config, grid: Grid, state: State,
             cfg, grid, iic, state.t, state.t_prev, Hz, Huon, Hvom, W, Akt,
             stflx, btflx, srflx=srflx, ghats=ghats, swdk_w=swdk_w,
             sources=sources)
+    eq_tide = None
+    if cfg.tide_gen_forces:
+        # equilibrium-tide body force, through prsgrd32's surface pressure
+        # (main3d.F equilibrium_tide call)
+        eq_tide = equilibrium_tide(
+            grid, state.time, harmonic_constituents(cfg.tide_ref_datenum))
     if rhs3d_cuda.use_kernels(cfg, clm=clm):
         # momentum_init -> prsgrd32 -> rhs3d -> uv3dmix2 as one phase
         u_nnew, v_nnew, ru, rv, rufrc, rvfrc = rhs3d_cuda.momentum_rhs(
             cfg, grid, iic, state.u, state.v, Hz, z_r, z_w, rho, Huon, Hvom,
             W, state.ru_prev, state.ru_prev2, state.rv_prev, state.rv_prev2,
-            sustr, svstr, bustr, bvstr)
+            sustr, svstr, bustr, bvstr, eq_tide=eq_tide)
     else:
         a1, a2 = ab3_start_coefs(iic)
         u_nnew, v_nnew = momentum_init(
@@ -204,10 +223,10 @@ def step(cfg: Config, grid: Grid, state: State,
             sustr, svstr, bustr, bvstr)
         prsgrd32 = prsgrd_cuda.prsgrd32 if prsgrd_cuda.supported(cfg) \
             else prsgrd.prsgrd
-        ru, rv = prsgrd32(cfg, grid, rho, z_r, z_w, Hz)
+        ru, rv = prsgrd32(cfg, grid, rho, z_r, z_w, Hz, eq_tide=eq_tide)
         ru, rv, rufrc, rvfrc = rhs3d_momentum(
             cfg, grid, state.u, state.v, Huon, Hvom, W, Hz, ru, rv,
-            sustr, svstr, bustr, bvstr)
+            sustr, svstr, bustr, bvstr, clm=clm)
         if cfg.uv_vis2 and cfg.visc2 != 0.0:
             uv3dmix2 = mix3d_cuda.uv3dmix2 if mix3d_cuda.use_kernels(cfg) \
                 else mix3d_cuda.uv3dmix2_plain
@@ -230,7 +249,8 @@ def step(cfg: Config, grid: Grid, state: State,
             state.tke_prev, state.gls_prev, Hz, Huon, Hvom, W)
 
     # --- fast barotropic loop (main3d.F:592-713): the fused kernel where
-    #     its gate holds, else the general loop.  Every field is its own
+    #     its gate holds, else the general loop, which also returns the
+    #     averaged wet/dry masks under WET_DRY.  Every field is its own
     #     tensor: the kernel updates them in place ---
     fs = Fast2DState(
         zeta_n=state.zeta.clone(), zeta_nm1=state.zeta.clone(),
@@ -242,12 +262,13 @@ def step(cfg: Config, grid: Grid, state: State,
         Zt_avg1=torch.zeros_like(zero2), DU_avg1=torch.zeros_like(zero2),
         DV_avg1=torch.zeros_like(zero2), DU_avg2=torch.zeros_like(zero2),
         DV_avg2=torch.zeros_like(zero2))
+    wet = None
     if cfg.pallas2d and step2d_cuda.supported(cfg, bry, sources, clm):
         fs, rufrc_c, rvfrc_c = step2d_cuda.fast_loop(
             cfg, grid, fs, rufrc, rvfrc, state.rufrc0_prev,
             state.rufrc0_prev2, state.rvfrc0_prev, state.rvfrc0_prev2, iic)
     else:
-        fs, rufrc_c, rvfrc_c = step2d.fast_loop(
+        fs, rufrc_c, rvfrc_c, wet = step2d.fast_loop(
             cfg, grid, fs, rufrc, rvfrc, state.rufrc0_prev,
             state.rufrc0_prev2, state.rvfrc0_prev, state.rvfrc0_prev2, iic,
             bry=bry, sources=sources, clm=clm)
@@ -258,7 +279,7 @@ def step(cfg: Config, grid: Grid, state: State,
                                       cfg.vtransform)
 
     # --- 3D momentum corrector (main3d.F:762) ---
-    if step3d_cuda.use_uv(cfg, bry=bry, sources=sources):
+    if step3d_cuda.use_uv(cfg, bry=bry, sources=sources, wet=wet):
         u2, v2, ubar2, vbar2, Huon2, Hvom2 = step3d_cuda.uv_corrector(
             cfg, grid, iic, u_nnew, v_nnew, ru, rv, Hz2, Akv, fs.DU_avg1,
             fs.DV_avg1, fs.DU_avg2, fs.DV_avg2, Huon, Hvom)
@@ -266,7 +287,11 @@ def step(cfg: Config, grid: Grid, state: State,
         u2, v2, ubar2, vbar2, Huon2, Hvom2 = step3d_cuda.uv_corrector_plain(
             cfg, grid, iic, u_nnew, v_nnew, ru, rv, Hz2, Akv, fs.DU_avg1,
             fs.DV_avg1, fs.DU_avg2, fs.DV_avg2, Huon, Hvom, u_old=state.u,
-            v_old=state.v, bry=bry, sources=sources, z_w_new=z_w2)
+            v_old=state.v, bry=bry, sources=sources, z_w_new=z_w2, wet=wet)
+    if wet is not None:
+        # the stored AB3 rhs history is limited too (step3d_uv.F:563)
+        ru = ru * wet["umask_wet"]
+        rv = rv * wet["vmask_wet"]
 
     # --- omega with corrected fluxes (main3d.F:789) ---
     omega = diag_cuda.omega if cfg.pallas2d else diag_cuda.omega_plain
@@ -293,7 +318,7 @@ def step(cfg: Config, grid: Grid, state: State,
     else:
         t2 = step3d_cuda.tracer_corrector_plain(
             cfg, grid, t_nnew, t3, Huon2, Hvom2, W2, Hz2, z_r2, Akt,
-            t_old=state.t, bry=bry, sources=sources)
+            t_old=state.t, bry=bry, sources=sources, clm=clm)
 
     return state.replace(
         time=state.time + cfg.dt, iic=iic + 1,

@@ -21,7 +21,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def test_cases(capsys):
     assert main(["cases"]) == 0
     assert capsys.readouterr().out.split() == [
-        "benchmark", "estuary", "kelvin", "riverplume", "upwelling"]
+        "benchmark", "estuary", "inlet_test", "kelvin", "lab_canyon",
+        "riverplume", "test_head", "upwelling", "file"]
 
 
 def test_cases_registered():
@@ -70,7 +71,8 @@ def test_module_entry_point():
     assert res.stdout.count("KE=") == 2
 
 
-@pytest.mark.parametrize("case", ["file", "lake_signell", "no_such_case"])
+@pytest.mark.parametrize("case", ["soliton", "lake_signell",
+                                  "no_such_case"])
 def test_cases_not_ported_raise(case):
     with pytest.raises(NotImplementedError,
                        match=f"not ported: case '{case}'"):

@@ -221,8 +221,9 @@ def test_general_fast_loop_kelvin(kelvin, volcons):
     bry_t = ffn_t(cfg_t, grid_t, s.time)["bry"]
     bry_keep = {k: v.clone() for k, v in bry_t.items()}
     fs_t = Fast2DState(**{k: torch.tensor(v) for k, v in fs.items()})
-    out, ruc, rvc = tstep2d.fast_loop(cfg_t, grid_t, fs_t, *map(T, frc),
-                                      s.iic, bry=bry_t)
+    out, ruc, rvc, wet = tstep2d.fast_loop(cfg_t, grid_t, fs_t,
+                                           *map(T, frc), s.iic, bry=bry_t)
+    assert wet is None
     ref, rucj, rvcj, _ = jstep2d.fast_loop(
         cfg_j, grid_j, JFast2DState(**{k: J(v) for k, v in fs.items()}),
         *map(J, frc), iic=s.iic,

@@ -15,7 +15,9 @@ driver's restarts across the card and the CPU, and on KELVIN, ESTUARY_TEST
 and RIVERPLUME1 at their published sizes the kernels each step launches
 against their plain versions on its arguments, the steps with kernels on
 against off, and the small regional fixture
-(tests/data/torch_regional_small.npz).
+(tests/data/torch_regional_small.npz); the same on LAB_CANYON, INLET_TEST
+and BENCHMARK1 with tides (tests/data/torch_coastal_small.npz), and every
+kernel of the step on north-south periodic grids.
 
 Marked ``gpu``; each test skips without a CUDA device.  This file imports
 no jax, so it also runs where jax is absent:
@@ -33,7 +35,7 @@ import torch
 import chip_smoke
 from chip_smoke import BITWISE, CARD_FACTOR, fixture_script
 from roms_tpu_torch import stepping
-from roms_tpu_torch.config import LBC, BC_CLOSED, BC_GRADIENT
+from roms_tpu_torch.config import LBC, BC_CLOSED, BC_GRADIENT, BC_PERIODIC
 from roms_tpu_torch.grid import hc_of
 from roms_tpu_torch.models import benchmark, upwelling
 from roms_tpu_torch.ops import diag_cuda, mix3d_cuda, prsgrd_cuda, \
@@ -970,3 +972,93 @@ def test_regional_fixture_with_kernels(device):
     hold tests/data/torch_regional_small.npz at 100x the CPU test's
     bounds (chip_smoke phase 13 (c))."""
     chip_smoke.regional_fixture(device)
+
+
+def _ns_periodic_case(kind, dtype, device):
+    """A north-south periodic case: a 24 x 48 x 6 LAB_CANYON ("ns", closed
+    east-west; UPWELLING's own shelf blows up with closed east-west walls
+    in both packages) or UPWELLING at 20 x 16 x 6 periodic both ways
+    ("both")."""
+    if kind == "ns":
+        from roms_tpu_torch.models import cases4
+        return cases4.lab_canyon(cases4.lab_canyon_config(
+            Lm=24, Mm=48, N=6, ndtfast=10, dtype=dtype), device=device)
+    per = LBC(BC_PERIODIC, BC_PERIODIC, BC_PERIODIC, BC_PERIODIC)
+    cfg = upwelling.make_config(Lm=20, Mm=16, N=6, ndtfast=8, dtype=dtype)
+    return upwelling.build(dataclasses.replace(
+        cfg, ns_periodic=True, lbc_zeta=per, lbc_ubar=per, lbc_vbar=per,
+        lbc_u=per, lbc_v=per, lbc_t=per), device=device)
+
+
+@pytest.mark.parametrize("kind", ["ns", "both"])
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_kernels_on_ns_periodic_grids(device, kind, dtype):
+    """Every kernel of the step on a north-south periodic grid (the wrap
+    the halo gathers, the fast loop's neighbour exchange and the closed
+    axis's last tile had seen only east-west) against its plain version on
+    the step's arguments, then three steps with the kernels on against
+    off within 1e-9 x max|field| (float64), one launch a step each."""
+    import types
+    cfg, grid, s0, ffn = _ns_periodic_case(kind, dtype, device)
+    s = stepping.run(cfg.replace(pallas2d=False), grid, s0, 3, ffn)
+    calls = chip_smoke.captured_calls(cfg, grid, s, ffn)
+    kernels = chip_smoke.COASTAL_KERNELS["lab_canyon"]
+    assert set(calls) == set(kernels)
+    chip_smoke.check_variants(
+        "ns-periodic", grid, [(f"{kind}:{k}", k, *calls[k]) for k in calls],
+        dtype, {}, timed=False)
+    if dtype == "float64":
+        fx = chip_smoke.coastal_fixture_script()
+        fields = types.SimpleNamespace(fields_of=lambda name: fx.FIELDS,
+                                       PARTNER=fx.PARTNER)
+        launches = chip_smoke.kernels_on_off(
+            "ns-periodic", kind, cfg, grid, s, ffn, kernels, fields, 3)
+        assert launches == dict.fromkeys(kernels, 1.0)
+
+
+@pytest.fixture(scope="module", params=chip_smoke.COASTAL)
+def coastal(request, device, tmp_path_factory):
+    """A phase-14 case at full size, float64, three plain steps from
+    rest."""
+    tmp = str(tmp_path_factory.mktemp(request.param))
+    cfg, grid, s0, ffn = chip_smoke.coastal_case(request.param, device, tmp)
+    s = stepping.run(cfg.replace(pallas2d=False), grid, s0, 3, ffn)
+    return request.param, tmp, cfg, grid, s, ffn
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+def test_coastal_kernels_on_case_arguments(coastal, dtype):
+    """Each kernel the case's step launches, and only those of
+    chip_smoke.COASTAL_KERNELS, against its plain version on the step's
+    arguments (chip_smoke phase 14 (a))."""
+    from roms_tpu_torch.state import TENSOR_FIELDS
+    name, tmp, _, _, s, _ = coastal
+    cfg, grid, _, ffn = chip_smoke.coastal_case(name, s.zeta.device, tmp,
+                                                dtype)
+    state = s.replace(**{k: getattr(s, k).to(grid.h.dtype)
+                         for k in TENSOR_FIELDS})
+    calls = chip_smoke.captured_calls(cfg, grid, state, ffn)
+    assert set(calls) == set(chip_smoke.COASTAL_KERNELS[name])
+    chip_smoke.check_variants(
+        "coastal", grid, [(f"{name}:{k}", k, *calls[k]) for k in calls],
+        dtype, {}, timed=False)
+
+
+def test_coastal_kernels_on_against_off(coastal):
+    """Three float64 steps with the kernels on against cfg.pallas2d=False,
+    each field within 1e-9 x max|field|, one launch a step of each kernel
+    of the case (chip_smoke phase 14 (a'))."""
+    name, _, cfg, grid, s, ffn = coastal
+    launches = chip_smoke.kernels_on_off(
+        "coastal-equiv", name, cfg, grid, s, ffn,
+        chip_smoke.COASTAL_KERNELS[name], chip_smoke.coastal_fixture_script(),
+        3)
+    assert launches == dict.fromkeys(chip_smoke.COASTAL_KERNELS[name], 1.0)
+
+
+def test_coastal_fixture_with_kernels(device, tmp_path):
+    """The small LAB_CANYON, INLET_TEST, TEST_HEAD, BENCHMARK with tides
+    and the wet/dry fast loop with the kernels on hold
+    tests/data/torch_coastal_small.npz at 100x the CPU test's bounds
+    (chip_smoke phase 14 (f))."""
+    chip_smoke.coastal_fixture(device, str(tmp_path))

@@ -138,7 +138,7 @@ def _bry_j(bry):
 
 
 def _bry_t(cfg_t, bry):
-    return convert.bry_from_numpy(cfg_t, bry, device="cpu")
+    return convert.fields_from_numpy(cfg_t, bry, device="cpu")
 
 
 @pytest.mark.parametrize("kind, nudg", [

@@ -135,8 +135,8 @@ def test_dispatch_mirrors_jax_gates(case, monkeypatch):
 
 
 @pytest.mark.parametrize("change, frc, feature", [
-    (dict(wetdry=True), {}, "general fast loop with wetting-drying"),
-    ({}, {"clm": {}}, "climatology nudging"),
+    (dict(bbl="ssw"), {}, "bottom boundary layer"),
+    (dict(nearshore="mellor05"), {}, "nearshore radiation stress"),
     (dict(vmix="my25"), {}, "vertical mixing closure"),
     (dict(lmd_ddmix=True, vmix="kpp"), {}, "double-diffusive"),
 ])

@@ -100,7 +100,7 @@ def _constancy_error(cfg, s):
 
 
 @pytest.mark.parametrize("change, feature", [
-    (dict(wetdry=True), "general fast loop"),
+    (dict(sediment=True), "sediment"),
     (dict(vmix="my25"), "vertical mixing closure"),
     (dict(vmix="kpp", lmd_ddmix=True), "KPP double-diffusive mixing"),
     (dict(ts_dif4=True, tnu4=(1.0e8, 1.0e8)), "biharmonic tracer mixing"),
