@@ -8,6 +8,7 @@ BENCHMARK1 steps through them, and checks the results.
                                                  # roms_tpu_torch from TREE
     python3 chip_smoke.py --regional             # the build and phase 13
     python3 chip_smoke.py --coastal              # the build and phase 14
+    python3 chip_smoke.py --operators            # the build and phase 15
 
 Phases, one or more lines each; any failure exits non-zero:
   1. device: card name and power limit (nvidia-smi), torch and CUDA versions;
@@ -123,6 +124,35 @@ the JAX gates keep them) and BENCHMARK1 with the tide-generating force:
      the small cases and the wet/dry fast loop against
      tests/data/torch_coastal_small.npz at CARD_FACTOR x the CPU bounds;
      and float32 ms/step beside float64 with the launches a step.
+Then the operator cases at their published sizes: BASIN (180x140x12,
+biharmonic viscosity and diffusion), DOUBLE_GYRE (54x108x4), GRAV_ADJ
+(128x4x40, north-south periodic, no Coriolis), CANYON3D (65x48x15),
+OVERFLOW (4x128x20, isopycnal diffusion), WINDBASIN (101x52x25, no
+momentum advection), CHANNEL_NECK (48x16x8, rotated viscosity) and
+SEAMOUNT (49x48x13) under each of the five pressure-gradient schemes:
+ 15. (a) each kernel a case's step launches (rows 1-3 and 8-11 on all;
+     4, 6, 7 as the JAX gates give them) against its plain version on
+     that step's arguments (three plain float64 steps from rest),
+     float64 and float32, untimed, and no other kernel called, with the
+     tiles at GRAV_ADJ's N = 40 and OVERFLOW's Lm = 4; (b) three float64
+     steps with the kernels on against cfg.pallas2d=False, each field
+     within 1e-9 x max|field|, one launch a step of each of its kernels;
+     (c) rows 8 and 9 on BASIN's and UPWELLING's step arguments under the
+     advection pairs C2/C2, U1/U1, A4/A4, A4/SPLINES, C2/C4, U3/A4 (and
+     U3/C4 to compare), float64 and float32: bitwise their plain
+     versions, a second launch bitwise the first, timed with their
+     bound; (c') the options no case uses (Smagorinsky viscosity,
+     biharmonic diffusion along geopotentials and along isopycnals,
+     biharmonic viscosity along geopotentials) on the small UPWELLING,
+     kernels on against off over three float64 steps; (d) the physics of
+     roms_tpu's case tests at their sizes in float64, with ms/step:
+     SEAMOUNT's spurious current under each scheme (< 0.05 m/s after 10
+     steps; max|u| after 100), GRAV_ADJ's fronts, DOUBLE_GYRE's spin-up,
+     BASIN and CANYON3D finite, OVERFLOW's descent, WINDBASIN's return
+     flow, CHANNEL_NECK's flow through the neck; (e) the small cases
+     against tests/data/torch_operators_small.npz at CARD_FACTOR x the
+     CPU bounds; (f) float32 and float64 ms/step of each case at its
+     published size, with its launches a step.
 The last two lines are a JSON object of per-kernel results (BENCHMARK1
 float32, launches of phase 10) and a JSON object {"ok": true, "device":
 {...}}.  Without CUDA it exits non-zero and prints no result.
@@ -145,6 +175,8 @@ BENCH_FIXTURE = os.path.join(ROOT, "tests", "data",
                              "torch_benchmark_small.npz")
 REGIONAL_FIXTURE = os.path.join(ROOT, "tests", "data",
                                 "torch_regional_small.npz")
+OPERATORS_FIXTURE = os.path.join(ROOT, "tests", "data",
+                                 "torch_operators_small.npz")
 COASTAL_FIXTURE = os.path.join(ROOT, "tests", "data",
                                "torch_coastal_small.npz")
 # kernels-on against kernels-off over three full-size BENCHMARK1 float64
@@ -948,11 +980,12 @@ def profile(device, case="upwelling"):
     from torch.profiler import ProfilerActivity, record_function
     from roms_tpu_torch import stepping, vgrid
     from roms_tpu_torch.models import benchmark, upwelling
-    from roms_tpu_torch.ops import rhs3d_cuda
+    from roms_tpu_torch.ops import mix3d, rhs3d_cuda
 
     sites = [(mod, attr) for mod, attr, _ in wrappers().values()]
-    sites += [(stepping, n) for n in ("set_vbc", "t3dmix2", "bulk_flux",
-                                      "lmd_vmix", "swfrac")]
+    sites += [(stepping, n) for n in ("set_vbc", "bulk_flux", "lmd_vmix",
+                                      "swfrac")]
+    sites.append((mix3d, "t3dmix2"))
     sites.append((rhs3d_cuda, "momentum_rhs"))
     sites.append((vgrid, "set_depth"))
     model, nsteps, tag = (upwelling, 10, "profile") if case == "upwelling" \
@@ -2043,6 +2076,320 @@ def coastal_phase(device, smi):
           flush=True)
 
 
+# phase 15: the operator cases at their published sizes: the other
+# pressure-gradient schemes, biharmonic, isopycnal and rotated mixing, and
+# C2/U1/A4 advection in the tracer kernels (rows 1-3 and 8-11 on all)
+PG_SCHEMES = ("djs", "dj", "pj", "pjq2", "pjq4")
+OPERATORS = ("basin", "double_gyre", "grav_adj", "canyon3d", "overflow",
+             "windbasin", "channel_neck") + tuple(
+                 f"seamount_{s}" for s in PG_SCHEMES)
+_ROWS_STEP = ("grid_flux", "eos", "omega", "tracer_predictor",
+              "tracer_corrector", "uv_corrector", "fast_loop")
+_FUSED = _ROWS_STEP + ("prsgrd32", "rhs3d")
+OPERATOR_KERNELS = {
+    "basin": _ROWS_STEP + ("prsgrd32",),
+    "double_gyre": _FUSED + ("uv3dmix2",),
+    "grav_adj": _ROWS_STEP + ("prsgrd32", "uv3dmix2"),
+    "canyon3d": _FUSED + ("uv3dmix2",),
+    "overflow": _ROWS_STEP + ("prsgrd32", "uv3dmix2"),
+    "windbasin": _ROWS_STEP + ("prsgrd32",),
+    "channel_neck": _ROWS_STEP + ("prsgrd32",),
+    "seamount_djs": _FUSED,
+    **{f"seamount_{s}": _ROWS_STEP for s in PG_SCHEMES[1:]},
+    # the options no case uses, on the fixture's small UPWELLING
+    "upw_smagorinsky": _ROWS_STEP + ("prsgrd32",),
+    "upw_t4_geo": _FUSED + ("uv3dmix2",),
+    "upw_t4_iso": _FUSED + ("uv3dmix2",),
+    "upw_uv4_geo": _ROWS_STEP + ("prsgrd32",)}
+OPTIONS = ("upw_smagorinsky", "upw_t4_geo", "upw_t4_iso", "upw_uv4_geo")
+# the (horizontal, vertical) advection schemes rows 8 and 9 are held to
+# their plain versions under, beside the main path's U3/C4
+SCHEME_PAIRS = (("C2", "C2"), ("U1", "U1"), ("A4", "A4"), ("A4", "SPLINES"),
+                ("C2", "C4"), ("U3", "A4"))
+OPERATOR_EQUIV_STEPS = 3
+# roms_tpu's physics tests (tests/test_cases.py, test_cases_extra.py,
+# test_cases4.py): their steps, and the sizes their thresholds were set
+# at; SEAMOUNT runs at its published size, whose spurious current after
+# 10 steps is checked and after 100 (1.7 h) is the figure users compare
+OPERATOR_PHYSICS_STEPS = {"basin": 10, "double_gyre": 24, "grav_adj": 30,
+                          "canyon3d": 10, "overflow": 240, "windbasin": 400,
+                          "channel_neck": 25,
+                          **{f"seamount_{s}": 100 for s in PG_SCHEMES}}
+OPERATOR_PHYSICS_SIZES = {
+    "basin": dict(Lm=45, Mm=35, N=6),
+    "double_gyre": dict(Lm=27, Mm=54, N=4, dt=1800.0),
+    "grav_adj": dict(Lm=64, Mm=4, N=20),
+    "canyon3d": dict(Lm=33, Mm=24, N=8),
+    "overflow": dict(Mm=64, N=12),
+    "windbasin": dict(Lm=40, Mm=20, N=12),
+    "channel_neck": dict(Lm=32, Mm=12, N=4, ndtfast=8)}
+SEAMOUNT_CHECK_STEPS = 10
+
+
+def operators_fixture_script():
+    """scripts/torch_operators_fixture.py as a module."""
+    return _script("torch_operators_fixture")
+
+
+def operator_case(name, device, dtype="float64", **sizes):
+    """(cfg, grid, state0, forcing_fn) of a phase-15 case at its published
+    sizes unless `sizes` cut them; "seamount_<scheme>" is SEAMOUNT under
+    that pressure-gradient scheme."""
+    from roms_tpu_torch.models import cases, cases4
+    if name.startswith("seamount_"):
+        return cases.seamount(cases.seamount_config(
+            dtype=dtype, prsgrd_scheme=name.split("_", 1)[1], **sizes),
+            device=device)
+    mod = cases4 if name == "channel_neck" else cases
+    return getattr(mod, name)(getattr(mod, name + "_config")(
+        dtype=dtype, **sizes), device=device)
+
+
+def tracer_scheme_checks(results, device, developed):
+    """Phase 15 (c): rows 8 and 9 on BASIN's and UPWELLING's step arguments
+    (developed: {case: (cfg, grid, state, ffn)}) under each pair of
+    SCHEME_PAIRS for every tracer, and under U3/C4 to compare, float64
+    and float32: bitwise their plain versions, a second launch bitwise
+    the first, timed with their bound."""
+    from roms_tpu_torch.models import upwelling
+    from roms_tpu_torch.state import TENSOR_FIELDS
+    for case, (_, _, s, _) in developed.items():
+        for dtype in ("float64", "float32"):
+            if case == "upwelling":
+                cfg, grid, _, ffn = upwelling.build(
+                    upwelling.make_config(dtype=dtype), device=device)
+            else:
+                cfg, grid, _, ffn = operator_case(case, device, dtype)
+            state = s.replace(**{k: getattr(s, k).to(grid.h.dtype)
+                                 for k in TENSOR_FIELDS})
+            calls = captured_calls(cfg, grid, state, ffn)
+            nt = cfg.ntracers
+            cases = []
+            for h, v in (("U3", "C4"),) + SCHEME_PAIRS:
+                for name in ("tracer_predictor", "tracer_corrector"):
+                    args, kw = calls[name]
+                    c = args[0].replace(t_hadv=(h,) * nt, t_vadv=(v,) * nt)
+                    cases.append((f"{case}:{name}[{h}/{v}]", name,
+                                  (c,) + args[1:], kw))
+            check_variants("operators-schemes", grid, cases, dtype, results)
+
+
+def operator_physics(device, smi):
+    """Phase 15 (d): the physics of roms_tpu's case tests in float64, at
+    their sizes (OPERATOR_PHYSICS_SIZES; SEAMOUNT at its published size),
+    with ms/step."""
+    import numpy as np
+    import torch
+    from roms_tpu_torch import stepping, vgrid
+    from roms_tpu_torch.grid import hc_of
+    ms = {}
+
+    def run(cfg, grid, s, n, ffn, name):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s = stepping.run(cfg, grid, s, n, ffn)
+        torch.cuda.synchronize()
+        ms[name] = ((time.perf_counter() - t0) * 1e3 / n, n)
+        return s
+
+    def report(name, cfg, ok, what):
+        n = OPERATOR_PHYSICS_STEPS[name]
+        print(f"[operators-physics] {name} {cfg.Lm}x{cfg.Mm}x{cfg.N}, {n} "
+              f"float64 steps: {ms[name][0]:.1f} ms/step on {smi}; {what}  "
+              f"{'OK' if ok else 'FAIL'}", flush=True)
+        check(ok, f"{name}: the physics signature failed")
+
+    def inner(cfg, a):
+        return interior(cfg, a).cpu().numpy()
+
+    for scheme in PG_SCHEMES:
+        name = f"seamount_{scheme}"
+        cfg, grid, s0, ffn = operator_case(name, device)
+        s = run(cfg, grid, s0, SEAMOUNT_CHECK_STEPS, ffn, name)
+        u10 = float(np.abs(inner(cfg, s.u)).max())
+        s = run(cfg, grid, s0, OPERATOR_PHYSICS_STEPS[name], ffn, name)
+        u100 = float(np.abs(inner(cfg, s.u)).max())
+        v100 = float(np.abs(inner(cfg, s.v)).max())
+        report(name, cfg, np.isfinite(u100) and u10 < 0.05,
+               f"spurious max|u| {u10:.4e} m/s after "
+               f"{SEAMOUNT_CHECK_STEPS} steps (< 0.05), max|u| {u100:.4e}, "
+               f"max|v| {v100:.4e} m/s after "
+               f"{OPERATOR_PHYSICS_STEPS[name]} steps "
+               f"({OPERATOR_PHYSICS_STEPS[name] * cfg.dt / 3600.0:g} h)")
+
+    def case(name):
+        return operator_case(name, device, **OPERATOR_PHYSICS_SIZES[name])
+
+    name = "grav_adj"
+    cfg, grid, s0, ffn = case(name)
+    s = run(cfg, grid, s0, OPERATOR_PHYSICS_STEPS[name], ffn, name)
+    u = inner(cfg, s.u)
+    mid = u.shape[2] // 2
+    top, bot = float(u[-1, :, mid].mean()), float(u[0, :, mid].mean())
+    report(name, cfg, bool(np.isfinite(inner(cfg, s.t)).all()) and
+           top > 1e-3 and bot < -1e-3,
+           f"u at the lock, surface {top:.4e} (> 1e-3), bottom {bot:.4e} "
+           f"m/s (< -1e-3)")
+
+    name = "double_gyre"
+    cfg, grid, s0, ffn = case(name)
+    s = run(cfg, grid, s0, OPERATOR_PHYSICS_STEPS[name], ffn, name)
+    ke = float((inner(cfg, s.u) ** 2).mean())
+    report(name, cfg, bool(np.isfinite(inner(cfg, s.zeta)).all()) and
+           0.0 < ke < 1.0, f"mean u^2 {ke:.4e} m2/s2 (in (0, 1))")
+
+    for name in ("basin", "canyon3d"):
+        cfg, grid, s0, ffn = case(name)
+        s = run(cfg, grid, s0, OPERATOR_PHYSICS_STEPS[name], ffn, name)
+        umax = float(np.abs(inner(cfg, s.u)).max())
+        finite = bool(np.isfinite(inner(cfg, s.t)).all() and
+                      np.isfinite(umax))
+        report(name, cfg, finite and (name != "basin" or umax < 1.0),
+               f"finite={finite}, max|u| {umax:.4e} m/s" +
+               (" (< 1)" if name == "basin" else ""))
+
+    name = "overflow"
+    cfg, grid, s0, ffn = case(name)
+
+    def cold_depth(s):
+        z_r, _, Hz = vgrid.set_depth(grid.h, s.zeta, hc_of(cfg), grid.sc_r,
+                                     grid.Cs_r, grid.sc_w, grid.Cs_w,
+                                     cfg.vtransform)
+        cold = torch.clamp(5.0 - s.t[0], min=0.0) * Hz
+        cold, z_r = interior(cfg, cold), interior(cfg, z_r)
+        return float((cold * z_r).sum() / cold.sum())
+
+    z0 = cold_depth(s0)
+    s = run(cfg, grid, s0, OPERATOR_PHYSICS_STEPS[name], ffn, name)
+    z1 = cold_depth(s)
+    vmax = float(s.v.abs().max())
+    report(name, cfg, bool(torch.isfinite(s.t).all()) and z1 < z0 - 5.0 and
+           vmax > 0.05, f"the cold water's centre of mass from {z0:.2f} to "
+           f"{z1:.2f} m (at least 5 m deeper), max|v| {vmax:.4f} m/s "
+           f"(> 0.05)")
+
+    name = "windbasin"
+    cfg, grid, s0, ffn = case(name)
+    s = run(cfg, grid, s0, OPERATOR_PHYSICS_STEPS[name], ffn, name)
+    u = inner(cfg, s.u)
+    ub = float(np.abs(inner(cfg, s.ubar)).max())
+    report(name, cfg, bool(np.isfinite(u).all()) and u[-1].mean() < 0.0
+           and u[0].mean() > 0.0 and ub < 0.5 * np.abs(u[-1]).max(),
+           f"mean surface u {u[-1].mean():.4e} (< 0), mean bottom u "
+           f"{u[0].mean():.4e} m/s (> 0), max|ubar| {ub:.4e} (< half of "
+           f"max|u surface| {np.abs(u[-1]).max():.4e})")
+
+    name = "channel_neck"
+    cfg, grid, s0, ffn = case(name)
+    s = run(cfg, grid, s0, OPERATOR_PHYSICS_STEPS[name], ffn, name)
+    u = s.u.cpu().numpy()
+    land = float(np.abs(u * (1.0 - grid.umask.cpu().numpy())).max())
+    # the neck: the middle fifth of the channel's length, its wet rows
+    xr, yr = grid.xr.cpu().numpy(), grid.yr.cpu().numpy()
+    Xsize, Esize = 1.0 / float(grid.pm[0, 0]) * cfg.Lm, \
+        1.0 / float(grid.pn[0, 0]) * cfg.Mm
+    cols = np.abs(xr[0] - 0.5 * Xsize) < 0.1 * Xsize
+    rows = np.abs(yr[:, 0] - 0.5 * Esize) < Esize / 6.0
+    neck = float(np.abs(u[:, rows][:, :, cols]).max())
+    umax = float(np.abs(u).max())
+    report(name, cfg, bool(np.isfinite(u).all()) and umax > 1e-3 and
+           land == 0.0 and neck >= 0.5 * umax,
+           f"max|u| {umax:.4e} m/s (> 1e-3), on land faces {land:g} (= 0), "
+           f"in the neck {neck:.4e} (at least half the maximum)")
+
+
+def operator_fixture(device):
+    """Phase 15 (e): the small cases with the kernels on against
+    tests/data/torch_operators_small.npz, at CARD_FACTOR times the CPU
+    test's bounds."""
+    import numpy as np
+    from roms_tpu_torch import stepping
+    fx = operators_fixture_script()
+    ref = np.load(fx.OUT)
+    for name in fx.CASES:
+        cfg, grid, s0, ffn = fx.build_port(name, device=device)
+        s = stepping.run(cfg, grid, s0, fx.NSTEPS, ffn)
+        errors = fx.errors(name, cfg, s0, s, ref, factor=CARD_FACTOR)
+        worst = max(errors.items(), key=lambda kv: kv[1][0] / kv[1][1])
+        print(f"[operators-fixture] {name}: worst against its bound: "
+              f"{worst[0]} {worst[1][0]:.3e} (bound {worst[1][1]:g})",
+              flush=True)
+        bad = {k: e for k, e in errors.items() if not e[0] <= e[1]}
+        check(not bad, f"the small {name} misses its fixture: {bad}")
+
+
+def operators_phase(device, smi):
+    """Phase 15: the operator cases at their published sizes: (a) kernels
+    against plain on each case's arguments, (b) kernels on against off,
+    (c) rows 8-9 under the other advection schemes, (c') the options no
+    case uses, (d) the physics, (e) the small fixture, (f) ms/step."""
+    import torch
+    from roms_tpu_torch import stepping
+    from roms_tpu_torch.models import upwelling
+    t_phase = t_part = time.perf_counter()
+    parts = {}
+
+    def lap(part):
+        nonlocal t_part
+        now = time.perf_counter()
+        parts[part] = now - t_part
+        t_part = now
+
+    fx = operators_fixture_script()
+    developed = {}
+    for name in OPERATORS:
+        cfg, grid, s0, ffn = operator_case(name, device)
+        developed[name] = (cfg, grid, stepping.run(
+            cfg.replace(pallas2d=False), grid, s0, 3, ffn), ffn)
+    lap("set-up")
+    for name in ("grav_adj", "overflow"):
+        for dtype in ("float64", "float32"):
+            column_tiles("operators", operator_case(name, device, dtype)[0],
+                         dtype)
+    case_kernel_checks("operators", OPERATORS,
+                       lambda n, d: operator_case(n, device, d),
+                       OPERATOR_KERNELS, developed)
+    lap("a")
+    launches = {name: kernels_on_off(
+        "operators-equiv", name, *developed[name], OPERATOR_KERNELS[name],
+        fx, OPERATOR_EQUIV_STEPS) for name in OPERATORS}
+    lap("b")
+    cfg, grid, s0, ffn = upwelling.build(upwelling.make_config(),
+                                         device=device)
+    schemes = {"basin": developed["basin"], "upwelling": (cfg, grid, (
+        stepping.run(cfg.replace(pallas2d=False), grid, s0, 3, ffn)), ffn)}
+    del developed
+    tracer_scheme_checks({}, device, schemes)
+    del schemes
+    lap("c")
+    for name in OPTIONS:
+        cfg, grid, s0, ffn = fx.build_port(name, device=device)
+        s = stepping.run(cfg.replace(pallas2d=False), grid, s0, 3, ffn)
+        kernels_on_off("operators-options", name, cfg, grid, s, ffn,
+                       OPERATOR_KERNELS[name], fx, OPERATOR_EQUIV_STEPS)
+    lap("c'")
+    operator_physics(device, smi)
+    lap("d")
+    operator_fixture(device)
+    lap("e")
+    ms64 = {}
+    for name in OPERATORS:
+        cfg, grid, s0, ffn = operator_case(name, device)
+        s = stepping.run(cfg, grid, s0, 1, ffn)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stepping.run(cfg, grid, s, TIMED_STEPS, ffn)
+        torch.cuda.synchronize()
+        ms64[name] = ((time.perf_counter() - t0) * 1e3 / TIMED_STEPS,
+                      TIMED_STEPS)
+    case_times("operators-times", OPERATORS,
+               lambda n, d: operator_case(n, device, d), smi, launches, ms64)
+    lap("f")
+    print(f"[operators] phase 15 took {time.perf_counter() - t_phase:.1f} s ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()) + ")",
+          flush=True)
+
+
 def column_times(device):
     """`--column-times TREE`: the time a call of rows 1-4 and 6-10, with
     the host's time (device_ms) and on the device alone (profiled_ms), on
@@ -2098,6 +2445,7 @@ def main() -> int:
     timing = sys.argv[1:2] == ["--column-times"]
     regional_only = sys.argv[1:2] == ["--regional"]
     coastal_only = sys.argv[1:2] == ["--coastal"]
+    operators_only = sys.argv[1:2] == ["--operators"]
     sys.path.insert(0, os.path.abspath(sys.argv[2]) if timing else ROOT)
     try:
         import roms_tpu_torch  # noqa: F401
@@ -2106,7 +2454,8 @@ def main() -> int:
         print(f"chip_smoke: roms_tpu_torch is not importable beside this "
               f"script ({exc})", file=sys.stderr)
         return 2
-    for path in (ANCHOR, BENCH_FIXTURE, REGIONAL_FIXTURE, COASTAL_FIXTURE):
+    for path in (ANCHOR, BENCH_FIXTURE, REGIONAL_FIXTURE, COASTAL_FIXTURE,
+                 OPERATORS_FIXTURE):
         if not os.path.exists(path):
             print(f"chip_smoke: missing {path}", file=sys.stderr)
             return 2
@@ -2141,6 +2490,9 @@ def main() -> int:
         if coastal_only:
             coastal_phase(device, smi)
             return 0
+        if operators_only:
+            operators_phase(device, smi)
+            return 0
         results = {}
         kernel_checks(results, device)
         main_path(device)
@@ -2157,6 +2509,7 @@ def main() -> int:
         driver_phase(device, smi)
         regional_phase(device, smi)
         coastal_phase(device, smi)
+        operators_phase(device, smi)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

@@ -20,8 +20,11 @@ namespace roms {
 constexpr int kMaxTr = 16;    // most tracers a tracer kernel takes
 
 // scheme codes, as passed from Python (ops/step3d_cuda.py)
-enum HScheme { H_U3 = 0, H_C4 = 1 };
-enum VScheme { V_C4 = 0, V_SPLINES = 1 };
+enum HScheme { H_U3 = 0, H_C4 = 1, H_C2 = 2, H_U1 = 3, H_A4 = 4 };
+enum VScheme { V_C4 = 0, V_SPLINES = 1, V_C2 = 2, V_U1 = 3, V_A4 = 4 };
+
+// the Akima select's threshold (advection._EPS)
+constexpr double kAkimaEps = 1.0e-16;
 
 __host__ __device__ __forceinline__ int clampi(int a, int lo, int hi) {
   return a < lo ? lo : (a > hi ? hi : a);
@@ -136,22 +139,33 @@ __device__ __forceinline__ Line y_line(const Geom& g, int J, int I) {
   return make_line(J, g.Ny, I, g.Nx, g.ns_per, g.H - 1, g.H + g.M + 1);
 }
 
+// Akima's harmonic-mean gradient of two first differences (advection
+// _akima): zero unless 2 d_hi d_lo exceeds kAkimaEps.
+template <typename T>
+__device__ __forceinline__ T akima(T d_hi, T d_lo) {
+  const T cff = T(2) * d_hi * d_lo;
+  return cff > T(kAkimaEps) ? cff / (d_hi + d_lo) : T(0);
+}
+
 // Horizontal advective flux (advection.hadv_fluxes) at one face: the
 // tracer on either side (qm, qa), the mass flux there, and dq at the face
-// before it, at it and after it.
+// before it, at it and after it (read by U3, C4 and A4).
 template <typename T>
 __device__ __forceinline__ T hadv_face(int scheme, T qm, T qa, T Fa, T dq_m,
                                        T dq_a, T dq_p) {
+  const T Fpos = Fa > T(0) ? Fa : T(0);
+  const T Fneg = Fa < T(0) ? Fa : T(0);
+  if (scheme == H_C2) return Fa * T(0.5) * (qm + qa);
+  if (scheme == H_U1) return Fpos * qm + Fneg * qa;
   if (scheme == H_U3) {
     const T curv = dq_p - dq_a;
     const T curv_m = dq_a - dq_m;
-    const T Fpos = Fa > T(0) ? Fa : T(0);
-    const T Fneg = Fa < T(0) ? Fa : T(0);
     return Fa * T(0.5) * (qm + qa) -
            T(1.0 / 6.0) * (curv_m * Fpos + curv * Fneg);
   }
-  const T grad = T(0.5) * (dq_p + dq_a);
-  const T grad_m = T(0.5) * (dq_a + dq_m);
+  const bool a4 = scheme == H_A4;
+  const T grad = a4 ? akima(dq_p, dq_a) : T(0.5) * (dq_p + dq_a);
+  const T grad_m = a4 ? akima(dq_a, dq_m) : T(0.5) * (dq_a + dq_m);
   return Fa * T(0.5) * (qm + qa - T(1.0 / 3.0) * (grad - grad_m));
 }
 
@@ -185,16 +199,35 @@ __device__ __forceinline__ T line_div(const T* __restrict__ q, const Line& L,
   return east - west;
 }
 
-// Vertical C4 advective flux (advection.vadv_flux "C4") at interface k,
-// 1 <= k <= N-1, with reduced-order end interfaces; q the tracer column
-// and W the vertical velocity's.
+// Vertical advective flux (advection.vadv_flux) at interface k, 0 <= k <=
+// N, of a scheme that is pointwise in k (all but SPLINES): zero at the
+// bottom and the surface.  C4 has reduced-order end interfaces; A4 pads
+// its first differences d(k) = q[k] - q[k-1] with d(0) = d(1) and d(N) =
+// d(N-1).  q is the tracer column and W the vertical velocity's.
 template <typename T, class Q, class V>
-__device__ __forceinline__ T c4_flux(Q q, V W, int N, int k) {
+__device__ __forceinline__ T vadv_flux(int scheme, Q q, V W, int N, int k) {
+  if (k == 0 || k == N) return T(0);
+  const T Wk = W[k];
+  if (scheme == V_C2) return Wk * T(0.5) * (q[k - 1] + q[k]);
+  if (scheme == V_U1) {
+    const T Wpos = Wk > T(0) ? Wk : T(0);
+    const T Wneg = Wk < T(0) ? Wk : T(0);
+    return Wpos * q[k - 1] + Wneg * q[k];
+  }
+  if (scheme == V_A4) {
+    auto d = [&](int j) {
+      const int i = clampi(j, 1, N - 1);
+      return q[i] - q[i - 1];
+    };
+    const T dm = d(k - 1), da = d(k), dp = d(k + 1);
+    return Wk * T(0.5) *
+           (q[k - 1] + q[k] - T(1.0 / 3.0) * (akima(dp, da) - akima(da, dm)));
+  }
   const T c1 = T(0.5), c2 = T(7.0 / 12.0), c3 = T(1.0 / 12.0);
-  if (k == 1) return W[1] * (c1 * q[0] + c2 * q[1] - c3 * q[2]);
+  if (k == 1) return Wk * (c1 * q[0] + c2 * q[1] - c3 * q[2]);
   if (k == N - 1)
-    return W[N - 1] * (c1 * q[N - 1] + c2 * q[N - 2] - c3 * q[N - 3]);
-  return W[k] * (c2 * (q[k - 1] + q[k]) - c3 * (q[k - 2] + q[k + 1]));
+    return Wk * (c1 * q[N - 1] + c2 * q[N - 2] - c3 * q[N - 3]);
+  return Wk * (c2 * (q[k - 1] + q[k]) - c3 * (q[k - 2] + q[k + 1]));
 }
 
 // Vertical SPLINES advective flux at interfaces 0..N into FC

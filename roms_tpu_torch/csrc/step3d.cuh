@@ -26,8 +26,8 @@
 //     column), its levels strided by the slots, so that a block has the
 //     loads of all its levels in flight at once: the column's Hz, W, mass
 //     fluxes and Akt, once for all tracers; the horizontal advection; the
-//     C4 vertical flux; the updates around the vertical solves; the
-//     predictor's t(nnew) start; every store.  The horizontal stencil
+//     vertical fluxes but SPLINES; the updates around the vertical solves;
+//     the predictor's t(nnew) start; every store.  The horizontal stencil
 //     takes its xi neighbours from the neighbouring lanes (warp shuffles)
 //     where they hold them, and loads the rest through its Line.
 //   - The serial recurrences (SPLINES vertical advection, the spline or
@@ -288,14 +288,14 @@ __device__ void tracer_predictor_tile(const PredParams& P,
   }
   __syncthreads();
 
-  // vertical advection: C4 a thread per (interface, column), SPLINES a
-  // thread per (tracer, column)
+  // vertical advection: SPLINES a thread per (tracer, column), the other
+  // schemes a thread per (interface, column)
   if (me.live) {
     for (int tr = 0; tr < NT; ++tr) {
-      if (P.vadv[tr] != V_C4) continue;
+      if (P.vadv[tr] == V_SPLINES) continue;
       const Col<T> q = trc(tr, 0), FC = trc(tr, 2);
       for (int k = me.k0; k <= N; k += me.dk)
-        FC[k] = k == 0 || k == N ? T(0) : c4_flux<T>(q, W, N, k);
+        FC[k] = vadv_flux<T>(P.vadv[tr], q, W, N, k);
     }
   }
   for (int u = t; u < NT * tile; u += nth) {
@@ -466,14 +466,14 @@ __device__ void tracer_corrector_tile(const CorrParams& P,
   }
   __syncthreads();
 
-  // vertical advection: C4 a thread per (interface, column), SPLINES a
-  // thread per (tracer, column)
+  // vertical advection: SPLINES a thread per (tracer, column), the other
+  // schemes a thread per (interface, column)
   if (me.live) {
     for (int tr = 0; tr < NT; ++tr) {
-      if (P.vadv[tr] != V_C4) continue;
+      if (P.vadv[tr] == V_SPLINES) continue;
       const Col<T> q = trc(tr, 0), FC = trc(tr, 2);
       for (int k = me.k0; k <= N; k += me.dk)
-        FC[k] = k == 0 || k == N ? T(0) : c4_flux<T>(q, W, N, k);
+        FC[k] = vadv_flux<T>(P.vadv[tr], q, W, N, k);
     }
   }
   for (int u = t; u < NT * tile; u += nth) {

@@ -6,11 +6,14 @@ momentum phase takes the chain it takes on the card.
 
     python roms_tpu_torch/launch_count.py [--case CASE] [--root CHECKOUT]
 
-CASE is upwelling (the default), benchmark, kelvin, estuary or riverplume,
-float32 as on the card.  --case benchmark counts a BENCHMARK1 step at
-64x32 instead of 512x64 (the count depends on N, not on the horizontal
-size); the regional cases run at their published sizes, with their
-general fast loop, plain 3-D stages and GLS counted as stages.
+CASE is upwelling (the default), benchmark, a regional case (kelvin,
+estuary, riverplume) or an operator case (basin, double_gyre, grav_adj,
+seamount, canyon3d, overflow, windbasin, channel_neck), float32 as on the
+card.  --case benchmark counts a BENCHMARK1 step at 64x32 instead of
+512x64 (the count depends on N, not on the horizontal size); the other
+cases run at their published sizes, with their plain stages (the
+regional cases' general fast loop, GLS, the mixing operators outside the
+kernels) counted as stages.
 
 --root counts the roms_tpu_torch of another checkout (an older tree has
 fewer kernel wrappers; the ones it lacks are skipped).  Prints the count
@@ -43,19 +46,25 @@ WRAPPERS = {
 }
 # plain stages the step calls by name, counted op by op
 STAGES = {"stepping": ("set_vbc", "momentum_init", "rhs3d_momentum",
-                       "uv3dmix2", "t3dmix2", "bulk_flux", "lmd_vmix",
-                       "swfrac"),
+                       "bulk_flux", "lmd_vmix", "swfrac"),
+          "ops.mix3d": ("t3dmix2", "t3dmix4", "t3dmix2_iso", "t3dmix4_iso",
+                        "t3dmix4_geo", "uv3dmix4", "uv3dmix2_geo",
+                        "uv3dmix4_geo"),
+          "ops.prsgrd": ("prsgrd",),
           "vgrid": ("set_depth",),
           "ops.step2d": ("fast_loop",),
           "ops.step3d_cuda": ("tracer_predictor_plain", "uv_corrector_plain",
                               "tracer_corrector_plain"),
           "ops.gls": ("gls_prestep", "gls_corstep")}
 REGIONAL = ("kelvin", "estuary", "riverplume")
+OPERATORS = ("basin", "double_gyre", "grav_adj", "seamount", "canyon3d",
+             "overflow", "windbasin", "channel_neck")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--case", choices=("upwelling", "benchmark") + REGIONAL,
+    ap.add_argument("--case", choices=("upwelling", "benchmark") + REGIONAL +
+                    OPERATORS,
                     default="upwelling")
     ap.add_argument("--root", default=os.path.dirname(
         os.path.dirname(os.path.abspath(__file__))))
@@ -110,10 +119,11 @@ def main() -> int:
             if hasattr(mod, name):
                 setattr(mod, name, span(name, getattr(mod, name), False))
 
-    if args.case in REGIONAL:
-        from roms_tpu_torch.models import cases
-        cfg, grid, s, ffn = getattr(cases, args.case)(
-            getattr(cases, args.case + "_config")(dtype="float32"),
+    if args.case in REGIONAL + OPERATORS:
+        from roms_tpu_torch.models import cases, cases4
+        mod = cases4 if args.case == "channel_neck" else cases
+        cfg, grid, s, ffn = getattr(mod, args.case)(
+            getattr(mod, args.case + "_config")(dtype="float32"),
             device="cpu")
     elif args.case == "benchmark":
         from roms_tpu_torch.models import benchmark

@@ -1,7 +1,13 @@
-"""Regional analytic cases with open boundaries, tides, rivers and GLS
-(counterpart of the KELVIN, ESTUARY_TEST and RIVERPLUME1 builders of
-``roms_tpu/models/cases.py``; ROMS/Include/<app>.h with the ana_grid,
-ana_initial and ana_*obc fixtures and the roms_<app>.in runtime values).
+"""Analytic cases (counterpart of the builders of ``roms_tpu/models/cases.py``;
+ROMS/Include/<app>.h with the ana_grid, ana_initial, ana_smflux and
+ana_*obc fixtures and the roms_<app>.in runtime values):
+
+ * closed and periodic basins that exercise the horizontal operators:
+   BASIN (biharmonic viscosity and diffusion), DOUBLE_GYRE, GRAV_ADJ,
+   SEAMOUNT (the pressure-gradient-error test), CANYON3D, OVERFLOW
+   (isopycnal diffusion) and WINDBASIN;
+ * regional cases with open boundaries, tides, rivers and GLS: KELVIN,
+   ESTUARY_TEST and RIVERPLUME1.
 
 Each case has a ``<case>_config(...)``, whose defaults are the published
 sizes, and a ``<case>(cfg=None, device=cuda)`` builder that returns
@@ -19,7 +25,7 @@ import torch
 
 from .. import constants as C
 from ..config import (Config, LBC, BC_CHAPMAN_EXPLICIT, BC_CLAMPED,
-                      BC_CLOSED, BC_GRADIENT, BC_RADIATION)
+                      BC_CLOSED, BC_GRADIENT, BC_PERIODIC, BC_RADIATION)
 from ..grid import build_grid, hc_of, torch_dtype
 from .. import vgrid
 from ..state import initial_state
@@ -52,6 +58,294 @@ def _rest_state(cfg, grid, temp_fn, device, salt=None):
         fields.append(bc.fill_halo(cfg, s))
     return initial_state(cfg, device=device,
                          t=torch.stack(fields, dim=0)), z_r
+
+
+def _stratification_800(cfg, z_r, scale=800.0):
+    """BASIN/BENCHMARK-family stratification (ana_initial.h:523-547)."""
+    val1 = (44.69 / 39.382) ** 2
+    val2 = val1 * (cfg.rho0 * scale / C.g) * \
+        (5.0e-5 / ((42.689 / 44.69) ** 2))
+    return val2 * torch.exp(z_r / scale) * \
+        (0.6 - 0.4 * torch.tanh(z_r / scale))
+
+
+def _linear_config(name: str, lbc: LBC, **kw) -> Config:
+    """The settings the operator cases share: one linear-EOS temperature
+    tracer with U3/C4 advection, Vtransform 1 with stretching 1, and the
+    same boundary kind for every field; `kw` sets the rest."""
+    base = dict(name=name, ntracers=1, t_hadv=("U3",), t_vadv=("C4",),
+                eos="linear", Scoef=0.0, Tcoef=1.7e-4,
+                theta_s=0.0, theta_b=0.0, tcline=1e16, vtransform=1,
+                vstretching=1, ew_periodic=lbc.west == BC_PERIODIC,
+                ns_periodic=lbc.south == BC_PERIODIC,
+                lbc_zeta=lbc, lbc_ubar=lbc, lbc_vbar=lbc, lbc_u=lbc,
+                lbc_v=lbc, lbc_t=lbc)
+    base.update(kw)
+    return Config(**base)
+
+
+# ---------------------------------------------------------------------------
+# BASIN
+# ---------------------------------------------------------------------------
+def basin_config(Lm: int = 180, Mm: int = 140, N: int = 12, dt: float = 800.0,
+                 ndtfast: int = 20, dtype: str = "float64") -> Config:
+    """BASIN (basin.h; roms_basin.in): biharmonic viscosity (visc4 8e10
+    m4/s) and diffusion (tnu4 2e10 m4/s), quadratic drag."""
+    return _linear_config(
+        "basin", LBC(), Lm=Lm, Mm=Mm, N=N, dt=dt, ndtfast=ndtfast,
+        uv_vis2=False, visc2=0.0, uv_vis4=True, visc4=8.0e10,
+        ts_dif4=True, tnu4=(2.0e10,), tnu2=(0.0,), akt_bak=(1.0e-7,),
+        akv_bak=1.0e-5, bottom_drag="quadratic", rdrg2=3.0e-3,
+        R0=1028.0, T0=10.0, theta_s=3.3, dtype=dtype)
+
+
+def basin(cfg: Config | None = None,
+          device: torch.device | str = torch.device("cuda")):
+    """BASIN: a closed 3600 x 2800 km beta-plane box 5000 m deep at rest in
+    the 800 m stratification, driven by a double-gyre wind ramped up over
+    days 3-9 (ana_smflux.h BASIN; the stress at the surface rather than
+    as BODYFORCE layers, as in roms_tpu)."""
+    cfg = cfg or basin_config()
+    Esize = 2800e3
+    grid, cfg = _build_flat(cfg, 3600e3, Esize, 1.0e-4, 2.0e-11, 5000.0,
+                            device)
+    state0, _ = _rest_state(cfg, grid,
+                            lambda z: _stratification_800(cfg, z), device)
+
+    def forcing_fn(cfg_, grid_, time):
+        val1 = 5.0e-5 * (1.0 + math.tanh((time - 6.0 * 86400.0) /
+                                         (3.0 * 86400.0)))
+        return {"sustr": -val1 * torch.cos(2.0 * math.pi * grid_.yr / Esize)}
+
+    return cfg, grid, state0, forcing_fn
+
+
+# ---------------------------------------------------------------------------
+# DOUBLE_GYRE
+# ---------------------------------------------------------------------------
+def double_gyre_config(Lm: int = 54, Mm: int = 108, N: int = 4,
+                       dt: float = 3600.0, ndtfast: int = 20,
+                       dtype: str = "float64") -> Config:
+    """DOUBLE_GYRE (double_gyre.h; roms_double_gyre.in): harmonic
+    viscosity and diffusion (1280 m2/s), temperature and salinity, linear
+    drag."""
+    return _linear_config(
+        "double_gyre", LBC(), Lm=Lm, Mm=Mm, N=N, ntracers=2,
+        t_hadv=("U3", "U3"), t_vadv=("C4", "C4"), dt=dt, ndtfast=ndtfast,
+        uv_vis2=True, visc2=1280.0, tnu2=(1280.0, 1280.0),
+        bottom_drag="linear", rdrg=3.0e-4, R0=1028.0, T0=10.0, S0=34.5,
+        theta_s=1.0, theta_b=1.0, dtype=dtype)
+
+
+def double_gyre(cfg: Config | None = None,
+                device: torch.device | str = torch.device("cuda")):
+    """DOUBLE_GYRE: wind-driven gyres in a closed 1000 x 2000 km beta-plane
+    basin 500 m deep; temperature stratified and cooling northward,
+    salinity freshening upward and northward, a cosine wind."""
+    cfg = cfg or double_gyre_config()
+    Esize = 2000e3
+    grid, cfg = _build_flat(cfg, 1000e3, Esize, 7.3e-5, 2.0e-11, 500.0,
+                            device)
+    val1 = (44.69 / 39.382) ** 2
+    val2 = val1 * (cfg.rho0 * 100.0 / C.g) * \
+        (5.0e-5 / ((42.689 / 44.69) ** 2))
+
+    def temp_fn(z_r):
+        return cfg.T0 + val2 * torch.exp(z_r / 100.0) * \
+            (10.0 - 0.4 * torch.tanh(z_r / 100.0)) - 3.0 * (grid.yr / Esize)
+
+    z_r = _rest_z_r(cfg, grid)
+    salt = 34.5 - 0.001 * z_r - grid.yr / Esize
+    state0, _ = _rest_state(cfg, grid, temp_fn, device, salt=salt)
+
+    def forcing_fn(cfg_, grid_, time):
+        windamp = -0.05 / cfg_.rho0
+        return {"sustr": windamp * torch.cos(2.0 * math.pi * grid_.yr /
+                                             Esize)}
+
+    return cfg, grid, state0, forcing_fn
+
+
+# ---------------------------------------------------------------------------
+# GRAV_ADJ
+# ---------------------------------------------------------------------------
+def grav_adj_config(Lm: int = 128, Mm: int = 4, N: int = 40,
+                    dt: float = 50.0, ndtfast: int = 20,
+                    dtype: str = "float64") -> Config:
+    """GRAV_ADJ (grav_adj.h): north-south periodic, no Coriolis, no bottom
+    drag, harmonic viscosity 5 m2/s."""
+    return _linear_config(
+        "grav_adj", LBC(BC_CLOSED, BC_PERIODIC, BC_CLOSED, BC_PERIODIC),
+        Lm=Lm, Mm=Mm, N=N, dt=dt, ndtfast=ndtfast, uv_cor=False,
+        uv_vis2=True, visc2=5.0, tnu2=(0.0,), akv_bak=1.0e-5,
+        akt_bak=(1.0e-7,), bottom_drag=None, R0=1028.0, T0=10.0,
+        dtype=dtype)
+
+
+def grav_adj(cfg: Config | None = None,
+             device: torch.device | str = torch.device("cuda")):
+    """GRAV_ADJ: lock exchange in a 64 x 2 km channel 20 m deep, the west
+    half 5 degC warmer than the east."""
+    cfg = cfg or grav_adj_config()
+    grid, cfg = _build_flat(cfg, 64e3, 2e3, 0.0, 0.0, 20.0, device)
+    i = torch.arange(cfg.nx_tot, device=grid.h.device) - cfg.halo + 1
+    left = i <= (cfg.Lm + 1) // 2
+
+    def temp_fn(z_r):
+        return torch.where(left, cfg.T0 + 5.0, cfg.T0) + 0.0 * z_r
+
+    state0, _ = _rest_state(cfg, grid, temp_fn, device)
+    return cfg, grid, state0, None
+
+
+# ---------------------------------------------------------------------------
+# SEAMOUNT
+# ---------------------------------------------------------------------------
+def seamount_config(Lm: int = 49, Mm: int = 48, N: int = 13, dt: float = 60.0,
+                    ndtfast: int = 20, dtype: str = "float64",
+                    prsgrd_scheme: str = "djs") -> Config:
+    """SEAMOUNT (seamount.h): no lateral mixing, linear drag, strongly
+    stretched levels; `prsgrd_scheme` picks the pressure gradient under
+    test (djs, dj, pj, pjq2 or pjq4)."""
+    return _linear_config(
+        "seamount", LBC(), Lm=Lm, Mm=Mm, N=N, dt=dt, ndtfast=ndtfast,
+        uv_vis2=False, visc2=0.0, tnu2=(0.0,), akv_bak=1.0e-5,
+        akt_bak=(1.0e-7,), bottom_drag="linear", rdrg=3.0e-4, R0=1028.0,
+        T0=10.0, theta_s=5.0, theta_b=0.4, tcline=50.0,
+        prsgrd_scheme=prsgrd_scheme, dtype=dtype)
+
+
+def seamount(cfg: Config | None = None,
+             device: torch.device | str = torch.device("cuda")):
+    """SEAMOUNT: the pressure-gradient-error benchmark over a Gaussian
+    seamount 4500 m tall in a 5000 m ocean (Beckmann & Haidvogel 1993),
+    exponentially stratified; the exact solution is rest."""
+    cfg = cfg or seamount_config()
+    Xsize = Esize = 320e3
+
+    def depth_fn(x, y, i, j, c):
+        v1 = (x - 0.5 * Xsize) / 40e3
+        v2 = (y - 0.5 * Esize) / 40e3
+        return 5000.0 - 4500.0 * np.exp(-(v1 * v1 + v2 * v2))
+
+    grid, cfg = build_grid(cfg, Xsize, Esize, f0=1.0e-4, beta=0.0,
+                           depth_fn=depth_fn, device=device)
+    state0, _ = _rest_state(
+        cfg, grid, lambda z: cfg.T0 + 7.5 * torch.exp(z / 1000.0), device)
+    return cfg, grid, state0, None
+
+
+# ---------------------------------------------------------------------------
+# CANYON3D
+# ---------------------------------------------------------------------------
+def canyon3d_config(Lm: int = 65, Mm: int = 48, N: int = 15,
+                    dt: float = 100.0, ndtfast: int = 20,
+                    dtype: str = "float64") -> Config:
+    """CANYON (canyon.h): east-west periodic, harmonic viscosity and
+    diffusion 5 m2/s, linear drag."""
+    return _linear_config(
+        "canyon3d", LBC(BC_PERIODIC, BC_CLOSED, BC_PERIODIC, BC_CLOSED),
+        Lm=Lm, Mm=Mm, N=N, dt=dt, ndtfast=ndtfast, uv_vis2=True, visc2=5.0,
+        tnu2=(5.0,), akv_bak=1.0e-5, akt_bak=(1.0e-7,),
+        bottom_drag="linear", rdrg=3.0e-4, R0=1028.0, T0=10.0,
+        theta_s=3.5, dtype=dtype)
+
+
+def canyon3d(cfg: Config | None = None,
+             device: torch.device | str = torch.device("cuda")):
+    """CANYON3D: a shelf 20 m deep falling to 4000 m, cut by a canyon whose
+    head reaches 16 km into it, in the 800 m stratification."""
+    cfg = cfg or canyon3d_config()
+    Xsize, Esize = 128e3, 96e3
+
+    def depth_fn(x, y, i, j, c):
+        val1 = 32000.0 - 16000.0 * (np.sin(np.pi * x / Xsize)) ** 24
+        return 20.0 + 0.5 * (4000.0 - 20.0) * \
+            (1.0 + np.tanh((y - val1) / 10000.0))
+
+    grid, cfg = build_grid(cfg, Xsize, Esize, f0=1.0e-4, beta=0.0,
+                           depth_fn=depth_fn, device=device)
+    state0, _ = _rest_state(
+        cfg, grid,
+        lambda z: 3.488 * torch.exp(z / 800.0) *
+        (1.0 - (2.0 / 3.0) * torch.tanh(z / 800.0)), device)
+    return cfg, grid, state0, None
+
+
+# ---------------------------------------------------------------------------
+# OVERFLOW
+# ---------------------------------------------------------------------------
+def overflow_config(Lm: int = 4, Mm: int = 128, N: int = 20, dt: float = 20.0,
+                    ndtfast: int = 20, dtype: str = "float64") -> Config:
+    """OVERFLOW (overflow.h; roms_overflow.in 4x128x20, DT 20 s): north-south
+    periodic and east-west closed (roms_overflow.in:184-191), no Coriolis,
+    harmonic diffusion rotated to isopycnals (MIX_ISO_TS), quadratic
+    drag."""
+    return _linear_config(
+        "overflow", LBC(BC_CLOSED, BC_PERIODIC, BC_CLOSED, BC_PERIODIC),
+        Lm=Lm, Mm=Mm, N=N, dt=dt, ndtfast=ndtfast, uv_cor=False,
+        uv_vis2=True, visc2=1.0, ts_dif2=True, tnu2=(1.0,),
+        ts_mix_iso=True, splines_vdiff=True, splines_vvisc=True,
+        akv_bak=1.0e-5, akt_bak=(1.0e-7,), bottom_drag="quadratic",
+        rdrg2=3.0e-3, R0=1028.0, T0=10.0, dtype=dtype)
+
+
+def overflow(cfg: Config | None = None,
+             device: torch.device | str = torch.device("cuda")):
+    """OVERFLOW: a dense gravity current down a slope: tanh shelf-to-deep
+    bathymetry along eta (ana_grid.h:993-1000), cold water on the shelf
+    (ana_initial.h:756-763)."""
+    cfg = cfg or overflow_config()
+
+    def depth_fn(x, y, i, j, c):
+        return 200.0 + 0.5 * (4000.0 - 200.0) * \
+            (1.0 + np.tanh((y - 100.0e3) / 20.0e3))
+
+    grid, cfg = build_grid(cfg, 4.0e3, 200.0e3, f0=0.0, beta=0.0,
+                           depth_fn=depth_fn, device=device)
+
+    def temp_fn(z_r):
+        return cfg.T0 - 0.5 * cfg.T0 * (
+            1.0 + torch.tanh((grid.yr - 60.0e3) / 2.0e3)) + 0.0 * z_r
+
+    state0, _ = _rest_state(cfg, grid, temp_fn, device)
+    return cfg, grid, state0, None
+
+
+# ---------------------------------------------------------------------------
+# WINDBASIN
+# ---------------------------------------------------------------------------
+def windbasin_config(Lm: int = 101, Mm: int = 52, N: int = 25,
+                     dt: float = 120.0, ndtfast: int = 30,
+                     dtype: str = "float64") -> Config:
+    """WINDBASIN (windbasin.h; roms_windbasin.in 101x52x25, DT 120 s): no
+    momentum advection (no UV_ADV), no lateral mixing, quadratic drag."""
+    return _linear_config(
+        "windbasin", LBC(), Lm=Lm, Mm=Mm, N=N, dt=dt, ndtfast=ndtfast,
+        uv_adv=False, uv_cor=True, uv_vis2=False, visc2=0.0, tnu2=(0.0,),
+        splines_vdiff=True, splines_vvisc=True, akv_bak=1.0e-5,
+        akt_bak=(1.0e-6,), bottom_drag="quadratic", rdrg2=3.0e-3,
+        R0=1027.0, T0=20.0, dtype=dtype)
+
+
+def windbasin(cfg: Config | None = None,
+              device: torch.device | str = torch.device("cuda")):
+    """WINDBASIN: a wind-driven homogeneous closed basin of 2 x 1 km cells,
+    50 m deep, f = 1e-4, under a westward wind ramped up over two days
+    (ana_smflux.h:331-343)."""
+    cfg = cfg or windbasin_config()
+    grid, cfg = _build_flat(cfg, 2000.0 * cfg.Lm, 1000.0 * cfg.Mm, 1.0e-4,
+                            0.0, 50.0, device)
+    state0, _ = _rest_state(cfg, grid, lambda z: torch.full_like(z, 20.0),
+                            device)
+
+    def forcing_fn(cfg_, grid_, time):
+        tdays = time / C.day2sec
+        wind = -0.1 * math.sin(math.pi * tdays / 4.0) if tdays <= 2.0 \
+            else -0.1
+        return {"sustr": (wind / cfg_.rho0) * torch.ones_like(grid_.h)}
+
+    return cfg, grid, state0, forcing_fn
 
 
 # ---------------------------------------------------------------------------

@@ -8,6 +8,10 @@ LAB_CANYON, INLET_TEST and TEST_HEAD builders of
    metrics, nonuniform azimuthal spacing, angler = theta), periodic
    north-south.  As in roms_tpu, the oscillating-table rotation of
    ana_spinning.h is not applied: f is the constant 4 pi / 25.
+ * channel_neck - CHANNEL_NECK (channel_neck.h; ana_initial.h:586-594): a
+   masked channel with a neck constriction and viscosity rotated to
+   geopotentials (MIX_GEO_UV).  The reference grid is a file that is not
+   shipped; the neck here is roms_tpu's analytic stand-in.
  * inlet_test - INLET_TEST (inlet_test.h; grid from
    Data/ROMS/Grid/inlet_test_grid.nc; ana_fsobc.h:77-85 semidiurnal
    north-boundary tide): wetting-drying tidal inlet, GLS k-epsilon, no
@@ -36,7 +40,7 @@ import torch
 
 from ..config import (Config, LBC, BC_CHAPMAN_IMPLICIT, BC_CLOSED,
                       BC_FLATHER, BC_GRADIENT, BC_PERIODIC)
-from ..grid import build_curvilinear_grid, hc_of, torch_dtype
+from ..grid import build_curvilinear_grid, build_grid, hc_of, torch_dtype
 from .. import vgrid
 from ..state import initial_state
 from ..ops import bc
@@ -131,6 +135,61 @@ def lab_canyon(cfg: Config | None = None,
                                 grid.Cs_w, cfg.vtransform)
     t0 = bc.fill_halo(cfg, -659.34183 * z_r)[None]
     return cfg, grid, initial_state(cfg, device=device, t=t0), None
+
+
+# ---------------------------------------------------------------------------
+# CHANNEL_NECK
+# ---------------------------------------------------------------------------
+def channel_neck_config(Lm: int = 48, Mm: int = 16, N: int = 8,
+                        dt: float = 30.0, ndtfast: int = 10,
+                        dtype: str = "float64") -> Config:
+    """CHANNEL_NECK (channel_neck.h): closed, momentum advection and
+    Coriolis, linear drag, harmonic viscosity 50 m2/s rotated to
+    geopotentials, constant mixing (vmix "none")."""
+    clo = LBC(BC_CLOSED, BC_CLOSED, BC_CLOSED, BC_CLOSED)
+    return Config(
+        name="channel_neck", Lm=Lm, Mm=Mm, N=N, ntracers=1,
+        ew_periodic=False, ns_periodic=False,
+        dt=dt, ndtfast=ndtfast,
+        uv_adv=True, uv_cor=True,
+        uv_vis2=True, visc2=50.0, uv_mix_geo=True,
+        splines_vdiff=True, splines_vvisc=True,
+        bottom_drag="linear", rdrg=3.0e-4,
+        akv_bak=1.0e-5, akt_bak=(1.0e-6,),
+        vmix="none", prsgrd_scheme="djs",
+        eos="linear", R0=1027.0, T0=20.0, Tcoef=1.7e-4, Scoef=0.0,
+        theta_s=0.0, theta_b=0.0, tcline=1.0e16,
+        t_hadv=("U3",), t_vadv=("C4",),
+        lbc_zeta=clo, lbc_ubar=clo, lbc_vbar=clo,
+        lbc_u=clo, lbc_v=clo, lbc_t=clo,
+        dtype=dtype)
+
+
+def channel_neck(cfg: Config | None = None,
+                 device: torch.device | str = torch.device("cuda")):
+    """CHANNEL_NECK: a 96 x 32 km channel 50 m deep that narrows to its
+    middle third over the middle fifth of its length, t = 20 everywhere,
+    and a sloshing surface 0.2 cos(pi x / Xsize) that drives water east
+    through the neck."""
+    cfg = cfg or channel_neck_config()
+    Xsize, Esize = 96.0e3, 32.0e3
+
+    def mask_fn(x, y, i, j, c):
+        in_neck = np.abs(x - 0.5 * Xsize) < 0.1 * Xsize
+        wide = np.abs(y - 0.5 * Esize) < 0.5 * Esize
+        narrow = np.abs(y - 0.5 * Esize) < Esize / 6.0
+        return np.where(in_neck, narrow, wide).astype(np.float64)
+
+    grid, cfg = build_grid(cfg, Xsize, Esize, f0=1.0e-4, beta=0.0,
+                           depth_fn=lambda x, y, i, j, c:
+                           np.full_like(x, 50.0), mask_fn=mask_fn,
+                           device=device)
+    zeta0 = 0.2 * torch.cos(math.pi * grid.xr / Xsize) * grid.rmask
+    t0 = torch.full((1, cfg.N, cfg.ny_tot, cfg.nx_tot), 20.0,
+                    dtype=grid.h.dtype, device=grid.h.device)
+    state0 = initial_state(cfg, device=device, zeta=bc.fill_halo(cfg, zeta0),
+                           t=t0)
+    return cfg, grid, state0, None
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,8 @@
 """Tracer advection flux builders shared by the predictor (pre_step3d.F) and
 the corrector (step3d_t.F); counterpart of ``roms_tpu/ops/advection.py``.
 
-Ported: horizontal U3, C4, HSIMT and U1 (the predictor's first-order
-fluxes under HSIMT), vertical C4, SPLINES, HSIMT and U1; the others raise
-NotImplementedError.  Fluxes carry the reference's units (Tunits m3/s):
+Horizontal schemes: C2, U1, U3, C4, A4 and HSIMT; vertical: SPLINES, A4,
+C2, C4, U1 and HSIMT.  Fluxes carry the reference's units (Tunits m3/s):
 FX/FE include Huon/Hvom, the vertical flux includes W.
 """
 
@@ -15,6 +14,8 @@ from ..config import Config
 from . import bc
 from .stencil import ip1, im1, jp1, jm1
 from .tridiag import spline_interp_flux
+
+_EPS = 1.0e-16
 
 # HSIMT TVD limiter coefficients (Wu & Zhu 2010; mod_scalars.F:375-377)
 _CC1, _CC2, _CC3 = 0.25, 0.5, 1.0 / 12.0
@@ -84,6 +85,14 @@ def _hsimt_fluxes(cfg: Config, q, Huon, Hvom, grid, Hz, dt):
     return FX, FE
 
 
+def _akima(d_hi, d_lo):
+    """Akima's harmonic-mean gradient of two first differences: zero unless
+    they have one sign (tadv.F Akima4)."""
+    cff = 2.0 * d_hi * d_lo
+    pos = cff > _EPS
+    return torch.where(pos, cff / torch.where(pos, d_hi + d_lo, 1.0), 0.0)
+
+
 def hadv_fluxes(cfg: Config, scheme: str, q, Huon, Hvom, grid=None,
                 Hz=None, dt=None):
     """Horizontal advective fluxes (FX at u-points, FE at v-points) of a
@@ -94,14 +103,18 @@ def hadv_fluxes(cfg: Config, scheme: str, q, Huon, Hvom, grid=None,
     L, M = cfg.Lm, cfg.Mm
     if scheme == "HSIMT":
         return _hsimt_fluxes(cfg, q, Huon, Hvom, grid, Hz, dt)
+    if scheme == "C2":
+        FX = Huon * 0.5 * (im1(q) + q)
+        FE = Hvom * 0.5 * (jm1(q) + q)
+        return FX, FE
     if scheme == "U1":
         FX = torch.clamp(Huon, min=0.0) * im1(q) + \
             torch.clamp(Huon, max=0.0) * q
         FE = torch.clamp(Hvom, min=0.0) * jm1(q) + \
             torch.clamp(Hvom, max=0.0) * q
         return FX, FE
-    if scheme not in ("U3", "C4"):
-        raise NotImplementedError(f"horizontal tracer advection {scheme!r}")
+    if scheme not in ("U3", "C4", "A4"):
+        raise ValueError(f"unknown horizontal advection scheme {scheme}")
     # xi-direction: first differences at u-points with one-sided edge
     # extrapolation (FX(Istr-1)=FX(Istr) etc.)
     dq = q - im1(q)
@@ -113,7 +126,8 @@ def hadv_fluxes(cfg: Config, scheme: str, q, Huon, Hvom, grid=None,
             im1(curv) * torch.clamp(Huon, min=0.0) +
             curv * torch.clamp(Huon, max=0.0))
     else:
-        grad = 0.5 * (ip1(dq) + dq)
+        grad = _akima(ip1(dq), dq) if scheme == "A4" else \
+            0.5 * (ip1(dq) + dq)
         FX = Huon * 0.5 * (im1(q) + q - (1.0 / 3.0) * (grad - im1(grad)))
 
     # eta-direction
@@ -126,7 +140,8 @@ def hadv_fluxes(cfg: Config, scheme: str, q, Huon, Hvom, grid=None,
             jm1(curv) * torch.clamp(Hvom, min=0.0) +
             curv * torch.clamp(Hvom, max=0.0))
     else:
-        grad = 0.5 * (jp1(dq) + dq)
+        grad = _akima(jp1(dq), dq) if scheme == "A4" else \
+            0.5 * (jp1(dq) + dq)
         FE = Hvom * 0.5 * (jm1(q) + q - (1.0 / 3.0) * (grad - jm1(grad)))
     return FX, FE
 
@@ -156,6 +171,17 @@ def vadv_flux(scheme: str, q, W, Hz, spline_variant: str, z_r=None,
         sw = torch.cat([sw[:-1], torch.where(W[N - 1] < 0.0, q[N - 1],
                                              sw[-1])[None]], dim=0)
         return torch.cat([zero, W[1:-1] * sw, zero], dim=0)
+    if scheme == "C2":
+        flux = W[1:-1] * 0.5 * (q[:-1] + q[1:])
+        return torch.cat([zero, flux, zero], dim=0)
+    if scheme == "A4":
+        # Akima monotonized 4th order (pre_step3d.F:486-516)
+        d = q[1:] - q[:-1]                       # k=1..N-1
+        d = torch.cat([d[:1], d, d[-1:]], dim=0)  # pad -> k=0..N
+        CFk = _akima(d[1:], d[:-1])              # k=1..N
+        flux = W[1:-1] * 0.5 * (q[:-1] + q[1:] -
+                                (1.0 / 3.0) * (CFk[1:] - CFk[:-1]))
+        return torch.cat([zero, flux, zero], dim=0)
     if scheme == "U1":
         flux = torch.clamp(W[1:-1], min=0.0) * q[:-1] + \
             torch.clamp(W[1:-1], max=0.0) * q[1:]
@@ -174,4 +200,4 @@ def vadv_flux(scheme: str, q, W, Hz, spline_variant: str, z_r=None,
         fNm1 = (W[N - 1] * (c1 * q[N - 1] + c2 * q[N - 2] -
                             c3 * q[N - 3]))[None]
         return torch.cat([zero, f1, flux_int, fNm1, zero], dim=0)
-    raise NotImplementedError(f"vertical tracer advection {scheme!r}")
+    raise ValueError(f"unknown vertical advection scheme {scheme}")

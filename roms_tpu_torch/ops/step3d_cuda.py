@@ -34,10 +34,10 @@ from .pre_step3d import predictor_coefs, tracer_phase as tracer_predictor_plain
 from .step3d_t import step3d_t as tracer_corrector_plain
 from .step3d_uv import corrector_cff, step3d_uv as uv_corrector_plain
 
-# the schemes step3d_pallas lets into its kernels, and the ones ours take
+# the schemes step3d_pallas lets into its kernels, and their codes in ours
 _OK_SCHEMES = {"C2", "U1", "U3", "C4", "A4", "SPLINES"}
-_HADV_CODE = {"U3": 0, "C4": 1}           # csrc/column.cuh HScheme
-_VADV_CODE = {"C4": 0, "SPLINES": 1}      # csrc/column.cuh VScheme
+_HADV_CODE = {"U3": 0, "C4": 1, "C2": 2, "U1": 3, "A4": 4}  # HScheme
+_VADV_CODE = {"C4": 0, "SPLINES": 1, "C2": 2, "U1": 3, "A4": 4}  # VScheme
 MAX_TRACERS = 16                          # column.cuh kMaxTr
 TILE = 32                # padded points a tile holds, at most
 TILE_THREADS = 256       # threads a tile block (step3d.cu kTileThreads)
@@ -140,7 +140,8 @@ def _tracer_ints(cfg: Config, name: str) -> list:
     if any(s not in _HADV_CODE for s in hs) or \
             any(s not in _VADV_CODE for s in vs):
         raise ValueError(f"{name} kernel: advection schemes {hs}/{vs} (it "
-                         "takes U3/C4 horizontal, C4/SPLINES vertical)")
+                         f"takes {sorted(_HADV_CODE)} horizontal, "
+                         f"{sorted(_VADV_CODE)} vertical)")
     return [_HADV_CODE[s] for s in hs] + [_VADV_CODE[s] for s in vs]
 
 

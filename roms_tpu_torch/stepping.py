@@ -2,20 +2,22 @@
 main3d.F:183-868).
 
 One call advances the State by one slow step, the nfast-substep barotropic
-loop included, in main3d's order.  Ported here: the branches the UPWELLING,
-BENCHMARK, KELVIN, ESTUARY_TEST, RIVERPLUME1, LAB_CANYON, INLET_TEST and
-TEST_HEAD configurations and the file-driven case take (analytic or
-file surface stress and heat flux, or COARE bulk fluxes from an analytic
-atmosphere; linear, quadratic or logarithmic drag; constant mixing
-coefficients (vmix None or "none"), Brunt-Vaisala mixing ("bvf"), the KPP
-surface and bottom layers or GLS; prsgrd32 with the tide-generating force;
-U3/C4/SPLINES/HSIMT advection; harmonic viscosity; harmonic tracer
-diffusion along s-surfaces or rotated to geopotential surfaces; open
-boundaries with their `bry` data, volume conservation and point sources;
-wetting-drying; climatology nudging of ubar/vbar, u/v and the tracers
-through `clm`; curvilinear and north-south periodic grids).  Every other
-branch (listed in _check_slice) raises NotImplementedError naming the
-missing feature.
+loop included, in main3d's order.  Ported here: the branches the cases of
+models/ (UPWELLING, BENCHMARK, the regional, coastal and operator cases)
+and the file-driven case take (analytic or file surface stress and heat
+flux, or COARE bulk fluxes from an analytic atmosphere; linear, quadratic
+or logarithmic drag; constant mixing coefficients (vmix None or "none"),
+Brunt-Vaisala mixing ("bvf"), the KPP surface and bottom layers or GLS;
+all five pressure-gradient schemes, djs with the tide-generating force;
+C2/U1/U3/C4/A4/SPLINES/HSIMT advection; harmonic or biharmonic viscosity
+along s-surfaces or geopotentials, with Smagorinsky's; harmonic or
+biharmonic tracer diffusion along s-surfaces, geopotentials or
+isopycnals; open boundaries with their `bry` data, volume conservation
+and point sources; wetting-drying; climatology nudging of ubar/vbar, u/v
+and the tracers through `clm`; curvilinear and periodic grids).  Every
+other branch raises NotImplementedError naming the missing feature: the
+ones listed in _check_slice when the step starts, MPDATA advection and
+BODYFORCE stresses where their stage is called.
 
 Kernels: with ``cfg.pallas2d`` true (the default), the kernel stages go
 through their wrappers (ops/diag_cuda.py, prsgrd_cuda.py, rhs3d_cuda.py,
@@ -49,10 +51,9 @@ from .config import Config
 from .grid import Grid, hc_of
 from .state import State
 from . import vgrid
-from .ops import diag_cuda, eos, gls as gls_mod, mix3d_cuda, prsgrd, \
-    prsgrd_cuda, rhs3d_cuda, step2d, step2d_cuda, step3d_cuda
+from .ops import diag_cuda, eos, gls as gls_mod, mix3d, mix3d_cuda, \
+    prsgrd, prsgrd_cuda, rhs3d_cuda, step2d, step2d_cuda, step3d_cuda
 from .ops.bulk_flux import bulk_flux
-from .ops.mix3d import t3dmix2
 from .ops.tides import equilibrium_tide, harmonic_constituents
 from .ops.vmix import bvf_mix, lmd_vmix, swfrac
 from .ops.pre_step3d import ab3_start_coefs, momentum_init
@@ -73,11 +74,9 @@ def _check_slice(cfg: Config, grid: Grid, frc: dict, collect_diags: bool):
     """Raise NotImplementedError for every branch of the reference step
     that this port does not have yet: the budget diagnostics, the ice
     shelf, sediment, the nearshore radiation stress, the bottom boundary
-    layer, the MY2.5 closure, KPP double diffusion, isopycnal and
-    biharmonic tracer mixing, biharmonic and rotated viscosity, mean-age
-    tracers, biology, and forcing fields outside the set the step reads.
-    MPDATA tracer advection and the prsgrd schemes other than djs raise
-    where their stage is called."""
+    layer, the MY2.5 closure, KPP double diffusion, mean-age tracers,
+    biology, and forcing fields outside the set the step reads.  MPDATA
+    tracer advection and BODYFORCE raise where their stage is called."""
     missing = []
     if collect_diags:
         missing.append(DIAGS_NOT_PORTED)
@@ -93,14 +92,6 @@ def _check_slice(cfg: Config, grid: Grid, frc: dict, collect_diags: bool):
         missing.append(f"vertical mixing closure ({cfg.vmix})")
     if cfg.vmix == "kpp" and cfg.lmd_ddmix and cfg.ntracers >= 2:
         missing.append("KPP double-diffusive mixing (LMD_DDMIX)")
-    if any(x != 0.0 for x in cfg.tnu2) and cfg.ts_mix_iso:
-        missing.append("isopycnal harmonic tracer mixing (MIX_ISO_TS)")
-    if cfg.ts_dif4 and any(x != 0.0 for x in cfg.tnu4):
-        missing.append("biharmonic tracer mixing (TS_DIF4)")
-    if cfg.uv_vis4 and cfg.visc4 != 0.0:
-        missing.append("biharmonic viscosity (UV_VIS4)")
-    if cfg.uv_vis2 and cfg.visc2 != 0.0 and cfg.uv_mix_geo:
-        missing.append("rotated viscosity (MIX_GEO_UV)")
     if cfg.inert_age:
         missing.append("mean-age tracers (AGE_MEAN)")
     if cfg.biology is not None:
@@ -221,26 +212,55 @@ def step(cfg: Config, grid: Grid, state: State,
             cfg, grid.pm, grid.pn, a1, a2, state.u, state.v, Hz,
             state.ru_prev, state.ru_prev2, state.rv_prev, state.rv_prev2,
             sustr, svstr, bustr, bvstr)
-        prsgrd32 = prsgrd_cuda.prsgrd32 if prsgrd_cuda.supported(cfg) \
+        pgf = prsgrd_cuda.prsgrd32 if prsgrd_cuda.supported(cfg) \
             else prsgrd.prsgrd
-        ru, rv = prsgrd32(cfg, grid, rho, z_r, z_w, Hz, eq_tide=eq_tide)
+        ru, rv = pgf(cfg, grid, rho, z_r, z_w, Hz, eq_tide=eq_tide)
         ru, rv, rufrc, rvfrc = rhs3d_momentum(
             cfg, grid, state.u, state.v, Huon, Hvom, W, Hz, ru, rv,
             sustr, svstr, bustr, bvstr, clm=clm)
         if cfg.uv_vis2 and cfg.visc2 != 0.0:
-            uv3dmix2 = mix3d_cuda.uv3dmix2 if mix3d_cuda.use_kernels(cfg) \
-                else mix3d_cuda.uv3dmix2_plain
-            u_nnew, v_nnew, rufrc, rvfrc = uv3dmix2(
+            if cfg.uv_mix_geo:
+                u_nnew, v_nnew, rufrc, rvfrc = mix3d.uv3dmix2_geo(
+                    cfg, grid, state.u, state.v, Hz, z_r, u_nnew, v_nnew,
+                    rufrc, rvfrc, cfg.dt)
+            else:
+                uv3dmix2 = mix3d_cuda.uv3dmix2 \
+                    if mix3d_cuda.use_kernels(cfg) \
+                    else mix3d_cuda.uv3dmix2_plain
+                u_nnew, v_nnew, rufrc, rvfrc = uv3dmix2(
+                    cfg, grid, state.u, state.v, Hz, u_nnew, v_nnew, rufrc,
+                    rvfrc, cfg.dt)
+    if cfg.uv_vis4 and cfg.visc4 != 0.0:
+        if cfg.uv_mix_geo:
+            u_nnew, v_nnew, rufrc, rvfrc = mix3d.uv3dmix4_geo(
+                cfg, grid, state.u, state.v, Hz, z_r, u_nnew, v_nnew, rufrc,
+                rvfrc, cfg.dt)
+        else:
+            u_nnew, v_nnew, rufrc, rvfrc = mix3d.uv3dmix4(
                 cfg, grid, state.u, state.v, Hz, u_nnew, v_nnew, rufrc,
                 rvfrc, cfg.dt)
+    # tracer mixing (main3d's t3dmix): harmonic, then biharmonic, each
+    # along isopycnals, geopotentials or s-surfaces
     if any(x != 0.0 for x in cfg.tnu2):
-        if cfg.ts_mix_geo:
+        if cfg.ts_mix_iso:
+            t_nnew = mix3d.t3dmix2_iso(cfg, grid, state.t, pden, Hz, z_r,
+                                       t_nnew, cfg.dt)
+        elif cfg.ts_mix_geo:
             t3dmix2_geo = mix3d_cuda.t3dmix2_geo \
                 if mix3d_cuda.use_kernels(cfg) \
                 else mix3d_cuda.t3dmix2_geo_plain
             t_nnew = t3dmix2_geo(cfg, grid, state.t, Hz, z_r, t_nnew, cfg.dt)
         else:
-            t_nnew = t3dmix2(cfg, grid, state.t, Hz, t_nnew, cfg.dt)
+            t_nnew = mix3d.t3dmix2(cfg, grid, state.t, Hz, t_nnew, cfg.dt)
+    if cfg.ts_dif4 and any(x != 0.0 for x in cfg.tnu4):
+        if cfg.ts_mix_iso:
+            t_nnew = mix3d.t3dmix4_iso(cfg, grid, state.t, pden, Hz, z_r,
+                                       t_nnew, cfg.dt)
+        elif cfg.ts_mix_geo:
+            t_nnew = mix3d.t3dmix4_geo(cfg, grid, state.t, Hz, z_r, t_nnew,
+                                       cfg.dt)
+        else:
+            t_nnew = mix3d.t3dmix4(cfg, grid, state.t, Hz, t_nnew, cfg.dt)
 
     # --- GLS predictor (main3d.F:565-567) ---
     if cfg.vmix == "gls":

@@ -50,12 +50,27 @@ from ..config import LBC
 CASES = {
     "upwelling": ("roms_tpu_torch.models.upwelling", "build", "make_config"),
     "benchmark": ("roms_tpu_torch.models.benchmark", "build", "make_config"),
+    "basin": ("roms_tpu_torch.models.cases", "basin", "basin_config"),
+    "double_gyre": ("roms_tpu_torch.models.cases", "double_gyre",
+                    "double_gyre_config"),
+    "grav_adj": ("roms_tpu_torch.models.cases", "grav_adj",
+                 "grav_adj_config"),
+    "seamount": ("roms_tpu_torch.models.cases", "seamount",
+                 "seamount_config"),
+    "canyon3d": ("roms_tpu_torch.models.cases", "canyon3d",
+                 "canyon3d_config"),
     "kelvin": ("roms_tpu_torch.models.cases", "kelvin", "kelvin_config"),
+    "overflow": ("roms_tpu_torch.models.cases", "overflow",
+                 "overflow_config"),
+    "windbasin": ("roms_tpu_torch.models.cases", "windbasin",
+                  "windbasin_config"),
     "estuary": ("roms_tpu_torch.models.cases", "estuary", "estuary_config"),
     "riverplume": ("roms_tpu_torch.models.cases", "riverplume",
                    "riverplume_config"),
     "lab_canyon": ("roms_tpu_torch.models.cases4", "lab_canyon",
                    "lab_canyon_config"),
+    "channel_neck": ("roms_tpu_torch.models.cases4", "channel_neck",
+                     "channel_neck_config"),
     "inlet_test": ("roms_tpu_torch.models.cases4", "inlet_test",
                    "inlet_test_config"),
     "test_head": ("roms_tpu_torch.models.cases4", "test_head",

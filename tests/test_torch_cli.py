@@ -21,8 +21,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def test_cases(capsys):
     assert main(["cases"]) == 0
     assert capsys.readouterr().out.split() == [
-        "benchmark", "estuary", "inlet_test", "kelvin", "lab_canyon",
-        "riverplume", "test_head", "upwelling", "file"]
+        "basin", "benchmark", "canyon3d", "channel_neck", "double_gyre",
+        "estuary", "grav_adj", "inlet_test", "kelvin", "lab_canyon",
+        "overflow", "riverplume", "seamount", "test_head", "upwelling",
+        "windbasin", "file"]
 
 
 def test_cases_registered():

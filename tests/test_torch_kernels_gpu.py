@@ -17,7 +17,10 @@ against their plain versions on its arguments, the steps with kernels on
 against off, and the small regional fixture
 (tests/data/torch_regional_small.npz); the same on LAB_CANYON, INLET_TEST
 and BENCHMARK1 with tides (tests/data/torch_coastal_small.npz), and every
-kernel of the step on north-south periodic grids.
+kernel of the step on north-south periodic grids; the tracer kernels under
+C2, U1 and A4 advection, a small case of each operator family with
+kernels on against off, and the small operator fixture
+(tests/data/torch_operators_small.npz).
 
 Marked ``gpu``; each test skips without a CUDA device.  This file imports
 no jax, so it also runs where jax is absent:
@@ -1062,3 +1065,58 @@ def test_coastal_fixture_with_kernels(device, tmp_path):
     tests/data/torch_coastal_small.npz at 100x the CPU test's bounds
     (chip_smoke phase 14 (f))."""
     chip_smoke.coastal_fixture(device, str(tmp_path))
+
+
+def _operator_small(name, device, dtype="float64"):
+    """A small case of scripts/torch_operators_fixture.py on the card, and
+    its state after three plain steps."""
+    fx = chip_smoke.operators_fixture_script()
+    cfg, grid, s0, ffn = fx.build_port(name, device=device, dtype=dtype)
+    s = stepping.run(cfg.replace(pallas2d=False), grid, s0, 3, ffn)
+    return cfg, grid, s, ffn
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("pair", chip_smoke.SCHEME_PAIRS,
+                         ids=lambda p: "/".join(p))
+def test_tracer_kernels_other_schemes(device, dtype, pair):
+    """Rows 8 and 9 under C2, U1 and A4 advection (chip_smoke.SCHEME_PAIRS,
+    every tracer) on the small UPWELLING's step arguments, bitwise their
+    plain versions and a second launch bitwise the first (chip_smoke phase
+    15 (c))."""
+    cfg, grid, s, ffn = _operator_small("upw_smagorinsky", device, dtype)
+    cfg = cfg.replace(uv_smagorinsky=False)
+    calls = chip_smoke.captured_calls(cfg, grid, s, ffn)
+    h, v = pair
+    nt = cfg.ntracers
+    cases = []
+    for name in ("tracer_predictor", "tracer_corrector"):
+        args, kw = calls[name]
+        c = args[0].replace(t_hadv=(h,) * nt, t_vadv=(v,) * nt)
+        cases.append((f"{name}[{h}/{v}]", name, (c,) + args[1:], kw))
+    chip_smoke.check_variants("schemes", grid, cases, dtype, {},
+                              timed=False)
+
+
+@pytest.mark.parametrize("name", ["basin", "overflow", "channel_neck",
+                                  "seamount_pjq4", "upw_smagorinsky",
+                                  "upw_t4_iso", "upw_uv4_geo"])
+def test_operator_families_on_against_off(device, name):
+    """One small case of each new family (biharmonic, isopycnal and rotated
+    mixing, a pressure-gradient scheme without a kernel, Smagorinsky
+    viscosity): three float64 steps with the kernels on against
+    cfg.pallas2d=False within 1e-9 x max|field|, one launch a step of each
+    kernel chip_smoke.OPERATOR_KERNELS names."""
+    cfg, grid, s, ffn = _operator_small(name, device)
+    kernels = chip_smoke.OPERATOR_KERNELS[name]
+    launches = chip_smoke.kernels_on_off(
+        "operators", name, cfg, grid, s, ffn, kernels,
+        chip_smoke.operators_fixture_script(), 3)
+    assert launches == dict.fromkeys(kernels, 1.0)
+
+
+def test_operator_fixture_with_kernels(device):
+    """The small operator cases with the kernels on hold
+    tests/data/torch_operators_small.npz at 100x the CPU test's bounds
+    (chip_smoke phase 15 (e))."""
+    chip_smoke.operator_fixture(device)

@@ -32,8 +32,16 @@ def test_prsgrd32_matches(case):
     got = prsgrd_cuda.prsgrd32_plain(cfg_t, grid_t, *[T(a) for a in args])
     _close(got[0], ref[0], "ru")
     _close(got[1], ref[1], "rv")
-    with pytest.raises(NotImplementedError, match="pressure-gradient"):
-        tprs.prsgrd(dataclasses.replace(cfg_t, prsgrd_scheme="pj"), grid_t,
+    # the other schemes go through the same dispatch (prsgrd40 here; all
+    # four in test_torch_prsgrd_variants.py), an unknown one raises
+    ref = jprs.prsgrd(dataclasses.replace(cfg_j, prsgrd_scheme="pj"), grid_j,
+                      *[J(a) for a in args])
+    got = tprs.prsgrd(dataclasses.replace(cfg_t, prsgrd_scheme="pj"), grid_t,
+                      *[T(a) for a in args])
+    _close(got[0], ref[0], "ru pj")
+    _close(got[1], ref[1], "rv pj")
+    with pytest.raises(ValueError, match="unknown prsgrd scheme"):
+        tprs.prsgrd(dataclasses.replace(cfg_t, prsgrd_scheme="xx"), grid_t,
                     *[T(a) for a in args])
 
 

@@ -103,8 +103,8 @@ def _constancy_error(cfg, s):
     (dict(sediment=True), "sediment"),
     (dict(vmix="my25"), "vertical mixing closure"),
     (dict(vmix="kpp", lmd_ddmix=True), "KPP double-diffusive mixing"),
-    (dict(ts_dif4=True, tnu4=(1.0e8, 1.0e8)), "biharmonic tracer mixing"),
-    (dict(ts_mix_iso=True, tnu2=(5.0, 5.0)), "isopycnal"),
+    (dict(bbl="ssw"), "bottom boundary layer"),
+    (dict(inert_age=True), "mean-age tracers"),
 ])
 def test_step_raises_for_unported_branches(upw, change, feature):
     cfg, grid, s0, ffn = upw
