@@ -9,6 +9,10 @@ BENCHMARK1 steps through them, and checks the results.
     python3 chip_smoke.py --regional             # the build and phase 13
     python3 chip_smoke.py --coastal              # the build and phase 14
     python3 chip_smoke.py --operators            # the build and phase 15
+    python3 chip_smoke.py --cases2               # the build and phase 16
+    python3 chip_smoke.py --cases2-long          # the same, with the
+                                                 # physics checks over a
+                                                 # minute
 
 Phases, one or more lines each; any failure exits non-zero:
   1. device: card name and power limit (nvidia-smi), torch and CUDA versions;
@@ -153,6 +157,37 @@ SEAMOUNT (49x48x13) under each of the five pressure-gradient schemes:
      against tests/data/torch_operators_small.npz at CARD_FACTOR x the
      CPU bounds; (f) float32 and float64 ms/step of each case at its
      published size, with its launches a step.
+Then KPP double diffusion, the ice shelf, mean age and the 2-D-only step:
+CHANNEL (41x25x10), LMD_TEST (10x10x50, doubly periodic), MIXED_LAYER
+(10x8x30, GLS with Craig-Banner), TEST_CHAN (100x3x20), RIVERPLUME2
+(50x70x13), WEDDELL (300x10x30, the ice shelf) and BL_TEST (39x4x30) at
+their published sizes, and SOLITON (96x32, 2-D only, no kernel):
+ 16. (a) each kernel a case's step launches (rows 1-3 and 6-11 on
+     LMD_TEST and MIXED_LAYER, 4 too on CHANNEL; 1-3, 6, 7 on TEST_CHAN,
+     RIVERPLUME2 and BL_TEST, whose bry, sources or radiation boundaries
+     keep rows 8-11 plain; 2, 4, 6, 7 on WEDDELL, whose ice draft keeps
+     rows 1 and 3 plain too) against its plain version on that step's
+     arguments (three plain float64 steps from rest), float64 and float32,
+     untimed, and no other kernel called, with the tiles at LMD_TEST's N =
+     50 and BL_TEST's Mm = 4; (b) three float64 steps with the kernels on
+     against cfg.pallas2d=False, each field within 1e-9 x max|field|, one
+     launch a step of each of its kernels; (c) the small cases and
+     SOLITON's 2-D steps against tests/data/torch_cases2_small.npz at
+     CARD_FACTOR x the CPU bounds; (d) the physics of roms_tpu's tests in
+     float64, with ms/step: CHANNEL's jet after 35 steps, LMD_TEST's
+     boundary layer at N = 30 after 240, the DDMIX unit check, MIXED_LAYER's
+     Craig-Banner tke and mixed layer after 240, WEDDELL's closed cavity at
+     rest after 20, SOLITON at rest, its volume and its westward drift
+     after 400, AGE_MEAN on a 4-tracer UPWELLING after 3; with
+     --cases2-long also TEST_CHAN's flume flow after 300, RIVERPLUME2's
+     plume and current after 120, WEDDELL's tide in the cavity after 500
+     at Lm = 150 and BL_TEST's boundary layer and jet after 120; (e)
+     LMD_TEST through the
+     CLI (20 steps, HIS and a restart every 10): the restart of step 10 +
+     10 Simulation steps and 20 straight steps bitwise the restart of step
+     20, which holds hsbl and hbbl; `run --case soliton` exits 2; (f)
+     float32 and float64 ms/step of each case at its published size with
+     its launches a step, and SOLITON's.
 The last two lines are a JSON object of per-kernel results (BENCHMARK1
 float32, launches of phase 10) and a JSON object {"ok": true, "device":
 {...}}.  Without CUDA it exits non-zero and prints no result.
@@ -179,6 +214,8 @@ OPERATORS_FIXTURE = os.path.join(ROOT, "tests", "data",
                                  "torch_operators_small.npz")
 COASTAL_FIXTURE = os.path.join(ROOT, "tests", "data",
                                "torch_coastal_small.npz")
+CASES2_FIXTURE = os.path.join(ROOT, "tests", "data",
+                              "torch_cases2_small.npz")
 # kernels-on against kernels-off over three full-size BENCHMARK1 float64
 # steps, relative to max|field|
 BENCH_EQUIV_RTOL = 1e-9
@@ -1157,6 +1194,11 @@ def coastal_fixture_script():
     return _script("torch_coastal_fixture")
 
 
+def cases2_fixture_script():
+    """scripts/torch_cases2_fixture.py as a module."""
+    return _script("torch_cases2_fixture")
+
+
 def bench_fixture(device):
     """Phase 9: the small BENCHMARK with the kernels on against the
     fixture, at CARD_FACTOR times the CPU test's bounds."""
@@ -1487,16 +1529,22 @@ REGIONAL_EQUIV_STEPS = 3
 REGIONAL_PHYSICS_STEPS = {"kelvin": 24, "estuary": 720, "riverplume": 120}
 # float32 steps timed on every phase-13 and phase-14 case
 TIMED_STEPS = 5
-REGIONAL_CLI_STEPS = 20
+# steps of the CLI runs with restarts (HIS and a restart every half)
+CLI_STEPS = 20
 GLS_FIELDS = ("tke", "gls", "tke_prev", "gls_prev", "Akk", "Akp", "Lscale")
 
 
-def regional_case(name, device, dtype="float64", **sizes):
-    """(cfg, grid, state0, forcing_fn) of a regional case, at its published
-    sizes unless `sizes` cut them."""
-    from roms_tpu_torch.models import cases
-    cfg = getattr(cases, name + "_config")(dtype=dtype, **sizes)
-    return getattr(cases, name)(cfg, device=device)
+def model_case(module, name, device, dtype="float64", **sizes):
+    """(cfg, grid, state0, forcing_fn) of the case `name` of
+    roms_tpu_torch.models.<module>, at its published sizes unless `sizes`
+    cut them."""
+    import importlib
+    mod = importlib.import_module(f"roms_tpu_torch.models.{module}")
+    return getattr(mod, name)(getattr(mod, name + "_config")(
+        dtype=dtype, **sizes), device=device)
+
+
+regional_case = functools.partial(model_case, "cases")
 
 
 def case_kernel_checks(tag, names, case_fn, kernels, developed):
@@ -1531,6 +1579,7 @@ def _rel_errors(case, fx, a, b):
         scale = float(y.abs().max())
         if k in fx.PARTNER:
             scale = max(scale, float(getattr(b, fx.PARTNER[k]).abs().max()))
+        scale = max(scale, getattr(fx, "FLOOR", {}).get((case, k), 0.0))
         out[k] = (float((x - y).abs().max()) / max(scale, 1e-300),
                   bool(torch.isfinite(x).all()))
     return out
@@ -1597,7 +1646,7 @@ def regional_fixture(device):
 
 def regional_physics(device, smi):
     """Phase 13 (d): the physics signatures of roms_tpu's case tests, at
-    the published sizes in float64; returns {case: ms/step}."""
+    the published sizes in float64; returns {case: (ms/step, steps)}."""
     import numpy as np
     import torch
     from roms_tpu_torch import stepping
@@ -1609,7 +1658,7 @@ def regional_physics(device, smi):
         t0 = time.perf_counter()
         s = stepping.run(cfg, grid, s0, n, ffn)
         torch.cuda.synchronize()
-        ms[name] = (time.perf_counter() - t0) * 1e3 / n
+        ms[name] = ((time.perf_counter() - t0) * 1e3 / n, n)
         z = interior(cfg, s.zeta).cpu().numpy()
         u = interior(cfg, s.u).cpu().numpy()
         salt = interior(cfg, s.t[1]).cpu().numpy()
@@ -1617,7 +1666,7 @@ def regional_physics(device, smi):
                       np.isfinite(salt).all())
         head = (f"[regional-physics] {name} {cfg.Lm}x{cfg.Mm}x{cfg.N}, {n} "
                 f"float64 steps ({n * cfg.dt / 3600.0:g} h): "
-                f"{ms[name]:.1f} ms/step on {smi}; finite={finite}")
+                f"{ms[name][0]:.1f} ms/step on {smi}; finite={finite}")
         if name == "kelvin":
             coast = float(np.abs(z[2, :10]).max())
             off = float(np.abs(z[-3, :10]).max())
@@ -1648,11 +1697,12 @@ def regional_physics(device, smi):
     return ms
 
 
-def regional_cli(device):
-    """Phase 13 (e): ESTUARY_TEST through the CLI with HIS and restarts; a
-    restart plus the remaining steps through Simulation, and the straight
-    run, bitwise equal to the last restart, which holds the GLS fields."""
-    import contextlib
+def cli_restart_check(device, tag, case, fields, evolved):
+    """`case` through the CLI with HIS and restarts: a restart plus the
+    remaining steps through Simulation, and the straight run, bitwise
+    equal to the last restart, which holds `fields`, `evolved` among them
+    changed from the initial state; the last HIS salt record bitwise the
+    restart's."""
     import io
     import tempfile
     import numpy as np
@@ -1662,23 +1712,25 @@ def regional_cli(device):
     from roms_tpu_torch.driver import Simulation, restart
     from roms_tpu_torch.io.netcdf import read_history
     from roms_tpu_torch.state import TENSOR_FIELDS
-    n = REGIONAL_CLI_STEPS
+    from roms_tpu_torch.utils.yamlcfg import build_from_dict
+    n = CLI_STEPS
     half = n // 2
     with tempfile.TemporaryDirectory() as tmp:
         his, rst = os.path.join(tmp, "his.nc"), os.path.join(tmp, "rst")
-        argv = ["run", "--case", "estuary", "--nsteps", str(n), "--his",
-                his, "--nhis", str(half), "--rst", rst, "--nrst", str(half),
+        argv = ["run", "--case", case, "--nsteps", str(n), "--his", his,
+                "--nhis", str(half), "--rst", rst, "--nrst", str(half),
                 "--ninfo", str(half), "--device", "cuda"]
         out = io.StringIO()
         with contextlib.redirect_stdout(out):
             rc = cli(argv)
         lines = out.getvalue().splitlines()
-        print(f"[regional-cli] python -m roms_tpu_torch {' '.join(argv)}: "
+        print(f"[{tag}-cli] python -m roms_tpu_torch {' '.join(argv)}: "
               f"exit {rc}", flush=True)
         for ln in lines[:2] + [ln for ln in lines if "KE=" in ln]:
-            print(f"[regional-cli] | {ln}")
+            print(f"[{tag}-cli] | {ln}")
         check(rc == 0, f"the CLI exited {rc}")
-        cfg, grid, s0, ffn = regional_case("estuary", device)
+        cfg, grid, s0, ffn, _ = build_from_dict({"case": case},
+                                                device=device)
         h = read_history(his)
         rsts = [f"{rst}_{k:07d}.pt" for k in (half, n)]
         check(all(os.path.exists(p) for p in rsts), "missing restarts")
@@ -1686,8 +1738,8 @@ def regional_cli(device):
                              half * cfg.dt * np.arange(1, 3)),
               "HIS record times")
         saved = torch.load(rsts[-1], weights_only=True)
-        gls_in = all(k in saved for k in GLS_FIELDS) and not torch.equal(
-            saved["tke"].to(s0.tke.device), s0.tke)
+        held = all(k in saved for k in fields) and not torch.equal(
+            saved[evolved].to(device), getattr(s0, evolved))
         last = restart(cfg, rsts[-1], s0)
         sim = Simulation(cfg, grid, restart(cfg, rsts[0], s0), ffn, ninfo=0,
                          log=lambda *a: None)
@@ -1698,31 +1750,37 @@ def regional_cli(device):
         whole = all(torch.equal(getattr(straight, k), getattr(last, k))
                     for k in TENSOR_FIELDS)
         record = _same(cfg, h["salt"][-1], last.t[1])
-        print(f"[regional-cli] restart of step {half} + {n - half} "
-              f"Simulation steps bitwise the restart of step {n}: "
-              f"{resumed}; {n} straight steps bitwise it: {whole}; the GLS "
-              f"fields {', '.join(GLS_FIELDS)} in the restart and tke "
-              f"evolved: {gls_in}; last HIS salt record bitwise it: "
-              f"{record}", flush=True)
+        print(f"[{tag}-cli] restart of step {half} + {n - half} Simulation "
+              f"steps bitwise the restart of step {n}: {resumed}; {n} "
+              f"straight steps bitwise it: {whole}; {', '.join(fields)} in "
+              f"the restart and {evolved} evolved: {held}; last HIS salt "
+              f"record bitwise it: {record}", flush=True)
         check(resumed and whole, "the restarted run is not the straight run")
-        check(gls_in, "the GLS fields are not in the restart")
+        check(held, f"{', '.join(fields)} are not in the restart")
         check(record, "the HIS record is not the restart's state")
 
 
-def case_times(tag, names, case_fn, smi, launches, ms64):
-    """Float32 ms/step of each case (host clock, TIMED_STEPS
-    steps after one) beside the float64 ms/step of its longer run
-    (ms64[name]: (ms, steps)), with its launches a step."""
+def case_times(tag, names, case_fn, smi, launches, ms64=None):
+    """Float32 and float64 ms/step of each case (host clock, TIMED_STEPS
+    steps after one; float64 from ms64[name] = (ms, steps) of a longer run
+    where given), with its launches a step."""
     import torch
     from roms_tpu_torch import stepping
-    for name in names:
-        cfg, grid, s0, ffn = case_fn(name, "float32")
+
+    def timed(cfg, grid, s0, ffn):
         s = stepping.run(cfg, grid, s0, 1, ffn)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         stepping.run(cfg, grid, s, TIMED_STEPS, ffn)
         torch.cuda.synchronize()
-        ms32 = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
+        return (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
+
+    ms64 = ms64 or {}
+    for name in names:
+        if name not in ms64:
+            ms64[name] = (timed(*case_fn(name, "float64")), TIMED_STEPS)
+        cfg, grid, s0, ffn = case_fn(name, "float32")
+        ms32 = timed(cfg, grid, s0, ffn)
         ms, steps = ms64[name]
         print(f"[{tag}] {name} {cfg.Lm}x{cfg.Mm}x{cfg.N} nfast "
               f"{cfg.nfast}: float32 {ms32:.1f} ms/step "
@@ -1731,48 +1789,68 @@ def case_times(tag, names, case_fn, smi, launches, ms64):
               f"{launches[name]}; on {smi}", flush=True)
 
 
+def case_family_phase(tag, phase, smi, names, case_fn, kernels, fx,
+                      equiv_steps, parts, tiles=()):
+    """The frame of phases 13, 15 and 16 over the cases `names` at their
+    published sizes (case_fn(name, dtype) builds one on the card):
+    (a) every kernel each case's step launches against its plain version
+    on that step's arguments, three plain float64 steps from rest, after
+    the column tiles of the cases `tiles`; (b) kernels on against off
+    over equiv_steps steps, held to fixture module fx's fields; then
+    each (label, fn) of `parts` in turn, fn() returning None or the
+    float64 {case: (ms/step, steps)} of its longer runs; and (f) float32
+    and float64 ms/step (those from the parts where they gave them) with
+    the launches a step from (b).  Prints each part's seconds."""
+    from roms_tpu_torch import stepping
+    t_phase = t_part = time.perf_counter()
+    laps = {}
+
+    def lap(part):
+        nonlocal t_part
+        now = time.perf_counter()
+        laps[part] = now - t_part
+        t_part = now
+
+    developed = {}
+    for name in names:
+        cfg, grid, s0, ffn = case_fn(name, "float64")
+        developed[name] = (cfg, grid, stepping.run(
+            cfg.replace(pallas2d=False), grid, s0, 3, ffn), ffn)
+    lap("set-up")
+    for name in tiles:
+        for dtype in ("float64", "float32"):
+            column_tiles(tag, case_fn(name, dtype)[0], dtype)
+    case_kernel_checks(tag, names, case_fn, kernels, developed)
+    lap("a")
+    launches = {name: kernels_on_off(
+        f"{tag}-equiv", name, *developed[name], kernels[name], fx,
+        equiv_steps) for name in names}
+    del developed
+    lap("b")
+    ms64 = {}
+    for label, fn in parts:
+        ms64.update(fn() or {})
+        lap(label)
+    case_times(f"{tag}-times", names, case_fn, smi, launches, ms64)
+    lap("f")
+    print(f"[{tag}] phase {phase} took {time.perf_counter() - t_phase:.1f} "
+          f"s (" + ", ".join(f"{k} {v:.1f}" for k, v in laps.items()) + ")",
+          flush=True)
+
+
 def regional_phase(device, smi):
     """Phase 13: KELVIN, ESTUARY_TEST and RIVERPLUME1 at their published
     sizes: (a) kernels against plain on each case's arguments, (b) kernels
     on against off, (c) the small fixture, (d) the physics signatures,
     (e) ESTUARY_TEST through the CLI with restarts, (f) ms/step."""
-    from roms_tpu_torch import stepping
-    t_phase = t_part = time.perf_counter()
-    parts = {}
-
-    def lap(part):
-        nonlocal t_part
-        now = time.perf_counter()
-        parts[part] = now - t_part
-        t_part = now
-
-    developed = {}
-    for name in REGIONAL:
-        cfg, grid, s0, ffn = regional_case(name, device)
-        developed[name] = (cfg, grid, stepping.run(
-            cfg.replace(pallas2d=False), grid, s0, 3, ffn), ffn)
-    lap("set-up")
-    case_kernel_checks("regional", REGIONAL,
-                       lambda n, d: regional_case(n, device, d),
-                       REGIONAL_KERNELS, developed)
-    lap("a")
-    launches = {name: regional_equivalence(device, name, *developed[name])
-                for name in REGIONAL}
-    del developed
-    lap("b")
-    regional_fixture(device)
-    lap("c")
-    ms64 = regional_physics(device, smi)
-    lap("d")
-    regional_cli(device)
-    lap("e")
-    case_times("regional-times", REGIONAL,
-               lambda n, d: regional_case(n, device, d), smi, launches,
-               {n: (ms, REGIONAL_PHYSICS_STEPS[n]) for n, ms in ms64.items()})
-    lap("f")
-    print(f"[regional] phase 13 took {time.perf_counter() - t_phase:.1f} s ("
-          + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()) + ")",
-          flush=True)
+    case_family_phase(
+        "regional", 13, smi, REGIONAL,
+        lambda n, d: regional_case(n, device, d), REGIONAL_KERNELS,
+        regional_fixture_script(), REGIONAL_EQUIV_STEPS,
+        [("c", lambda: regional_fixture(device)),
+         ("d", lambda: regional_physics(device, smi)),
+         ("e", lambda: cli_restart_check(device, "regional", "estuary",
+                                         GLS_FIELDS, "tke"))])
 
 
 # phase 14: the coastal path at full size: LAB_CANYON (polar annulus,
@@ -2135,14 +2213,13 @@ def operator_case(name, device, dtype="float64", **sizes):
     """(cfg, grid, state0, forcing_fn) of a phase-15 case at its published
     sizes unless `sizes` cut them; "seamount_<scheme>" is SEAMOUNT under
     that pressure-gradient scheme."""
-    from roms_tpu_torch.models import cases, cases4
+    from roms_tpu_torch.models import cases
     if name.startswith("seamount_"):
         return cases.seamount(cases.seamount_config(
             dtype=dtype, prsgrd_scheme=name.split("_", 1)[1], **sizes),
             device=device)
-    mod = cases4 if name == "channel_neck" else cases
-    return getattr(mod, name)(getattr(mod, name + "_config")(
-        dtype=dtype, **sizes), device=device)
+    return model_case("cases4" if name == "channel_neck" else "cases", name,
+                      device, dtype, **sizes)
 
 
 def tracer_scheme_checks(results, device, developed):
@@ -2323,71 +2400,359 @@ def operators_phase(device, smi):
     against plain on each case's arguments, (b) kernels on against off,
     (c) rows 8-9 under the other advection schemes, (c') the options no
     case uses, (d) the physics, (e) the small fixture, (f) ms/step."""
-    import torch
     from roms_tpu_torch import stepping
     from roms_tpu_torch.models import upwelling
-    t_phase = t_part = time.perf_counter()
-    parts = {}
-
-    def lap(part):
-        nonlocal t_part
-        now = time.perf_counter()
-        parts[part] = now - t_part
-        t_part = now
-
     fx = operators_fixture_script()
-    developed = {}
-    for name in OPERATORS:
-        cfg, grid, s0, ffn = operator_case(name, device)
-        developed[name] = (cfg, grid, stepping.run(
-            cfg.replace(pallas2d=False), grid, s0, 3, ffn), ffn)
-    lap("set-up")
-    for name in ("grav_adj", "overflow"):
-        for dtype in ("float64", "float32"):
-            column_tiles("operators", operator_case(name, device, dtype)[0],
-                         dtype)
-    case_kernel_checks("operators", OPERATORS,
-                       lambda n, d: operator_case(n, device, d),
-                       OPERATOR_KERNELS, developed)
-    lap("a")
-    launches = {name: kernels_on_off(
-        "operators-equiv", name, *developed[name], OPERATOR_KERNELS[name],
-        fx, OPERATOR_EQUIV_STEPS) for name in OPERATORS}
-    lap("b")
-    cfg, grid, s0, ffn = upwelling.build(upwelling.make_config(),
-                                         device=device)
-    schemes = {"basin": developed["basin"], "upwelling": (cfg, grid, (
-        stepping.run(cfg.replace(pallas2d=False), grid, s0, 3, ffn)), ffn)}
-    del developed
-    tracer_scheme_checks({}, device, schemes)
-    del schemes
-    lap("c")
-    for name in OPTIONS:
-        cfg, grid, s0, ffn = fx.build_port(name, device=device)
-        s = stepping.run(cfg.replace(pallas2d=False), grid, s0, 3, ffn)
-        kernels_on_off("operators-options", name, cfg, grid, s, ffn,
-                       OPERATOR_KERNELS[name], fx, OPERATOR_EQUIV_STEPS)
-    lap("c'")
-    operator_physics(device, smi)
-    lap("d")
-    operator_fixture(device)
-    lap("e")
-    ms64 = {}
-    for name in OPERATORS:
-        cfg, grid, s0, ffn = operator_case(name, device)
-        s = stepping.run(cfg, grid, s0, 1, ffn)
+
+    def schemes():
+        developed = {}
+        for case, (cfg, grid, s0, ffn) in (
+                ("basin", operator_case("basin", device)),
+                ("upwelling", upwelling.build(upwelling.make_config(),
+                                              device=device))):
+            developed[case] = (cfg, grid, stepping.run(
+                cfg.replace(pallas2d=False), grid, s0, 3, ffn), ffn)
+        tracer_scheme_checks({}, device, developed)
+
+    def options():
+        for name in OPTIONS:
+            cfg, grid, s0, ffn = fx.build_port(name, device=device)
+            s = stepping.run(cfg.replace(pallas2d=False), grid, s0, 3, ffn)
+            kernels_on_off("operators-options", name, cfg, grid, s, ffn,
+                           OPERATOR_KERNELS[name], fx, OPERATOR_EQUIV_STEPS)
+
+    case_family_phase(
+        "operators", 15, smi, OPERATORS,
+        lambda n, d: operator_case(n, device, d), OPERATOR_KERNELS, fx,
+        OPERATOR_EQUIV_STEPS,
+        [("c", schemes), ("c'", options),
+         ("d", lambda: operator_physics(device, smi)),
+         ("e", lambda: operator_fixture(device))],
+        tiles=("grav_adj", "overflow"))
+
+
+# phase 16: KPP double diffusion (LMD_TEST, BL_TEST), the ice shelf
+# (WEDDELL), GLS with Craig-Banner (MIXED_LAYER), the ramped open flume
+# (TEST_CHAN), wall sources (RIVERPLUME2), CHANNEL's balanced jet, mean age
+# and the 2-D-only step (SOLITON).  The JAX gates keep rows 8-11 plain
+# under bry, sources and the radiation boundaries, and rows 1 and 3 under
+# the ice draft.
+CASES2 = ("channel", "lmd_test", "mixed_layer", "test_chan", "riverplume2",
+          "weddell", "bl_test")
+_DIAG3 = ("grid_flux", "eos", "omega")
+_COLUMN_ROWS = ("tracer_predictor", "tracer_corrector", "uv_corrector",
+                "fast_loop")
+CASES2_KERNELS = {
+    "channel": _DIAG3 + ("prsgrd32", "rhs3d", "uv3dmix2") + _COLUMN_ROWS,
+    "lmd_test": _DIAG3 + ("prsgrd32", "rhs3d") + _COLUMN_ROWS,
+    "mixed_layer": _DIAG3 + ("prsgrd32", "rhs3d") + _COLUMN_ROWS,
+    "test_chan": _DIAG3 + ("prsgrd32", "rhs3d"),
+    "riverplume2": _DIAG3 + ("prsgrd32", "rhs3d"),
+    "weddell": ("omega", "prsgrd32", "rhs3d", "uv3dmix2"),
+    "bl_test": _DIAG3 + ("prsgrd32", "rhs3d")}
+CASES2_EQUIV_STEPS = 3
+# roms_tpu's physics tests (tests/test_cases3.py, test_step2d.py,
+# test_step3d.py): their steps and sizes
+CASES2_PHYSICS_STEPS = {"channel": 35, "lmd_test": 240, "mixed_layer": 240,
+                        "test_chan": 300, "riverplume2": 120,
+                        "weddell": 500, "weddell_rest": 20, "bl_test": 120,
+                        "soliton": 400, "age_mean": 3}
+# the checks that take about a minute or more on the card (the general
+# plain fast loop's launches: TEST_CHAN 79 s, WEDDELL 162 s, BL_TEST 43-70
+# s, RIVERPLUME2 34-58 s), run by --cases2-long
+CASES2_LONG = ("test_chan", "riverplume2", "weddell", "bl_test")
+
+
+cases2_case = functools.partial(model_case, "cases2")
+
+
+def cases2_physics(device, smi, long):
+    """Phase 16 (d): the physics of roms_tpu's tests of these cases in
+    float64, with ms/step; CASES2_LONG only when `long`."""
+    import numpy as np
+    import torch
+    from roms_tpu_torch import stepping, vgrid
+    from roms_tpu_torch.config import GLSParams, LBC
+    from roms_tpu_torch.grid import hc_of
+    from roms_tpu_torch.models import soliton, upwelling
+    from roms_tpu_torch.ops import eos, step2d, vmix
+    ms = {}
+
+    def run(cfg, grid, s, n, ffn, name):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        stepping.run(cfg, grid, s, TIMED_STEPS, ffn)
+        s = stepping.run(cfg, grid, s, n, ffn)
         torch.cuda.synchronize()
-        ms64[name] = ((time.perf_counter() - t0) * 1e3 / TIMED_STEPS,
-                      TIMED_STEPS)
-    case_times("operators-times", OPERATORS,
-               lambda n, d: operator_case(n, device, d), smi, launches, ms64)
-    lap("f")
-    print(f"[operators] phase 15 took {time.perf_counter() - t_phase:.1f} s ("
-          + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()) + ")",
-          flush=True)
+        ms[name] = ((time.perf_counter() - t0) * 1e3 / n, n)
+        return s
+
+    def report(name, cfg, ok, what):
+        n = CASES2_PHYSICS_STEPS[name]
+        print(f"[cases2-physics] {name} {cfg.Lm}x{cfg.Mm}x{cfg.N}, {n} "
+              f"float64 steps: {ms[name][0]:.1f} ms/step on {smi}; {what}  "
+              f"{'OK' if ok else 'FAIL'}", flush=True)
+        check(ok, f"{name}: the physics signature failed")
+
+    def inner(cfg, a):
+        return interior(cfg, a).cpu().numpy()
+
+    def finite(s):
+        return all(bool(torch.isfinite(getattr(s, k)).all())
+                   for k in ("zeta", "ubar", "vbar", "u", "v", "t"))
+
+    name = "channel"
+    cfg, grid, s0, ffn = cases2_case(name, device)
+    s = run(cfg, grid, s0, CASES2_PHYSICS_STEPS[name], ffn, name)
+    u0, u1 = inner(cfg, s0.u), inner(cfg, s.u)
+    j0 = np.unravel_index(u0[-1].argmax(), u0[-1].shape)[0]
+    j1 = np.unravel_index(u1[-1].argmax(), u1[-1].shape)[0]
+    report(name, cfg, finite(s) and abs(u1.max() - u0.max()) <
+           0.15 * u0.max() and abs(j1 - j0) <= 1,
+           f"jet max u {u0.max():.4f} -> {u1.max():.4f} m/s (within 15%), "
+           f"its row {j0} -> {j1} (within one)")
+
+    name = "lmd_test"
+    cfg, grid, s0, ffn = cases2_case(name, device, N=30)
+    s = run(cfg, grid, s0, CASES2_PHYSICS_STEPS[name], ffn, name)
+    depth = float(-inner(cfg, s.hsbl).mean())
+    akt = s.Akt
+    report(name, cfg, finite(s) and depth > 3.0 and
+           bool(torch.isfinite(akt).all()) and float(akt.min()) >= 0.0,
+           f"mean surface boundary layer depth {depth:.3f} m (> 3), min "
+           f"Akt {float(akt.min()):.3e} (>= 0)")
+
+    # the DDMIX unit check of tests/test_cases3.py:100 on the card
+    cfg = dataclasses.replace(
+        upwelling.make_config(Lm=8, Mm=8, N=12, ndtfast=6), vmix="kpp",
+        lmd_ddmix=True, eos="jm95", tnu2=(0.0, 0.0), akt_bak=(1e-6, 1e-6))
+    cfg, grid, s, _ = upwelling.build(cfg, device=device)
+    z_r, z_w, Hz = vgrid.set_depth(grid.h, s.zeta, hc_of(cfg), grid.sc_r,
+                                   grid.Cs_r, grid.sc_w, grid.Cs_w,
+                                   cfg.vtransform)
+    tr = torch.stack([14.0 + 8.0 * z_r / 150.0, 35.0 + 1.5 * z_r / 150.0])
+    rho, pden, bvf = eos.rho_eos_pden_bvf(cfg, tr, z_r, z_w)
+    zero = torch.zeros_like(s.zeta)
+    args = (s.u, s.v, tr, rho, pden, bvf, Hz, z_r, z_w, zero, zero, zero,
+            zero, torch.zeros_like(tr[:, 0]), zero, s.hsbl)
+    Akt = vmix.lmd_vmix(cfg, grid, *args)[1]
+    Akt0 = vmix.lmd_vmix(dataclasses.replace(cfg, lmd_ddmix=False), grid,
+                         *args)[1]
+    H = cfg.halo
+    dS = float((Akt[1] - Akt0[1])[3:-3, H + 2, H + 2].max())
+    dT = float((Akt[0] - Akt0[0])[3:-3, H + 2, H + 2].max())
+    ok = dS > 1e-5 and dT > 1e-6 and dS > dT
+    print(f"[cases2-physics] ddmix: salt fingering adds {dS:.4e} to the salt "
+          f"and {dT:.4e} to the heat diffusivity (> 1e-5, > 1e-6, salt > "
+          f"heat)  {'OK' if ok else 'FAIL'}", flush=True)
+    check(ok, "the DDMIX unit check failed")
+
+    name = "mixed_layer"
+    cfg, grid, s0, ffn = cases2_case(name, device)
+    s = run(cfg, grid, s0, CASES2_PHYSICS_STEPS[name], ffn, name)
+    s2 = stepping.run(dataclasses.replace(cfg, gls_params=GLSParams()),
+                      grid, s0, CASES2_PHYSICS_STEPS[name], ffn)
+    tke_cb = float(inner(cfg, s.tke[-1]).mean())
+    tke_plain = float(inner(cfg, s2.tke[-1]).mean())
+    t0, t1 = inner(cfg, s0.t[0]), inner(cfg, s.t[0])
+    d0, d1 = (t0[-1] - t0[-6]).mean(), (t1[-1] - t1[-6]).mean()
+    report(name, cfg, finite(s) and tke_cb > 3.0 * tke_plain and
+           d0 > 2.0 * d1, f"surface tke {tke_cb:.4e} with Craig-Banner, "
+           f"{tke_plain:.4e} without (over 3x); surface - 5 levels down "
+           f"{d0:.4f} -> {d1:.4f} degC (mixed layer: under half)")
+
+    if long:
+        name = "test_chan"
+        cfg, grid, s0, ffn = cases2_case(name, device)
+        s = run(cfg, grid, s0, CASES2_PHYSICS_STEPS[name], ffn, name)
+        ub, z = inner(cfg, s.ubar), inner(cfg, s.zeta)
+        report(name, cfg, finite(s) and ub.mean() > 0.005 and
+               z[:, -1].mean() < z[:, 0].mean(),
+               f"mean ubar {ub.mean():.4e} m/s (> 0.005), zeta west "
+               f"{z[:, 0].mean():.4e} east {z[:, -1].mean():.4e} m (tilting "
+               f"down)")
+
+    if long:
+        name = "riverplume2"
+        cfg, grid, s0, ffn = cases2_case(name, device)
+        s = run(cfg, grid, s0, CASES2_PHYSICS_STEPS[name], ffn, name)
+        salt = inner(cfg, s.t[1])[-1]
+        wet = inner(cfg, grid.rmask) > 0
+        vb = inner(cfg, s.vbar)
+        report(name, cfg, finite(s) and salt[wet].min() < cfg.S0 - 0.5 and
+               vb[wet].mean() < -0.005,
+               f"min surface salt {salt[wet].min():.4f} (< S0 - 0.5 = "
+               f"{cfg.S0 - 0.5:g}), mean vbar {vb[wet].mean():.4e} m/s "
+               f"(< -0.005)")
+
+    if long:
+        name = "weddell"
+        cfg, grid, s0, ffn = cases2_case(name, device, Lm=150)
+        z_cav = []
+        s = s0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(CASES2_PHYSICS_STEPS[name]):
+            s = stepping.step(cfg, grid, s, ffn)
+            z_cav.append(s.zeta[cfg.halo, cfg.halo + 2])
+        z_cav = torch.stack(z_cav).cpu().numpy()
+        torch.cuda.synchronize()
+        ms[name] = ((time.perf_counter() - t0) * 1e3 /
+                    CASES2_PHYSICS_STEPS[name], CASES2_PHYSICS_STEPS[name])
+        H = cfg.halo
+        ubmax = float(s.ubar.abs().max())
+        ucav = float(s.u[-1, H:H + cfg.Mm, H:H + 16].abs().max())
+        report(name, cfg, finite(s) and z_cav.std() > 0.03 and
+               np.abs(z_cav).max() < 2.0 and ubmax < 1.0 and ucav < 1.0,
+               f"cavity zeta std {z_cav.std():.4f} m (> 0.03), max "
+               f"{np.abs(z_cav).max():.4f} (< 2), max|ubar| {ubmax:.4f} "
+               f"(< 1), max|u| under the ice {ucav:.4f} m/s (< 1)")
+
+    name = "weddell_rest"
+    cfg, grid, s0, _ = cases2_case("weddell", device, Lm=80)
+    clo = LBC("Clo", "Per", "Clo", "Per")
+    cfg = dataclasses.replace(cfg, lbc_zeta=clo, lbc_ubar=clo, lbc_vbar=clo,
+                              lbc_u=clo, lbc_v=clo, lbc_t=clo)
+    s = run(cfg, grid, s0, CASES2_PHYSICS_STEPS[name], None, name)
+    ub = float(s.ubar[cfg.halo:-cfg.halo, cfg.halo:-cfg.halo].abs().max())
+    zm = float(s.zeta[cfg.halo:-cfg.halo, cfg.halo:-cfg.halo].abs().max())
+    report(name, cfg, finite(s) and ub < 0.3 and zm < 0.5,
+           f"closed cavity: max|ubar| {ub:.4e} m/s (< 0.3), max|zeta| "
+           f"{zm:.4e} m (< 0.5)")
+
+    if long:
+        name = "bl_test"
+        cfg, grid, s0, ffn = cases2_case(name, device)
+        s = run(cfg, grid, s0, CASES2_PHYSICS_STEPS[name], ffn, name)
+        H = cfg.halo
+        hsbl = -s.hsbl[H:-H, H:-H].cpu().numpy()
+        vb = s.vbar[H:-H, H:-H].cpu().numpy()
+        report(name, cfg, finite(s) and hsbl.mean() > 2.0 and
+               vb.max() > 0.2 and vb.mean() > 0.02,
+               f"mean boundary layer depth {hsbl.mean():.3f} m (> 2), vbar "
+               f"max {vb.max():.4f} (> 0.2), mean {vb.mean():.4f} m/s "
+               f"(> 0.02)")
+
+    name = "soliton"
+    cfg, grid, fs0 = soliton.build(soliton.make_config(), device=device)
+
+    def run2d(fs, n):
+        for i in range(n):
+            fs = step2d.step_2d_only(cfg, grid, fs, i == 0)
+        return fs
+
+    z = torch.zeros_like(fs0.zeta_n)
+    rest = run2d(step2d.make_fast_state(cfg, z, z, z), 10)
+    at_rest = all(float(getattr(rest, k).abs().max()) == 0.0
+                  for k in step2d.FS_FIELDS)
+    area = interior(cfg, grid.omn)
+    vol0 = float((interior(cfg, fs0.zeta_n) * area).sum())
+    vol = float((interior(cfg, run2d(fs0, 100).zeta_n) * area).sum())
+    n = CASES2_PHYSICS_STEPS[name]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fs = run2d(fs0, n)
+    torch.cuda.synchronize()
+    ms[name] = ((time.perf_counter() - t0) * 1e3 / n, n)
+    z0, z1 = inner(cfg, fs0.zeta_n), inner(cfg, fs.zeta_n)
+    x0 = np.unravel_index(np.argmax(z0), z0.shape)[1]
+    x1 = np.unravel_index(np.argmax(z1), z1.shape)[1]
+    expected = n * cfg.dt / 3.0 / 0.5       # cells west (dx = 0.5)
+    report(name, cfg, at_rest and abs(vol - vol0) < 1e-10 * max(
+        1.0, abs(vol0)) and bool(np.isfinite(z1).all()) and
+        z1.max() > 0.5 * z0.max() and -2.0 * expected < x1 - x0 <
+        -0.5 * expected,
+        f"rest stays at rest: {at_rest}; volume {vol0:.6e} -> {vol:.6e} "
+        f"after 100 steps (within 1e-10); the peak {z0.max():.4f} -> "
+        f"{z1.max():.4f} moved {x1 - x0} cells (west, expected "
+        f"{-expected:g} within a factor of 2)")
+
+    name = "age_mean"
+    cfg, grid, st, ffn = upwelling.build(upwelling.make_config(),
+                                         device=device)
+    cfg, st = cases2_fixture_script().age_pair(cfg, st, torch.cat)
+    n = CASES2_PHYSICS_STEPS[name]
+    st = run(cfg, grid, st, n, ffn, name)
+    C, A = inner(cfg, st.t[2]), inner(cfg, st.t[3])
+    # roms_tpu's test: assert_allclose(C, 1, atol=1e-9) with its default
+    # rtol of 1e-7, and A/C against n dt at rtol 1e-7
+    report(name, cfg, float(np.abs(C - 1.0).max()) <= 1e-9 + 1e-7 and
+           float(np.abs(A / C / (n * cfg.dt) - 1.0).max()) <= 1e-7,
+           f"4-tracer UPWELLING: max|C - 1| {np.abs(C - 1.0).max():.3e} "
+           f"(<= 1e-9 + 1e-7), max|A/C / ({n} dt) - 1| "
+           f"{np.abs(A / C / (n * cfg.dt) - 1.0).max():.3e} (< 1e-7)")
+
+
+def cases2_fixture(device):
+    """Phase 16 (c): the small cases with the kernels on against
+    tests/data/torch_cases2_small.npz (SOLITON's 2-D steps included), at
+    CARD_FACTOR times the CPU test's bounds."""
+    import numpy as np
+    fx = cases2_fixture_script()
+    ref = np.load(fx.OUT)
+    for name in fx.CASES:
+        cfg, grid, s0, ffn = fx.build_port(name, device=device)
+        s = fx.run_port(name, cfg, grid, s0, ffn)
+        errors = fx.errors(name, cfg, s0, s, ref, factor=CARD_FACTOR)
+        worst = max(errors.items(), key=lambda kv: kv[1][0] / kv[1][1])
+        print(f"[cases2-fixture] {name}: worst against its bound: "
+              f"{worst[0]} {worst[1][0]:.3e} (bound {worst[1][1]:g})",
+              flush=True)
+        bad = {k: e for k, e in errors.items() if not e[0] <= e[1]}
+        check(not bad, f"the small {name} misses its fixture: {bad}")
+
+
+def soliton_cli(device):
+    """Phase 16 (e): `run --case soliton` exits 2, naming step_2d_only."""
+    import io
+    from roms_tpu_torch.__main__ import main as cli
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = cli(["run", "--case", "soliton", "--device", "cuda"])
+    print(f"[cases2-cli] python -m roms_tpu_torch run --case soliton: exit "
+          f"{rc}; {err.getvalue().strip()}", flush=True)
+    check(rc == 2 and "step_2d_only" in err.getvalue(),
+          "the 2-D-only case did not exit 2")
+
+
+def soliton_times(device, smi):
+    """Phase 16 (f): SOLITON's ms/step in float64 and float32, 100
+    step_2d_only calls after the first."""
+    import torch
+    from roms_tpu_torch.models import soliton
+    from roms_tpu_torch.ops import step2d
+    for dtype in ("float64", "float32"):
+        cfg, grid, fs = soliton.build(soliton.make_config(dtype=dtype),
+                                      device=device)
+        fs = step2d.step_2d_only(cfg, grid, fs, True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(100):
+            fs = step2d.step_2d_only(cfg, grid, fs, False)
+        torch.cuda.synchronize()
+        print(f"[cases2-times] soliton {cfg.Lm}x{cfg.Mm} {dtype}: "
+              f"{(time.perf_counter() - t0) * 10.0:.3f} ms/step (100 "
+              f"step_2d_only calls, no kernel); on {smi}", flush=True)
+
+
+def cases2_phase(device, smi, long=False):
+    """Phase 16: CHANNEL, LMD_TEST, MIXED_LAYER, TEST_CHAN, RIVERPLUME2,
+    WEDDELL and BL_TEST at their published sizes and SOLITON: (a) kernels
+    against plain on each case's arguments, with the tiles at N = 50 and
+    Mm = 4, (b) kernels on against off, (c) the small fixture, (d) the
+    physics (CASES2_LONG's only when `long`), (e) LMD_TEST through the CLI
+    with restarts and SOLITON's exit, (f) ms/step."""
+    def cli():
+        cli_restart_check(device, "cases2", "lmd_test", ("hsbl", "hbbl"),
+                          "hsbl")
+        soliton_cli(device)
+
+    case_family_phase(
+        "cases2", 16, smi, CASES2, lambda n, d: cases2_case(n, device, d),
+        CASES2_KERNELS, cases2_fixture_script(), CASES2_EQUIV_STEPS,
+        [("c", lambda: cases2_fixture(device)),
+         ("d", lambda: cases2_physics(device, smi, long)),
+         ("e", cli), ("f 2-D", lambda: soliton_times(device, smi))],
+        tiles=("lmd_test", "bl_test"))
 
 
 def column_times(device):
@@ -2446,6 +2811,8 @@ def main() -> int:
     regional_only = sys.argv[1:2] == ["--regional"]
     coastal_only = sys.argv[1:2] == ["--coastal"]
     operators_only = sys.argv[1:2] == ["--operators"]
+    cases2_only = sys.argv[1:2] in (["--cases2"], ["--cases2-long"])
+    cases2_long = sys.argv[1:2] == ["--cases2-long"]
     sys.path.insert(0, os.path.abspath(sys.argv[2]) if timing else ROOT)
     try:
         import roms_tpu_torch  # noqa: F401
@@ -2455,7 +2822,7 @@ def main() -> int:
               f"script ({exc})", file=sys.stderr)
         return 2
     for path in (ANCHOR, BENCH_FIXTURE, REGIONAL_FIXTURE, COASTAL_FIXTURE,
-                 OPERATORS_FIXTURE):
+                 OPERATORS_FIXTURE, CASES2_FIXTURE):
         if not os.path.exists(path):
             print(f"chip_smoke: missing {path}", file=sys.stderr)
             return 2
@@ -2493,6 +2860,9 @@ def main() -> int:
         if operators_only:
             operators_phase(device, smi)
             return 0
+        if cases2_only:
+            cases2_phase(device, smi, long=cases2_long)
+            return 0
         results = {}
         kernel_checks(results, device)
         main_path(device)
@@ -2510,6 +2880,7 @@ def main() -> int:
         regional_phase(device, smi)
         coastal_phase(device, smi)
         operators_phase(device, smi)
+        cases2_phase(device, smi)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

@@ -7,7 +7,9 @@ counterpart of ``python -m roms_tpu``:
     python -m roms_tpu_torch cases
 
 The run goes on the CUDA card unless `--device` names another; without a
-card it fails with torch's error (no fallback to the CPU).
+card it fails with torch's error (no fallback to the CPU).  A 2-D-only
+case (soliton) exits 2: it runs through ops.step2d.step_2d_only, which has
+no run driver here or in roms_tpu.
 """
 
 import argparse
@@ -62,6 +64,12 @@ def main(argv=None):
     # roms_tpu's CLI parses --ninfo but never reads it; here it takes
     # effect unless the YAML's output section sets ninfo
     opts.setdefault("ninfo", args.ninfo)
+
+    if opts.get("mode") == "2d":
+        # no 2-D run driver, as in roms_tpu
+        print("2D-only case: use roms_tpu_torch.ops.step2d.step_2d_only "
+              "directly", file=sys.stderr)
+        return 2
 
     from .driver import Simulation
 

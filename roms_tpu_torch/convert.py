@@ -3,7 +3,9 @@
 The JAX side is handed over as plain Python and numpy: a ``roms_tpu``
 Config (a frozen dataclass, read field by field), Grid/State as
 ``dict[str, np.ndarray]`` (the caller does the ``np.asarray``; a grid read
-by roms_tpu's io/gridfile.load_grid is a Grid like any other), the step's
+by roms_tpu's io/gridfile.load_grid is a Grid like any other, and an
+ice-shelf grid carries its zice), the 2-D-only mode's Fast2DState the same
+way, the step's
 dicts ``bry``, ``clm`` and ``wet`` as dicts of arrays or scalars, and
 point sources as the fields of a ``PointSources``.  This module imports no jax.
 """
@@ -19,6 +21,7 @@ from . import config as _config
 from .config import Config
 from .grid import Grid, torch_dtype
 from .ops.sources import PointSources
+from .ops.step2d import FS_FIELDS, Fast2DState
 from .state import State, TENSOR_FIELDS
 
 # nested frozen dataclasses of the reference Config, rebuilt as the port's
@@ -101,3 +104,17 @@ def state_to_numpy(state: State) -> dict:
     out["time"] = np.asarray(state.time)
     out["iic"] = np.asarray(state.iic)
     return out
+
+
+def fast_state_from_numpy(cfg: Config, arrays: dict,
+                          device=torch.device("cuda")) -> Fast2DState:
+    """A Fast2DState from {field name: array} (the JAX Fast2DState's
+    fields), in the configuration's dtype."""
+    dtype = torch_dtype(cfg)
+    return Fast2DState(**{k: _tensor(arrays[k], dtype, device)
+                          for k in FS_FIELDS})
+
+
+def fast_state_to_numpy(fs: Fast2DState) -> dict:
+    """{field name: numpy array} of a Fast2DState."""
+    return {k: getattr(fs, k).detach().cpu().numpy() for k in FS_FIELDS}

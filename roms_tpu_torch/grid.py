@@ -51,7 +51,7 @@ class Grid:
     # sponge enhancement factors (1.0 in the interior)
     visc_factor: torch.Tensor
     diff_factor: torch.Tensor
-    # ICESHELF draft; not ported (must stay None)
+    # ICESHELF draft (negative, 0 in open water; ana_grid.h:1155-1176)
     zice: Optional[torch.Tensor] = None
 
     # -- derived staggered metrics ---------------------------------------

@@ -7,13 +7,14 @@ momentum phase takes the chain it takes on the card.
     python roms_tpu_torch/launch_count.py [--case CASE] [--root CHECKOUT]
 
 CASE is upwelling (the default), benchmark, a regional case (kelvin,
-estuary, riverplume) or an operator case (basin, double_gyre, grav_adj,
-seamount, canyon3d, overflow, windbasin, channel_neck), float32 as on the
-card.  --case benchmark counts a BENCHMARK1 step at 64x32 instead of
-512x64 (the count depends on N, not on the horizontal size); the other
-cases run at their published sizes, with their plain stages (the
-regional cases' general fast loop, GLS, the mixing operators outside the
-kernels) counted as stages.
+estuary, riverplume), an operator case (basin, double_gyre, grav_adj,
+seamount, canyon3d, overflow, windbasin, channel_neck), lab_canyon, or
+one of channel, lmd_test, mixed_layer, test_chan, riverplume2, weddell and
+bl_test, float32 as on the card.  --case benchmark counts a BENCHMARK1
+step at 64x32 instead of 512x64 (the count depends on N, not on the
+horizontal size); the other cases run at their published sizes, with
+their plain stages (the general fast loop, KPP, GLS, the mixing operators
+outside the kernels) counted as stages.
 
 --root counts the roms_tpu_torch of another checkout (an older tree has
 fewer kernel wrappers; the ones it lacks are skipped).  Prints the count
@@ -55,17 +56,23 @@ STAGES = {"stepping": ("set_vbc", "momentum_init", "rhs3d_momentum",
           "ops.step2d": ("fast_loop",),
           "ops.step3d_cuda": ("tracer_predictor_plain", "uv_corrector_plain",
                               "tracer_corrector_plain"),
-          "ops.gls": ("gls_prestep", "gls_corstep")}
+          "ops.gls": ("gls_prestep", "gls_corstep"),
+          "ops.diag_cuda": ("grid_flux_plain", "eos_plain")}
 REGIONAL = ("kelvin", "estuary", "riverplume")
 OPERATORS = ("basin", "double_gyre", "grav_adj", "seamount", "canyon3d",
              "overflow", "windbasin", "channel_neck")
+CASES2 = ("channel", "lmd_test", "mixed_layer", "test_chan", "riverplume2",
+          "weddell", "bl_test")
+# the module of models/ that builds each case of --case
+MODULE = {**dict.fromkeys(REGIONAL + OPERATORS, "cases"),
+          **dict.fromkeys(CASES2, "cases2"),
+          "channel_neck": "cases4", "lab_canyon": "cases4"}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--case", choices=("upwelling", "benchmark") + REGIONAL +
-                    OPERATORS,
-                    default="upwelling")
+    ap.add_argument("--case", choices=("upwelling", "benchmark") +
+                    tuple(MODULE), default="upwelling")
     ap.add_argument("--root", default=os.path.dirname(
         os.path.dirname(os.path.abspath(__file__))))
     args = ap.parse_args()
@@ -119,9 +126,9 @@ def main() -> int:
             if hasattr(mod, name):
                 setattr(mod, name, span(name, getattr(mod, name), False))
 
-    if args.case in REGIONAL + OPERATORS:
-        from roms_tpu_torch.models import cases, cases4
-        mod = cases4 if args.case == "channel_neck" else cases
+    if args.case in MODULE:
+        mod = importlib.import_module("roms_tpu_torch.models." +
+                                      MODULE[args.case])
         cfg, grid, s, ffn = getattr(mod, args.case)(
             getattr(mod, args.case + "_config")(dtype="float32"),
             device="cpu")

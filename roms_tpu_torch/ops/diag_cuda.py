@@ -106,7 +106,8 @@ def supported(cfg: Config, grid: Grid) -> bool:
 # ---------------------------------------------------------------------------
 def grid_flux_plain(cfg: Config, grid: Grid, zeta, u, v, hc):
     z_r, z_w, Hz = vgrid.set_depth(grid.h, zeta, hc, grid.sc_r, grid.Cs_r,
-                                   grid.sc_w, grid.Cs_w, cfg.vtransform)
+                                   grid.sc_w, grid.Cs_w, cfg.vtransform,
+                                   zice=grid.zice)
     Huon, Hvom = set_massflux(cfg, grid, u, v, Hz)
     W = _omega(cfg, grid, Huon, Hvom, z_w)
     return z_r, z_w, Hz, Huon, Hvom, W

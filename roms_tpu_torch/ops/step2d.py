@@ -1,20 +1,28 @@
-"""Pieces of the fast barotropic engine (counterpart of
-``roms_tpu/ops/step2d.py``; step2d_LF_AM3.h).
+"""The fast barotropic engine (counterpart of ``roms_tpu/ops/step2d.py``;
+step2d_LF_AM3.h and the fast-loop index rotation of main3d.F:592-713 /
+main2d.F:449-520).
 
 Fast2DState carries the rotating storage of the reference's fast loop as
 named fields.  depth_fluxes, _rhs_momentum and _step_momentum are the
-building blocks of the fast loop.  ``fast_loop`` is the general plain loop
-(open boundaries, volume conservation, point sources, wetting-drying and
-2-D momentum climatology nudging), which the step takes where the fused
-kernel of ops/step2d_cuda.py does not apply, as the JAX step takes
-``roms_tpu/ops/step2d.py::fast_loop`` where its Pallas kernel does not.
-The Stokes drift raises NotImplementedError.
+building blocks of both entry points:
+
+ * ``fast_loop``: SOLVE3D mode, the general plain loop of one slow step
+   (open boundaries, volume conservation, point sources, wetting-drying
+   and 2-D momentum climatology nudging), which the step takes where the
+   fused kernel of ops/step2d_cuda.py does not apply, as the JAX step
+   takes ``roms_tpu/ops/step2d.py::fast_loop`` where its Pallas kernel
+   does not.  The Stokes drift raises NotImplementedError.
+ * ``step_2d_only``: main2d mode (no SOLVE3D), one predictor/corrector
+   pair a model step with the LF/AM3 history carried across steps and the
+   surface and bottom stresses applied directly (SOLITON).  No kernel
+   runs it, as no Pallas kernel runs roms_tpu's.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -57,6 +65,27 @@ class Fast2DState:
         return dataclasses.replace(self, **kw)
 
 
+def make_fast_state(cfg: Config, zeta, ubar, vbar) -> Fast2DState:
+    """The 2-D-only mode's state at the start of a run: both fast levels at
+    (zeta, ubar, vbar), the rhs history and the filter sums zero but
+    Zt_avg1 = zeta."""
+    z = torch.zeros_like(zeta)
+    return Fast2DState(
+        zeta_n=zeta, zeta_nm1=zeta, ubar_n=ubar, ubar_nm1=ubar,
+        vbar_n=vbar, vbar_nm1=vbar,
+        rzeta_n=z, rzeta_nm1=z, rubar_n=z, rubar_nm1=z,
+        rvbar_n=z, rvbar_nm1=z,
+        Zt_avg1=zeta, DU_avg1=z, DV_avg1=z, DU_avg2=z, DV_avg2=z)
+
+
+class Forcing2D(NamedTuple):
+    """Direct forcing of the 2-D-only mode: kinematic surface stresses
+    (m2/s2) at u and v points.  In SOLVE3D mode the stresses enter through
+    rufrc instead."""
+    sustr: Optional[torch.Tensor] = None
+    svstr: Optional[torch.Tensor] = None
+
+
 def depth_fluxes(grid: Grid, zeta, ubar, vbar):
     """Total depth and vertically integrated mass fluxes
     (step2d_LF_AM3.h:499-516)."""
@@ -71,15 +100,15 @@ def _g(cfg: Config) -> float:
 
 
 def _rhs_momentum(cfg: Config, grid: Grid, ubar, vbar, Drhs, DUon, DVom,
-                  gzeta, gzeta2, pmask_wet=None, clm=None):
-    """RHS of the 2-D momentum equations (step2d_LF_AM3.h:929-1844 under
-    SOLVE3D): surface-slope pressure gradient, 4th-order advection,
-    Coriolis, curvilinear terms, harmonic viscosity (its corner stress
-    times pmask_wet under WET_DRY) and nudging toward the 2-D momentum
-    climatology clm["ubarclm"/"vbarclm"] with clm["m2nudg"] (1/s, a scalar
-    or a rho-point field)."""
-    if not cfg.solve3d:
-        raise NotImplementedError("2-D-only mode (main2d) fast step")
+                  gzeta, gzeta2, pmask_wet=None, clm=None,
+                  forcing: Optional[Forcing2D] = None):
+    """RHS of the 2-D momentum equations (step2d_LF_AM3.h:929-1844):
+    surface-slope pressure gradient, 4th-order advection, Coriolis,
+    curvilinear terms, harmonic viscosity (its corner stress times
+    pmask_wet under WET_DRY), nudging toward the 2-D momentum climatology
+    clm["ubarclm"/"vbarclm"] with clm["m2nudg"] (1/s, a scalar or a
+    rho-point field) and, without SOLVE3D, the surface stress of `forcing`
+    and the linear or quadratic bottom drag applied directly."""
     H = cfg.halo
     h = grid.h
     g = _g(cfg)
@@ -191,6 +220,31 @@ def _rhs_momentum(cfg: Config, grid: Grid, ubar, vbar, Drhs, DUon, DVom,
             else 0.5 * nud * grid.om_v * grid.on_v
         rhs_vbar = rhs_vbar + cff_v * (jm1(Drhs) + Drhs) * \
             (clm["vbarclm"] - vbar)
+
+    # --- 2-D-only mode: the surface and bottom stresses directly (the
+    #     reference's non-SOLVE3D branches; with SOLVE3D they come through
+    #     rufrc) ---
+    if not cfg.solve3d:
+        area_u = grid.om_u * grid.on_u
+        area_v = grid.om_v * grid.on_v
+        if forcing is not None and forcing.sustr is not None:
+            rhs_ubar = rhs_ubar + forcing.sustr * area_u
+        if forcing is not None and forcing.svstr is not None:
+            rhs_vbar = rhs_vbar + forcing.svstr * area_v
+        if cfg.bottom_drag == "linear":
+            rhs_ubar = rhs_ubar - cfg.rdrg * ubar * area_u
+            rhs_vbar = rhs_vbar - cfg.rdrg * vbar * area_v
+        elif cfg.bottom_drag == "quadratic":
+            vbar_at_u = 0.25 * (vbar + jp1(vbar) + im1(vbar) +
+                                im1(jp1(vbar)))
+            ubar_at_v = 0.25 * (ubar + ip1(ubar) + jm1(ubar) +
+                                jm1(ip1(ubar)))
+            rhs_ubar = rhs_ubar - cfg.rdrg2 * \
+                torch.sqrt(ubar * ubar + vbar_at_u * vbar_at_u) * ubar * \
+                area_u
+            rhs_vbar = rhs_vbar - cfg.rdrg2 * \
+                torch.sqrt(ubar_at_v * ubar_at_v + vbar * vbar) * vbar * \
+                area_v
     return rhs_ubar, rhs_vbar
 
 
@@ -219,6 +273,81 @@ def ab3_coupling_weights(iic: int):
     if iic == 1:
         return 1.5, 0.5, 0.0
     return 23.0 / 12.0, 16.0 / 12.0, 5.0 / 12.0
+
+
+def _wet_masks(cfg: Config, grid: Grid, z_kstp):
+    """New wet/dry masks from zeta at the kstp level (step2d_LF_AM3.h:729
+    -> wetdry_tile): (rho, u, v, psi masks)."""
+    wd = wetdry.rho_wet(cfg, grid, z_kstp)
+    um, vm = wetdry.face_masks(wd)
+    return wd, um, vm, wetdry.psi_wet(wd)
+
+
+def _boundary_fns(cfg: Config, grid: Grid, bry, sources, sustr=None,
+                  svstr=None):
+    """The lateral conditions of a fast step, as (zbc, bcs): zbc(z_new,
+    z_know, dt2d) for the new free surface (the simple kinds, then the
+    open ones through obc.zetabc, then the wet/dry clamp); bcs(u_new,
+    v_new, u_know, v_know, z_know, dt2d, z_new, um, vm) for the new
+    velocities: the simple kinds, the open ones through obc.u2dbc/v2dbc
+    (with the surface stresses of the 2-D-only mode), the limiter again
+    under WET_DRY (the reference limits the boundary points inside
+    u2dbc/v2dbc, u2dbc_im.F:1187-1234; idempotent inside), then the volume
+    conservation and the point sources."""
+    adv_z = bc.has_advanced(cfg.lbc_zeta)
+    adv_u = bc.has_advanced(cfg.lbc_ubar)
+    adv_v = bc.has_advanced(cfg.lbc_vbar)
+    use_wd = cfg.wetdry
+
+    def zbc(z_new, z_know, dt2d):
+        z_new = bc.apply_bc_rho(cfg, cfg.lbc_zeta, z_new, mask=grid.rmask)
+        if adv_z:
+            z_new = bc.fill_halo(cfg, obc.zetabc(
+                cfg, grid, cfg.lbc_zeta, z_know, z_new, dt2d, bry))
+        if use_wd:
+            z_new = wetdry.clamp_zeta(cfg, grid, z_new)
+        return z_new
+
+    def ubc(u_new, u_know, z_know, dt2d, z_new, v_know):
+        u_new = bc.apply_bc_u(cfg, cfg.lbc_ubar, u_new, gamma2=cfg.gamma2,
+                              mask=grid.umask)
+        if adv_u:
+            u_new = bc.fill_halo(cfg, obc.u2dbc(
+                cfg, grid, cfg.lbc_ubar, u_know, u_new, z_know, dt2d, bry,
+                z_kout=z_new, vb_know=v_know, sustr=sustr))
+        return u_new
+
+    def vbc(v_new, v_know, z_know, dt2d, z_new, u_know):
+        v_new = bc.apply_bc_v(cfg, cfg.lbc_vbar, v_new, gamma2=cfg.gamma2,
+                              mask=grid.vmask)
+        if adv_v:
+            v_new = bc.fill_halo(cfg, obc.v2dbc(
+                cfg, grid, cfg.lbc_vbar, v_know, v_new, z_know, dt2d, bry,
+                z_kout=z_new, ub_know=u_know, svstr=svstr))
+        return v_new
+
+    def srcs(u_new, v_new, z_new):
+        if cfg.volcons:
+            u_new, v_new = obc.obc_volcons(cfg, grid, u_new, v_new, z_new,
+                                           set(cfg.volcons))
+            u_new = bc.fill_halo(cfg, u_new)
+            v_new = bc.fill_halo(cfg, v_new)
+        if sources is None:
+            return u_new, v_new
+        from .sources import apply_ubar_sources
+        u_new, v_new = apply_ubar_sources(sources, u_new, v_new, z_new,
+                                          grid.h, grid.on_u, grid.om_v)
+        return bc.fill_halo(cfg, u_new), bc.fill_halo(cfg, v_new)
+
+    def bcs(u_new, v_new, u_know, v_know, z_know, dt2d, z_new, um, vm):
+        u_new = ubc(u_new, u_know, z_know, dt2d, z_new, v_know)
+        v_new = vbc(v_new, v_know, z_know, dt2d, z_new, u_know)
+        if use_wd:
+            u_new = u_new * wetdry.limit(um, u_new)
+            v_new = v_new * wetdry.limit(vm, v_new)
+        return srcs(u_new, v_new, z_new)
+
+    return zbc, bcs
 
 
 def fast_loop(cfg: Config, grid: Grid, fs: Fast2DState, rufrc=None,
@@ -256,69 +385,8 @@ def fast_loop(cfg: Config, grid: Grid, fs: Fast2DState, rufrc=None,
     nfast = cfg.nfast
     zero = torch.zeros_like(fs.zeta_n)
 
-    adv_z = bc.has_advanced(cfg.lbc_zeta)
-    adv_u = bc.has_advanced(cfg.lbc_ubar)
-    adv_v = bc.has_advanced(cfg.lbc_vbar)
     use_wd = cfg.wetdry
-
-    def wmasks(z_kstp):
-        """New wet/dry masks from zeta at the kstp level
-        (step2d_LF_AM3.h:729 -> wetdry_tile)."""
-        wd = wetdry.rho_wet(cfg, grid, z_kstp)
-        um, vm = wetdry.face_masks(wd)
-        return wd, um, vm, wetdry.psi_wet(wd)
-
-    def zbc(z_new, z_know, dt2d):
-        z_new = bc.apply_bc_rho(cfg, cfg.lbc_zeta, z_new, mask=grid.rmask)
-        if adv_z:
-            z_new = bc.fill_halo(cfg, obc.zetabc(
-                cfg, grid, cfg.lbc_zeta, z_know, z_new, dt2d, bry))
-        if use_wd:
-            z_new = wetdry.clamp_zeta(cfg, grid, z_new)
-        return z_new
-
-    def ubc(u_new, u_know, z_know, dt2d, z_new, v_know):
-        u_new = bc.apply_bc_u(cfg, cfg.lbc_ubar, u_new, gamma2=cfg.gamma2,
-                              mask=grid.umask)
-        if adv_u:
-            u_new = bc.fill_halo(cfg, obc.u2dbc(
-                cfg, grid, cfg.lbc_ubar, u_know, u_new, z_know, dt2d, bry,
-                z_kout=z_new, vb_know=v_know))
-        return u_new
-
-    def vbc(v_new, v_know, z_know, dt2d, z_new, u_know):
-        v_new = bc.apply_bc_v(cfg, cfg.lbc_vbar, v_new, gamma2=cfg.gamma2,
-                              mask=grid.vmask)
-        if adv_v:
-            v_new = bc.fill_halo(cfg, obc.v2dbc(
-                cfg, grid, cfg.lbc_vbar, v_know, v_new, z_know, dt2d, bry,
-                z_kout=z_new, ub_know=u_know))
-        return v_new
-
-    def srcs(u_new, v_new, z_new):
-        if cfg.volcons:
-            u_new, v_new = obc.obc_volcons(cfg, grid, u_new, v_new, z_new,
-                                           set(cfg.volcons))
-            u_new = bc.fill_halo(cfg, u_new)
-            v_new = bc.fill_halo(cfg, v_new)
-        if sources is None:
-            return u_new, v_new
-        from .sources import apply_ubar_sources
-        u_new, v_new = apply_ubar_sources(sources, u_new, v_new, z_new,
-                                          grid.h, grid.on_u, grid.om_v)
-        return bc.fill_halo(cfg, u_new), bc.fill_halo(cfg, v_new)
-
-    def bcs(u_new, v_new, u_know, v_know, z_know, dt2d, z_new, um, vm):
-        """Lateral BCs of the new velocities, the limiter again after them
-        under WET_DRY (the reference limits the boundary points inside
-        u2dbc/v2dbc, u2dbc_im.F:1187-1234; idempotent inside), then the
-        volume conservation and sources."""
-        u_new = ubc(u_new, u_know, z_know, dt2d, z_new, v_know)
-        v_new = vbc(v_new, v_know, z_know, dt2d, z_new, u_know)
-        if use_wd:
-            u_new = u_new * wetdry.limit(um, u_new)
-            v_new = v_new * wetdry.limit(vm, v_new)
-        return srcs(u_new, v_new, z_new)
+    zbc, bcs = _boundary_fns(cfg, grid, bry, sources)
 
     if rufrc is None:
         rufrc = rvfrc = zero
@@ -327,7 +395,7 @@ def fast_loop(cfg: Config, grid: Grid, fs: Fast2DState, rufrc=None,
     # ================= fast step 1 (peeled: FE predictor) =================
     um_w = vm_w = pw_w = wet_avg = None
     if use_wd:                 # FIRST_2D_STEP predictor: kstp = n
-        wet_avg, um_w, vm_w, pw_w = wmasks(fs.zeta_n)
+        wet_avg, um_w, vm_w, pw_w = _wet_masks(cfg, grid, fs.zeta_n)
     Drhs, DUon, DVom = depth_fluxes(grid, fs.zeta_n, fs.ubar_n, fs.vbar_n)
     # averaging reset (:611-634); weight(2,iif+1) with iif=1 -> w2[1]
     cff2 = (-1.0 / 12.0) * w2[1]
@@ -376,7 +444,7 @@ def fast_loop(cfg: Config, grid: Grid, fs: Fast2DState, rufrc=None,
     def corrector(i, fs, zeta_p, ubar_p, vbar_p, first: bool, wet_avg):
         um_c = vm_c = pw_c = None
         if use_wd:             # corrector: kstp = n -> masks from zeta_n
-            wd_c, um_c, vm_c, pw_c = wmasks(fs.zeta_n)
+            wd_c, um_c, vm_c, pw_c = _wet_masks(cfg, grid, fs.zeta_n)
             wet_avg = wet_avg + wd_c
         Drhs, DUon, DVom = depth_fluxes(grid, zeta_p, ubar_p, vbar_p)
         # averaging, corrector branch (:688-713): weight(2,iif) -> w2[i-1]
@@ -424,7 +492,7 @@ def fast_loop(cfg: Config, grid: Grid, fs: Fast2DState, rufrc=None,
     for i in range(2, nfast + 1):
         um_p = vm_p = pw_p = None
         if use_wd:             # LF predictor: kstp = n-1
-            wd_p, um_p, vm_p, pw_p = wmasks(fs.zeta_nm1)
+            wd_p, um_p, vm_p, pw_p = _wet_masks(cfg, grid, fs.zeta_nm1)
             wet_avg = wet_avg + wd_p
         Drhs, DUon, DVom = depth_fluxes(grid, fs.zeta_n, fs.ubar_n,
                                         fs.vbar_n)
@@ -496,3 +564,100 @@ def fast_loop(cfg: Config, grid: Grid, fs: Fast2DState, rufrc=None,
                "umask_wet": bc.fill_halo(cfg, um_avg),
                "vmask_wet": bc.fill_halo(cfg, vm_avg)}
     return fs, rufrc_c, rvfrc_c, wet
+
+
+def step_2d_only(cfg: Config, grid: Grid, fs: Fast2DState, first: bool,
+                 forcing: Optional[Forcing2D] = None, bry=None, sources=None,
+                 clm=None) -> Fast2DState:
+    """One model step of the 2-D-only (main2d) mode: a single LF predictor
+    and AM3 corrector, the LF/AM3 history carried across steps in `fs`
+    (roms_tpu/ops/step2d.py:633-791).  `first` takes the forward-Euler
+    predictor of a run's first step (iic == ntfirst).  `forcing` gives the
+    surface stresses, which the open boundaries see too; `bry`, `sources`
+    and `clm` act as in fast_loop.  Returns a new Fast2DState."""
+    dtfast = cfg.dtfast
+    h = grid.h
+    pmn = grid.pm * grid.pn
+    use_wd = cfg.wetdry
+    zbc, bcs = _boundary_fns(
+        cfg, grid, bry, sources,
+        sustr=forcing.sustr if forcing is not None else None,
+        svstr=forcing.svstr if forcing is not None else None)
+
+    # --- predictor (FE on the first step, else LF) ---
+    Drhs, DUon, DVom = depth_fluxes(grid, fs.zeta_n, fs.ubar_n, fs.vbar_n)
+    rhs_zeta = (DUon - ip1(DUon)) + (DVom - jp1(DVom))
+    if first:
+        z_kstp, u_kstp, v_kstp = fs.zeta_n, fs.ubar_n, fs.vbar_n
+        cz, cm = dtfast, 0.5 * dtfast
+    else:
+        z_kstp, u_kstp, v_kstp = fs.zeta_nm1, fs.ubar_nm1, fs.vbar_nm1
+        cz, cm = 2.0 * dtfast, dtfast
+    zeta_new = (z_kstp + pmn * cz * rhs_zeta) * grid.rmask
+    Dnew = zeta_new + h
+    if first:
+        zwrk = 0.5 * (z_kstp + zeta_new)
+    else:
+        cff4 = 4.0 / 25.0
+        zwrk = (1.0 - 2.0 * cff4) * fs.zeta_n + cff4 * (z_kstp + zeta_new)
+    zeta_p = bc.apply_bc_rho(cfg, cfg.lbc_zeta, zeta_new, mask=grid.rmask)
+    um_p = vm_p = pw_p = None
+    if use_wd:
+        _, um_p, vm_p, pw_p = _wet_masks(cfg, grid, z_kstp)
+        zeta_p = wetdry.clamp_zeta(cfg, grid, zeta_p)
+
+    rhs_ubar, rhs_vbar = _rhs_momentum(cfg, grid, fs.ubar_n, fs.vbar_n,
+                                       Drhs, DUon, DVom, zwrk, zwrk * zwrk,
+                                       pmask_wet=pw_p, clm=clm,
+                                       forcing=forcing)
+    ubar_p, vbar_p = _step_momentum(cfg, grid, u_kstp, v_kstp, z_kstp + h,
+                                    Dnew, cm * rhs_ubar, cm * rhs_vbar)
+    if use_wd:
+        c7u = wetdry.limit(um_p, ubar_p)
+        c7v = wetdry.limit(vm_p, vbar_p)
+        ubar_p = ubar_p * c7u
+        vbar_p = vbar_p * c7v
+        rhs_ubar = rhs_ubar * c7u
+        rhs_vbar = rhs_vbar * c7v
+    ubar_p, vbar_p = bcs(ubar_p, vbar_p, fs.ubar_n, fs.vbar_n, fs.zeta_n,
+                         dtfast, zeta_p, um_p, vm_p)
+    fs = fs.replace(
+        rzeta_nm1=fs.rzeta_n, rzeta_n=bc.fill_halo(cfg, rhs_zeta),
+        rubar_nm1=fs.rubar_n, rubar_n=rhs_ubar,
+        rvbar_nm1=fs.rvbar_n, rvbar_n=rhs_vbar)
+
+    # --- corrector (AM3) ---
+    Drhs, DUon, DVom = depth_fluxes(grid, zeta_p, ubar_p, vbar_p)
+    rhs_zeta = (DUon - ip1(DUon)) + (DVom - jp1(DVom))
+    c1 = dtfast * 5.0 / 12.0
+    c2 = dtfast * 8.0 / 12.0
+    c3 = dtfast * 1.0 / 12.0
+    zeta_new = (fs.zeta_n + pmn * (c1 * rhs_zeta + c2 * fs.rzeta_n -
+                                   c3 * fs.rzeta_nm1)) * grid.rmask
+    Dnew = zeta_new + h
+    cff4 = 2.0 / 5.0
+    zwrk = (1.0 - cff4) * zeta_new + cff4 * zeta_p
+    zeta_new = zbc(zeta_new, fs.zeta_n, dtfast)
+    um_c = vm_c = pw_c = None
+    if use_wd:
+        _, um_c, vm_c, pw_c = _wet_masks(cfg, grid, fs.zeta_n)
+    rhs_ubar, rhs_vbar = _rhs_momentum(cfg, grid, ubar_p, vbar_p, Drhs,
+                                       DUon, DVom, zwrk, zwrk * zwrk,
+                                       pmask_wet=pw_c, clm=clm,
+                                       forcing=forcing)
+    cm1 = 0.5 * dtfast * 5.0 / 12.0
+    cm2 = 0.5 * dtfast * 8.0 / 12.0
+    cm3 = 0.5 * dtfast * 1.0 / 12.0
+    ubar_new, vbar_new = _step_momentum(
+        cfg, grid, fs.ubar_n, fs.vbar_n, fs.zeta_n + h, Dnew,
+        cm1 * rhs_ubar + cm2 * fs.rubar_n - cm3 * fs.rubar_nm1,
+        cm1 * rhs_vbar + cm2 * fs.rvbar_n - cm3 * fs.rvbar_nm1)
+    if use_wd:
+        ubar_new = ubar_new * wetdry.limit(um_c, ubar_new)
+        vbar_new = vbar_new * wetdry.limit(vm_c, vbar_new)
+    ubar_new, vbar_new = bcs(ubar_new, vbar_new, fs.ubar_n, fs.vbar_n,
+                             fs.zeta_n, dtfast, zeta_new, um_c, vm_c)
+    return fs.replace(
+        zeta_nm1=fs.zeta_n, zeta_n=zeta_new,
+        ubar_nm1=fs.ubar_n, ubar_n=ubar_new,
+        vbar_nm1=fs.vbar_n, vbar_n=vbar_new)

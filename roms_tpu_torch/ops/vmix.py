@@ -3,12 +3,11 @@ interior shear and internal-wave mixing (lmd_vmix.F, RI_SPLINES), the
 surface boundary layer (lmd_skpp.F with LMD_RIMIX, CONVEC and NONLOCAL)
 and the bottom boundary layer (lmd_bkpp.F, ``cfg.kpp_bottom``), with the
 Paulson & Simpson solar absorption (lmd_swfrac.F); and the
-Brunt-Vaisala mixing ``bvf_mix`` (bvf_mix.F, ``cfg.vmix = "bvf"``).
-
-Double diffusion (``cfg.lmd_ddmix``) is not ported; lmd_vmix raises for
-it.  The surface thermal
-expansion and saline contraction coefficients come from autograd of the
-EOS, as the JAX function takes them from jax.grad.
+Brunt-Vaisala mixing ``bvf_mix`` (bvf_mix.F, ``cfg.vmix = "bvf"``), and
+the double-diffusive interior mixing (lmd_vmix.F LMD_DDMIX,
+``cfg.lmd_ddmix``).  The thermal expansion and saline contraction
+coefficients come from autograd of the EOS, as the JAX function takes
+them from jax.grad.
 
 All constants from mod_scalars.F:1502-1630 and 4330-4331.
 """
@@ -148,18 +147,59 @@ def _alpha_beta(cfg: Config, temp_s, salt_s):
     return -dT / den, dS / den
 
 
+def _ddmix(cfg: Config, t):
+    """Double-diffusive diffusivities of heat and salt (nu_ddt, nu_dds)
+    at the N-1 interior W interfaces (lmd_vmix.F:360-428, Large et al.
+    1994 section 4c): salt fingering for a density ratio Rrho = alpha dT /
+    (beta dS) in (1, Rrho0] with dS/dz > 0, diffusive convection
+    (Marmorino & Caldwell 1976) for 0 < Rrho < 1 with dS/dz < 0."""
+    lmd_Rrho0, lmd_nuf, lmd_fdd = 1.9, 0.001, 0.7
+    lmd_nu = 1.5e-6
+    lmd_tdd1, lmd_tdd2, lmd_tdd3 = 0.909, 4.6, 0.54
+    lmd_sdd1, lmd_sdd2, lmd_sdd3 = 0.15, 1.85, 0.85
+    ddDT = t[0, 1:] - t[0, :-1]
+    dS_raw = t[1, 1:] - t[1, :-1]
+    tiny = torch.full_like(dS_raw, 1.0e-14)
+    ddDS = torch.sign(dS_raw) * torch.maximum(torch.abs(dS_raw), tiny)
+    ddDS = torch.where(dS_raw == 0.0, tiny, ddDS)
+    # alpha/beta at the interface from the cell-mean T and S (the
+    # reference's rho_eos alfaobeta at W points)
+    Tw = 0.5 * (t[0, 1:] + t[0, :-1])
+    Sw = 0.5 * (t[1, 1:] + t[1, :-1])
+    a_w, b_w = _alpha_beta(cfg, Tw, Sw)
+    Rrho = a_w / b_w * ddDT / ddDS
+    # salt fingering
+    Rr_f = torch.clamp(Rrho, 1.0, lmd_Rrho0)
+    nu_f = 1.0 - ((Rr_f - 1.0) / (lmd_Rrho0 - 1.0)) ** 2
+    nu_dds_f = lmd_nuf * nu_f * nu_f * nu_f
+    nu_ddt_f = lmd_fdd * nu_dds_f
+    # diffusive convection
+    Rr_c = torch.clamp(Rrho, 1.0e-10, 1.0)
+    nu_ddt_c = lmd_nu * lmd_tdd1 * torch.exp(
+        lmd_tdd2 * torch.exp(-lmd_tdd3 * (1.0 / Rr_c - 1.0)))
+    nu_dds_c = torch.where(Rr_c < 0.5, nu_ddt_c * lmd_sdd1 * Rr_c,
+                           nu_ddt_c * (lmd_sdd2 * Rr_c - lmd_sdd3))
+    finger = (Rrho > 1.0) & (ddDS > 0.0)
+    dconv = (Rrho > 0.0) & (Rrho < 1.0) & (ddDS < 0.0)
+    zero = torch.zeros_like(Rrho)
+    nu_ddt = torch.where(finger, nu_ddt_f,
+                         torch.where(dconv, nu_ddt_c, zero))
+    nu_dds = torch.where(finger, nu_dds_f,
+                         torch.where(dconv, nu_dds_c, zero))
+    return nu_ddt, nu_dds
+
+
 def lmd_vmix(cfg: Config, grid: Grid, u, v, t, rho, pden, bvf,
              Hz, z_r, z_w, sustr, svstr, bustr, bvstr,
              stflx, srflx, hsbl_prev, btflx=None, hbbl_prev=None):
-    """K-profile parameterization: interior and surface boundary layer.
+    """K-profile parameterization: interior (with the double-diffusive
+    terms under cfg.lmd_ddmix and two tracers) and surface boundary layer.
 
     Returns (Akv, Akt stack (NAT,N+1,Ny,Nx), hsbl, hbbl, ghats stack).
     srflx: surface shortwave (degC m/s); stflx: (NT,Ny,Nx) surface fluxes.
     With cfg.kpp_bottom the bottom layer (_lmd_bkpp) sets hbbl and blends
     its mixing in; otherwise hbbl is hbbl_prev (z_w[0] when None).
     """
-    if cfg.lmd_ddmix and cfg.ntracers >= 2:
-        raise NotImplementedError("KPP double-diffusive mixing (LMD_DDMIX)")
     N = cfg.N
     g = C.g
     gorho0 = g / cfg.rho0
@@ -185,6 +225,12 @@ def lmd_vmix(cfg: Config, grid: Grid, u, v, t, rho, pden, bvf,
     Akv = _set_ends(Akv, cfg.akv_bak, cfg.akv_bak)
     Akt_t = _set_ends(Akt_t, cfg.akt_bak[0], cfg.akt_bak[0])
     Akt_s = Akt_t
+    if cfg.lmd_ddmix and cfg.ntracers >= 2:
+        # new tensors: Akt_s starts as Akt_t, and an in-place add would
+        # give each the other's term too
+        nu_ddt, nu_dds = _ddmix(cfg, t)
+        Akt_t = torch.cat([Akt_t[:1], Akt_t[1:-1] + nu_ddt, Akt_t[-1:]])
+        Akt_s = torch.cat([Akt_s[:1], Akt_s[1:-1] + nu_dds, Akt_s[-1:]])
 
     # ============ surface boundary layer (lmd_skpp) ============
     Ustar = torch.sqrt(torch.sqrt(

@@ -7,14 +7,17 @@ models/ (UPWELLING, BENCHMARK, the regional, coastal and operator cases)
 and the file-driven case take (analytic or file surface stress and heat
 flux, or COARE bulk fluxes from an analytic atmosphere; linear, quadratic
 or logarithmic drag; constant mixing coefficients (vmix None or "none"),
-Brunt-Vaisala mixing ("bvf"), the KPP surface and bottom layers or GLS;
+Brunt-Vaisala mixing ("bvf"), the KPP surface and bottom layers with
+double diffusion, or GLS;
 all five pressure-gradient schemes, djs with the tide-generating force;
 C2/U1/U3/C4/A4/SPLINES/HSIMT advection; harmonic or biharmonic viscosity
 along s-surfaces or geopotentials, with Smagorinsky's; harmonic or
 biharmonic tracer diffusion along s-surfaces, geopotentials or
 isopycnals; open boundaries with their `bry` data, volume conservation
 and point sources; wetting-drying; climatology nudging of ubar/vbar, u/v
-and the tracers through `clm`; curvilinear and periodic grids).  Every
+and the tracers through `clm`; curvilinear and periodic grids; the ice
+shelf (`grid.zice`: the ice-base drag, the floating-ice load and the
+displaced levels) and mean-age tracer pairs (`cfg.inert_age`)).  Every
 other branch raises NotImplementedError naming the missing feature: the
 ones listed in _check_slice when the step starts, MPDATA advection and
 BODYFORCE stresses where their stage is called.
@@ -58,6 +61,7 @@ from .ops.tides import equilibrium_tide, harmonic_constituents
 from .ops.vmix import bvf_mix, lmd_vmix, swfrac
 from .ops.pre_step3d import ab3_start_coefs, momentum_init
 from .ops.rhs3d import rhs3d_momentum
+from .ops.stencil import im1, ip1, jm1, jp1
 from .ops.step2d import Fast2DState
 from .ops.vbc import set_vbc
 
@@ -72,16 +76,14 @@ _BULK_KEYS = {"Uwind", "Vwind", "Tair", "Pair", "Hair", "cloud", "rain",
 
 def _check_slice(cfg: Config, grid: Grid, frc: dict, collect_diags: bool):
     """Raise NotImplementedError for every branch of the reference step
-    that this port does not have yet: the budget diagnostics, the ice
-    shelf, sediment, the nearshore radiation stress, the bottom boundary
-    layer, the MY2.5 closure, KPP double diffusion, mean-age tracers,
-    biology, and forcing fields outside the set the step reads.  MPDATA
-    tracer advection and BODYFORCE raise where their stage is called."""
+    that this port does not have yet: the budget diagnostics, sediment,
+    the nearshore radiation stress, the bottom boundary layer, the MY2.5
+    closure, biology, and forcing fields outside the set the step reads.
+    MPDATA tracer advection and BODYFORCE raise where their stage is
+    called."""
     missing = []
     if collect_diags:
         missing.append(DIAGS_NOT_PORTED)
-    if grid.zice is not None:
-        missing.append("ice shelf (ICESHELF)")
     if cfg.sediment or cfg.sed_params is not None:
         missing.append("sediment (SEDIMENT)")
     if cfg.nearshore is not None:
@@ -90,10 +92,6 @@ def _check_slice(cfg: Config, grid: Grid, frc: dict, collect_diags: bool):
         missing.append(f"bottom boundary layer ({cfg.bbl})")
     if cfg.vmix not in (None, "none", "kpp", "gls", "bvf"):
         missing.append(f"vertical mixing closure ({cfg.vmix})")
-    if cfg.vmix == "kpp" and cfg.lmd_ddmix and cfg.ntracers >= 2:
-        missing.append("KPP double-diffusive mixing (LMD_DDMIX)")
-    if cfg.inert_age:
-        missing.append("mean-age tracers (AGE_MEAN)")
     if cfg.biology is not None:
         missing.append(f"biology ({cfg.biology})")
     extra = set(frc) - (_BULK_KEYS if cfg.bulk_fluxes else _FORCING_KEYS) \
@@ -102,6 +100,32 @@ def _check_slice(cfg: Config, grid: Grid, frc: dict, collect_diags: bool):
         missing.append(f"forcing fields {sorted(extra)}")
     if missing:
         raise NotImplementedError("not ported: " + "; ".join(missing))
+
+
+def _under_ice(cfg: Config, grid: Grid, state: State, sustr, svstr,
+               stflux, srflx):
+    """ICESHELF surface fluxes (set_vbc.F:380-510): under the ice shelf the
+    wind stress gives way to the ice-base drag on the top layer (the sea
+    bed's drag law) and the surface tracer and shortwave fluxes vanish.
+    Returns (sustr, svstr, stflux, srflx)."""
+    icy = torch.abs(grid.zice) > 0.0
+    icy_u = icy & im1(icy)
+    icy_v = icy & jm1(icy)
+    uN, vN = state.u[-1], state.v[-1]
+    if cfg.bottom_drag == "linear":
+        tau_iu = -cfg.rdrg * uN
+        tau_iv = -cfg.rdrg * vN
+    else:
+        v_at_u = 0.25 * (vN + jp1(vN) + im1(vN) + im1(jp1(vN)))
+        u_at_v = 0.25 * (uN + ip1(uN) + jm1(uN) + jm1(ip1(uN)))
+        tau_iu = -cfg.rdrg2 * uN * torch.sqrt(uN ** 2 + v_at_u ** 2)
+        tau_iv = -cfg.rdrg2 * vN * torch.sqrt(vN ** 2 + u_at_v ** 2)
+    sustr = torch.where(icy_u, tau_iu, sustr)
+    svstr = torch.where(icy_v, tau_iv, svstr)
+    stflux = torch.where(icy[None], torch.zeros_like(stflux), stflux)
+    if srflx is not None:
+        srflx = torch.where(icy, torch.zeros_like(srflx), srflx)
+    return sustr, svstr, stflux, srflx
 
 
 def step(cfg: Config, grid: Grid, state: State,
@@ -146,6 +170,9 @@ def step(cfg: Config, grid: Grid, state: State,
         svstr = frc.get("svstr", zero2)
         stflux = frc.get("stflux", zero_nt)
     btflux = frc.get("btflux", torch.zeros_like(stflux))
+    if grid.zice is not None:
+        sustr, svstr, stflux, srflx = _under_ice(cfg, grid, state, sustr,
+                                                 svstr, stflux, srflx)
 
     # --- vertical grid, mass fluxes and omega at time n (main3d.F:307,474)
     #     and density (main3d.F:314) ---
@@ -200,6 +227,13 @@ def step(cfg: Config, grid: Grid, state: State,
         # (main3d.F equilibrium_tide call)
         eq_tide = equilibrium_tide(
             grid, state.time, harmonic_constituents(cfg.tide_ref_datenum))
+    if grid.zice is not None:
+        # floating-ice load: the water pressure at the ice base carries the
+        # weight of the displaced water column, g*|zice|*(1 + rho'/rho0)
+        # with rho' just below the ice base, through prsgrd's surface
+        # pressure slot (roms_tpu's reduced-pressure form of ICESHELF)
+        ice_load = -torch.abs(grid.zice) * (1.0 + rho[-1] / cfg.rho0)
+        eq_tide = ice_load if eq_tide is None else eq_tide + ice_load
     if rhs3d_cuda.use_kernels(cfg, clm=clm):
         # momentum_init -> prsgrd32 -> rhs3d -> uv3dmix2 as one phase
         u_nnew, v_nnew, ru, rv, rufrc, rvfrc = rhs3d_cuda.momentum_rhs(
@@ -296,7 +330,7 @@ def step(cfg: Config, grid: Grid, state: State,
     # --- new depths from the filtered free surface (main3d.F:736) ---
     z_r2, z_w2, Hz2 = vgrid.set_depth(grid.h, fs.Zt_avg1, hc, grid.sc_r,
                                       grid.Cs_r, grid.sc_w, grid.Cs_w,
-                                      cfg.vtransform)
+                                      cfg.vtransform, zice=grid.zice)
 
     # --- 3D momentum corrector (main3d.F:762) ---
     if step3d_cuda.use_uv(cfg, bry=bry, sources=sources, wet=wet):
@@ -339,6 +373,13 @@ def step(cfg: Config, grid: Grid, state: State,
         t2 = step3d_cuda.tracer_corrector_plain(
             cfg, grid, t_nnew, t3, Huon2, Hvom2, W2, Hz2, z_r2, Akt,
             t_old=state.t, bry=bry, sources=sources, clm=clm)
+
+    # --- mean-age tracer pairs (AGE_MEAN; step3d_t.F:1507-1539): the age
+    #     concentration grows by dt times its conservative partner ---
+    for icons, iage in cfg.inert_age:
+        t_age = t2.clone()
+        t_age[iage] = t2[iage] + cfg.dt * t2[icons]
+        t2 = t_age
 
     return state.replace(
         time=state.time + cfg.dt, iic=iic + 1,

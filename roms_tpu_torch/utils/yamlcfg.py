@@ -75,6 +75,10 @@ CASES = {
                    "inlet_test_config"),
     "test_head": ("roms_tpu_torch.models.cases4", "test_head",
                   "test_head_config"),
+    "soliton": ("roms_tpu_torch.models.soliton", "build", "make_config"),
+    **{name: ("roms_tpu_torch.models.cases2", name, name + "_config")
+       for name in ("channel", "lmd_test", "mixed_layer", "test_chan",
+                    "riverplume2", "weddell", "bl_test")},
 }
 # the surface forcing a file case reads by default: variable -> time axis
 FRC_VARS = {"sustr": "sms_time", "svstr": "sms_time", "shflux": "shf_time",
@@ -100,7 +104,9 @@ def build_from_yaml(path: str,
 def build_from_dict(doc: dict,
                     device: torch.device | str = torch.device("cuda")):
     """Returns (cfg, grid, state0, forcing_fn, run_opts dict) with the
-    tensors on `device`."""
+    tensors on `device`; run_opts["mode"] is "3d", or "2d" for a 2-D-only
+    case, whose state0 is then the Fast2DState of ops/step2d.py and
+    forcing_fn None."""
     case = doc.get("case", "upwelling")
     if case == "file":
         return _build_file_case(doc, device)
@@ -123,9 +129,17 @@ def build_from_dict(doc: dict,
     if doc.get("grid_file") and \
             "grid_path" in inspect.signature(build).parameters:
         kw["grid_path"] = doc["grid_file"]
-    cfg, grid, state0, forcing_fn = build(cfg, device=device, **kw)
+    out = build(cfg, device=device, **kw)
+    if len(out) == 4:
+        cfg, grid, state0, forcing_fn = out
+        mode = "3d"
+    else:               # a 2-D-only case (soliton): (cfg, grid, fs)
+        cfg, grid, state0 = out
+        forcing_fn = None
+        mode = "2d"
     run_opts = dict(doc.get("output", {}) or {})
     run_opts["nsteps"] = int(doc.get("nsteps", 0))
+    run_opts["mode"] = mode
     return cfg, grid, state0, forcing_fn, run_opts
 
 
@@ -195,4 +209,5 @@ def _build_file_case(doc: dict, device):
             return out
     run_opts = dict(doc.get("output", {}) or {})
     run_opts["nsteps"] = int(doc.get("nsteps", 0))
+    run_opts["mode"] = "3d"
     return cfg, grid, state0, forcing_fn, run_opts

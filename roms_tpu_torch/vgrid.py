@@ -144,10 +144,18 @@ def set_depth(h, zeta, hc, sc_r, Cs_r, sc_w, Cs_w, vtransform: int,
               zice=None):
     """Depths z_r (N,Ny,Nx), z_w (N+1,Ny,Nx) and thicknesses Hz (N,Ny,Nx)
     from h and zeta (Ny,Nx); z is negative downward and z_w[0] = -h.
-    The stretching tables are (K,) tensors of h's dtype and device."""
+    The stretching tables are (K,) tensors of h's dtype and device.
+
+    zice (ICESHELF): the ice-shelf draft (negative).  h is then the resting
+    water-column thickness everywhere (bathymetry less |zice| under the
+    shelf), the levels stretch over h and the whole column is displaced
+    down by |zice| (set_depth.F:183-192,231-241 with hwater = h_bottom -
+    |zice|): z_w[-1] = zeta - |zice| and z_w[0] = -(h + |zice|)."""
     if zice is not None:
-        raise NotImplementedError("set_depth with an ice-shelf draft "
-                                  "(ICESHELF)")
+        dz_ice = torch.abs(zice)
+        z_r, z_w, Hz = set_depth(h, zeta, hc, sc_r, Cs_r, sc_w, Cs_w,
+                                 vtransform)
+        return z_r - dz_ice, z_w - dz_ice, Hz
     sc_r = sc_r[:, None, None]
     Cs_r = Cs_r[:, None, None]
     # interior w levels k=1..N; k=0 handled explicitly as -h

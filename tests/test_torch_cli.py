@@ -21,10 +21,11 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def test_cases(capsys):
     assert main(["cases"]) == 0
     assert capsys.readouterr().out.split() == [
-        "basin", "benchmark", "canyon3d", "channel_neck", "double_gyre",
-        "estuary", "grav_adj", "inlet_test", "kelvin", "lab_canyon",
-        "overflow", "riverplume", "seamount", "test_head", "upwelling",
-        "windbasin", "file"]
+        "basin", "benchmark", "bl_test", "canyon3d", "channel",
+        "channel_neck", "double_gyre", "estuary", "grav_adj", "inlet_test",
+        "kelvin", "lab_canyon", "lmd_test", "mixed_layer", "overflow",
+        "riverplume", "riverplume2", "seamount", "soliton", "test_chan",
+        "test_head", "upwelling", "weddell", "windbasin", "file"]
 
 
 def test_cases_registered():
@@ -73,12 +74,20 @@ def test_module_entry_point():
     assert res.stdout.count("KE=") == 2
 
 
-@pytest.mark.parametrize("case", ["soliton", "lake_signell",
+@pytest.mark.parametrize("case", ["flt_test", "lake_signell",
                                   "no_such_case"])
 def test_cases_not_ported_raise(case):
     with pytest.raises(NotImplementedError,
                        match=f"not ported: case '{case}'"):
         build_from_dict({"case": case, "grid_file": "g.nc"}, device="cpu")
+
+
+def test_run_soliton_exits_2(capsys):
+    """A 2-D-only case has no run driver: the CLI exits 2 and names
+    step_2d_only, as roms_tpu's does."""
+    assert main(["run", "--case", "soliton", "--device", "cpu"]) == 2
+    assert "roms_tpu_torch.ops.step2d.step_2d_only" in \
+        capsys.readouterr().err
 
 
 def test_run_without_a_card_fails():

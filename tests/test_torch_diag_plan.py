@@ -11,9 +11,10 @@ import torch
 
 from roms_tpu_torch.ops import diag_cuda
 
-# padded grids (ny, nx): BENCHMARK1, UPWELLING, the small BENCHMARK, and a
-# grid smaller than one tile
-GRIDS = [(70, 518), (86, 47), (38, 70), (3, 5)]
+# padded grids (ny, nx): BENCHMARK1, UPWELLING, the small BENCHMARK, a
+# grid smaller than one tile, LMD_TEST (10 x 10, doubly periodic, N = 50)
+# and BL_TEST (Mm = 4)
+GRIDS = [(70, 518), (86, 47), (38, 70), (3, 5), (16, 16), (10, 45)]
 SMEM = 232_448
 WORD = {torch.float32: 4, torch.float64: 8}
 
@@ -130,8 +131,9 @@ def test_grid_flux_writes_w_everywhere_from_its_source(dtype):
     every padded point is written.  A tile narrower than a wall band
     scatters it."""
     H = 3
-    for N in (16, 30, 64):
-        for ny, nx in [(70, 518), (86, 47), (38, 70), (8, 26), (7, 7)]:
+    for N in (16, 30, 50, 64):
+        for ny, nx in [(70, 518), (86, 47), (38, 70), (8, 26), (7, 7),
+                       (16, 16), (10, 45)]:
             tx, ty = diag_cuda.grid_flux_plan(dtype, N, ny, nx)["tile"]
             M, L = ny - 2 * H, nx - 2 * H
             # a periodic axis holds at least H interior points

@@ -138,7 +138,7 @@ def test_dispatch_mirrors_jax_gates(case, monkeypatch):
     (dict(bbl="ssw"), {}, "bottom boundary layer"),
     (dict(nearshore="mellor05"), {}, "nearshore radiation stress"),
     (dict(vmix="my25"), {}, "vertical mixing closure"),
-    (dict(lmd_ddmix=True, vmix="kpp"), {}, "double-diffusive"),
+    (dict(biology="npzd_powell"), {}, "biology"),
 ])
 def test_unported_branches_raise(change, frc, feature):
     cfg, grid, s0, ffn = _build("kelvin")

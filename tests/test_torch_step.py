@@ -102,9 +102,9 @@ def _constancy_error(cfg, s):
 @pytest.mark.parametrize("change, feature", [
     (dict(sediment=True), "sediment"),
     (dict(vmix="my25"), "vertical mixing closure"),
-    (dict(vmix="kpp", lmd_ddmix=True), "KPP double-diffusive mixing"),
+    (dict(biology="npzd_powell"), "biology"),
     (dict(bbl="ssw"), "bottom boundary layer"),
-    (dict(inert_age=True), "mean-age tracers"),
+    (dict(nearshore="mellor05"), "nearshore radiation stress"),
 ])
 def test_step_raises_for_unported_branches(upw, change, feature):
     cfg, grid, s0, ffn = upw

@@ -8,9 +8,10 @@ import torch
 
 from roms_tpu_torch.ops import step3d_cuda
 
-# padded grids (ny, nx): BENCHMARK1, UPWELLING, the small BENCHMARK, and a
-# grid smaller than one tile
-GRIDS = [(70, 518), (86, 47), (38, 70), (3, 5)]
+# padded grids (ny, nx): BENCHMARK1, UPWELLING, the small BENCHMARK, a
+# grid smaller than one tile, LMD_TEST (10 x 10, doubly periodic, N = 50)
+# and BL_TEST (Mm = 4)
+GRIDS = [(70, 518), (86, 47), (38, 70), (3, 5), (16, 16), (10, 45)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
