@@ -13,6 +13,9 @@ BENCHMARK1 steps through them, and checks the results.
     python3 chip_smoke.py --cases2-long          # the same, with the
                                                  # physics checks over a
                                                  # minute
+    python3 chip_smoke.py --sediment             # the build and phase 17
+    python3 chip_smoke.py --sediment-long        # the same, with
+                                                 # SED_TEST1's 400 steps
 
 Phases, one or more lines each; any failure exits non-zero:
   1. device: card name and power limit (nvidia-smi), torch and CUDA versions;
@@ -188,6 +191,30 @@ their published sizes, and SOLITON (96x32, 2-D only, no kernel):
      20, which holds hsbl and hbbl; `run --case soliton` exits 2; (f)
      float32 and float64 ms/step of each case at its published size with
      its launches a step, and SOLITON's.
+Then the sediment family: SED_TOY (8x10x10, UPWELLING with a sediment
+class), LAKE_SIGNELL (100x20x8: MPDATA, GLS, the SSW bottom boundary
+layer, sand) and SED_TEST1 (100x12x10: MY2.5, HSIMT sand, open ends) at
+their published sizes:
+ 17. (a) each kernel a case's step launches (rows 1-4, 6-11 on SED_TOY,
+     whose tracer kernels carry its sediment class; 1-3, 6, 7, 10, 11 on
+     LAKE_SIGNELL, whose MPDATA keeps rows 8-9 plain; 1-3, 6, 7 on
+     SED_TEST1, whose open ends keep rows 8-11 plain) against its plain
+     version on that step's arguments, float64 and float32, untimed, and
+     no other kernel called; (b) three float64 steps with the kernels on
+     against cfg.pallas2d=False, each field within 1e-12 x max|field|, one
+     launch a step of each of its kernels; (c) the small cases (SED_TOY
+     without a BBL, under SSW, MB and SG waves, with Soulsby's bedload and
+     with SED_MORPH; LAKE_SIGNELL; SED_TEST1) against
+     tests/data/torch_sediment_small.npz at CARD_FACTOR x the CPU bounds;
+     (d) roms_tpu's physics checks in float64, with ms/step: SED_TOY's
+     sediment conserved to 1e-8 over 30 steps while it deposits, its
+     resuspension under SSW waves (and none without), SED_MORPH's
+     deepening, LAKE_SIGNELL at rest for 120 steps at 50x10; with
+     --sediment-long also SED_TEST1's bottom-heavy sand after 400 steps at
+     Lm = 40; (e) LAKE_SIGNELL through the CLI (20 steps, HIS and a
+     restart every 10), the restart, which holds the bed and the BBL
+     memory, bitwise the straight run; (f) float32 and float64 ms/step of
+     each case with its launches a step.
 The last two lines are a JSON object of per-kernel results (BENCHMARK1
 float32, launches of phase 10) and a JSON object {"ok": true, "device":
 {...}}.  Without CUDA it exits non-zero and prints no result.
@@ -216,6 +243,8 @@ COASTAL_FIXTURE = os.path.join(ROOT, "tests", "data",
                                "torch_coastal_small.npz")
 CASES2_FIXTURE = os.path.join(ROOT, "tests", "data",
                               "torch_cases2_small.npz")
+SEDIMENT_FIXTURE = os.path.join(ROOT, "tests", "data",
+                                "torch_sediment_small.npz")
 # kernels-on against kernels-off over three full-size BENCHMARK1 float64
 # steps, relative to max|field|
 BENCH_EQUIV_RTOL = 1e-9
@@ -1199,6 +1228,11 @@ def cases2_fixture_script():
     return _script("torch_cases2_fixture")
 
 
+def sediment_fixture_script():
+    """scripts/torch_sediment_fixture.py as a module."""
+    return _script("torch_sediment_fixture")
+
+
 def bench_fixture(device):
     """Phase 9: the small BENCHMARK with the kernels on against the
     fixture, at CARD_FACTOR times the CPU test's bounds."""
@@ -1593,12 +1627,13 @@ def regional_equivalence(device, name, cfg, grid, s0, ffn):
                           REGIONAL_EQUIV_STEPS)
 
 
-def kernels_on_off(tag, name, cfg, grid, s0, ffn, kernels, fx, n):
+def kernels_on_off(tag, name, cfg, grid, s0, ffn, kernels, fx, n,
+                   rtol=BENCH_EQUIV_RTOL):
     """n float64 steps from s0 with the kernels on against
     cfg.pallas2d=False, every field fx.fields_of(name) lists within
-    BENCH_EQUIV_RTOL x max|field| (a v-like field against its u-like
-    partner's max too), one launch a step of each of `kernels` and none of
-    the others; returns the launches a step."""
+    rtol x max|field| (a v-like field against its u-like partner's max
+    too), one launch a step of each of `kernels` and none of the others;
+    returns the launches a step."""
     import torch
     from roms_tpu_torch import stepping
     table = {k: getattr(mod, attr) for k, (mod, attr, _) in
@@ -1617,8 +1652,8 @@ def kernels_on_off(tag, name, cfg, grid, s0, ffn, kernels, fx, n):
     worst = max(e for e, _ in errs.values())
     print(f"[{tag}] {name}: |kernels on - off| / max|field| "
           + ", ".join(f"{k} {e:.3e}" for k, (e, _) in errs.items())
-          + f"; worst {worst:.3e} (bound {BENCH_EQUIV_RTOL:g})", flush=True)
-    check(all(f and e <= BENCH_EQUIV_RTOL for e, f in errs.values()),
+          + f"; worst {worst:.3e} (bound {rtol:g})", flush=True)
+    check(all(f and e <= rtol for e, f in errs.values()),
           f"{name}: kernels on and off disagree")
     return {k: v / n for k, v in launches.items() if v}
 
@@ -1790,13 +1825,15 @@ def case_times(tag, names, case_fn, smi, launches, ms64=None):
 
 
 def case_family_phase(tag, phase, smi, names, case_fn, kernels, fx,
-                      equiv_steps, parts, tiles=()):
+                      equiv_steps, parts, tiles=(),
+                      equiv_rtol=BENCH_EQUIV_RTOL):
     """The frame of phases 13, 15 and 16 over the cases `names` at their
     published sizes (case_fn(name, dtype) builds one on the card):
     (a) every kernel each case's step launches against its plain version
     on that step's arguments, three plain float64 steps from rest, after
     the column tiles of the cases `tiles`; (b) kernels on against off
-    over equiv_steps steps, held to fixture module fx's fields; then
+    over equiv_steps steps, held to fixture module fx's fields within
+    equiv_rtol x max|field|; then
     each (label, fn) of `parts` in turn, fn() returning None or the
     float64 {case: (ms/step, steps)} of its longer runs; and (f) float32
     and float64 ms/step (those from the parts where they gave them) with
@@ -1824,7 +1861,7 @@ def case_family_phase(tag, phase, smi, names, case_fn, kernels, fx,
     lap("a")
     launches = {name: kernels_on_off(
         f"{tag}-equiv", name, *developed[name], kernels[name], fx,
-        equiv_steps) for name in names}
+        equiv_steps, equiv_rtol) for name in names}
     del developed
     lap("b")
     ms64 = {}
@@ -2755,6 +2792,200 @@ def cases2_phase(device, smi, long=False):
         tiles=("lmd_test", "bl_test"))
 
 
+# phase 17: the sediment family.  MPDATA is not among the tracer kernels'
+# schemes (LAKE_SIGNELL keeps rows 8-9 plain); SED_TEST1's bry and
+# radiation/clamped ends keep rows 8-11 plain; SED_TOY runs UPWELLING's
+# ten with a sediment class among the tracer kernels' three tracers.
+SEDIMENT = ("sed_toy", "lake_signell", "sed_test1")
+SEDIMENT_KERNELS = {
+    "sed_toy": _DIAG3 + ("prsgrd32", "rhs3d", "uv3dmix2") + _COLUMN_ROWS,
+    "lake_signell": _DIAG3 + ("prsgrd32", "rhs3d", "uv_corrector",
+                              "fast_loop"),
+    "sed_test1": _DIAG3 + ("prsgrd32", "rhs3d")}
+SEDIMENT_EQUIV_STEPS = 3
+# kernels on against off over those steps, relative to max|field|: one
+# pass of round-off in the column sums of rows 1, 4, 7 and 10 (measured
+# on an NVIDIA H100 80GB HBM3 at 700 W: at most 4.8e-15, LAKE_SIGNELL's
+# rufrc0_prev)
+SEDIMENT_EQUIV_RTOL = 1e-12
+# roms_tpu's physics tests (tests/test_sediment.py, test_bbl.py,
+# test_cases_extra.py:63, test_cases3.py:183): their steps
+SEDIMENT_PHYSICS_STEPS = {"sed_toy": 30, "sed_toy_waves": 20,
+                          "sed_morph": 5, "lake_signell": 120,
+                          "sed_test1": 400}
+
+
+def sediment_case(name, device, dtype="float64", **sizes):
+    """(cfg, grid, state0, forcing_fn) of SED_TOY (models/sed_toy.py),
+    LAKE_SIGNELL or SED_TEST1, at the published sizes unless `sizes` cut
+    them; SED_TOY also takes `params` (SedParams) and `conc`."""
+    if name == "sed_toy":
+        from roms_tpu_torch.models import sed_toy
+        conc = sizes.pop("conc", sed_toy.SED_INI)
+        return sed_toy.build(sed_toy.make_config(dtype=dtype, **sizes),
+                             device=device, conc=conc)
+    return model_case("cases" if name == "lake_signell" else "cases2", name,
+                      device, dtype, **sizes)
+
+
+def _sediment_inventory(cfg, grid, s):
+    """(water, bed) kg of sediment over the interior: the suspended classes
+    times the layer volumes, and the bed mass times the cell areas."""
+    from roms_tpu_torch import vgrid
+    from roms_tpu_torch.grid import hc_of
+    _, _, Hz = vgrid.set_depth(grid.h, s.zeta, hc_of(cfg), grid.sc_r,
+                               grid.Cs_r, grid.sc_w, grid.Cs_w,
+                               cfg.vtransform)
+    p = cfg.sed_params
+    area = interior(cfg, grid.omn)
+    wat = sum(float((interior(cfg, s.t[p.ised0 + c] * Hz) * area).sum())
+              for c in range(p.NST))
+    return wat, float((interior(cfg, s.bed_mass) * area).sum())
+
+
+def sediment_physics(device, smi, long):
+    """Phase 17 (d): roms_tpu's physics checks of the sediment family in
+    float64, with ms/step; SED_TEST1's 400 steps only when `long`.  Their
+    sizes and parameters are the tests', so (f) times the published cases
+    itself."""
+    import numpy as np
+    import torch
+    from roms_tpu_torch import stepping
+    from roms_tpu_torch.ops.sediment import SedParams, bed_thickness_total
+    from roms_tpu_torch.state import _initial_bed_mass
+    ms = {}
+
+    def run(cfg, grid, s, n, ffn, name):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s = stepping.run(cfg, grid, s, n, ffn)
+        torch.cuda.synchronize()
+        ms[name] = ((time.perf_counter() - t0) * 1e3 / n, n)
+        return s
+
+    def report(name, cfg, ok, what):
+        n = SEDIMENT_PHYSICS_STEPS[name]
+        print(f"[sediment-physics] {name} {cfg.Lm}x{cfg.Mm}x{cfg.N}, {n} "
+              f"float64 steps: {ms[name][0]:.1f} ms/step on {smi}; {what}  "
+              f"{'OK' if ok else 'FAIL'}", flush=True)
+        check(ok, f"{name}: the physics signature failed")
+
+    def finite(s):
+        return all(bool(torch.isfinite(getattr(s, k)).all())
+                   for k in ("zeta", "u", "v", "t", "bed_mass"))
+
+    name = "sed_toy"
+    cfg, grid, s0, ffn = sediment_case(
+        name, device, params=SedParams(Wsed=(0.001,), Erate=(0.0,)),
+        conc=0.1)
+    wat0, bed0 = _sediment_inventory(cfg, grid, s0)
+    s = run(cfg, grid, s0, SEDIMENT_PHYSICS_STEPS[name], ffn, name)
+    wat1, bed1 = _sediment_inventory(cfg, grid, s)
+    drift = abs(wat1 + bed1 - wat0 - bed0) / (wat0 + bed0)
+    report(name, cfg, finite(s) and bed1 > bed0 and wat1 < wat0 and
+           drift <= 1e-8, f"water {wat0:.6e} -> {wat1:.6e} kg, bed "
+           f"{bed0:.6e} -> {bed1:.6e} kg (deposition), total drift "
+           f"{drift:.3e} (<= 1e-8)")
+
+    name = "sed_toy_waves"
+    p = SedParams(Wsed=(0.0005,), Erate=(5.0e-5,))
+    cfg, grid, s0, ffn = sediment_case("sed_toy", device, Lm=8, Mm=10, N=8,
+                                       params=p)
+
+    def wavy(cfg_, grid_, t):
+        one = torch.ones_like(grid_.h)
+        return {**ffn(cfg_, grid_, t), "Hwave": 1.5 * one,
+                "Pwave": 8.0 * one, "Dwave": 0.0 * one}
+
+    from roms_tpu_torch.ops.bbl import BBLParams
+    n = SEDIMENT_PHYSICS_STEPS[name]
+    s = run(cfg.replace(bbl="ssw", bbl_params=BBLParams()), grid, s0, n,
+            wavy, name)
+    calm = stepping.run(cfg, grid, s0, n, ffn)
+    up, still = float(interior(cfg, s.t[2]).max()), \
+        float(interior(cfg, calm.t[2]).max())
+    report(name, cfg, finite(s) and up > 1e-6 and still < 1e-8 and
+           float(interior(cfg, s.bed_mass).min()) >= 0.0,
+           f"SSW under 1.5 m waves: max sand {up:.4e} kg/m3 (> 1e-6); no "
+           f"BBL, no waves: {still:.4e} (< 1e-8)")
+
+    name = "sed_morph"
+    p = SedParams(Sd50=(0.0001,), Wsed=(1.0e-4,), Erate=(5.0e-3,),
+                  tau_ce=(1.0e-6,), tau_cd=(1.0e-6,), sed_morph=True,
+                  morph_fac=50.0)
+    cfg, grid, s0, ffn = sediment_case("sed_toy", device, params=p)
+    s0 = s0.replace(u=torch.full_like(s0.u, 0.5),
+                    ubar=torch.full_like(s0.zeta, 0.5))
+    s = run(cfg, grid, s0, SEDIMENT_PHYSICS_STEPS[name], ffn, name)
+    thick = bed_thickness_total(p, s.bed_mass)
+    d_thick = float(interior(cfg, thick - bed_thickness_total(
+        p, s0.bed_mass)).min())
+    dh = float(interior(cfg, thick - bed_thickness_total(
+        p, _initial_bed_mass(cfg, device))).min())
+    report(name, cfg, finite(s) and d_thick < -1e-5 and dh < -1e-5,
+           f"bed thinned by up to {-d_thick:.4e} m (> 1e-5), h deepened by "
+           f"up to {-dh:.4e} m (> 1e-5)")
+
+    name = "lake_signell"
+    cfg, grid, s0, ffn = sediment_case(name, device, Lm=50, Mm=10)
+    s = run(cfg, grid, s0, SEDIMENT_PHYSICS_STEPS[name], ffn, name)
+    umax = float(s.u.abs().max())
+    sand = float(interior(cfg, s.t[2]).max())
+    report(name, cfg, finite(s) and umax < 1e-4 and sand < 1e-8 and
+           bool(torch.isfinite(s.tke).all()),
+           f"at rest before the ramp: max|u| {umax:.4e} m/s (< 1e-4), max "
+           f"sand {sand:.4e} kg/m3 (< 1e-8), tke finite")
+
+    if long:
+        name = "sed_test1"
+        cfg, grid, s0, ffn = sediment_case(name, device, Lm=40)
+        s = run(cfg, grid, s0, SEDIMENT_PHYSICS_STEPS[name], ffn, name)
+        c = interior(cfg, s.t[2]).cpu().numpy()
+        mid = c[:, :, 15:25]
+        report(name, cfg, finite(s) and c.min() >= -0.2 and
+               mid.max() > 1e-4 and mid[0].mean() > 2.0 * mid[-1].mean(),
+               f"min sand {c.min():.4e} (>= -0.2), max mid-channel "
+               f"{mid.max():.4e} (> 1e-4), bottom {mid[0].mean():.4e} "
+               f"against top {mid[-1].mean():.4e} (over 2x)")
+
+
+def sediment_fixture(device):
+    """Phase 17 (c): the small cases with the kernels on against
+    tests/data/torch_sediment_small.npz, at CARD_FACTOR times the CPU
+    test's bounds."""
+    import numpy as np
+    fx = sediment_fixture_script()
+    ref = np.load(fx.OUT)
+    for name in fx.BASE:
+        cfg, grid, s0, ffn = fx.build_port(name, device=device)
+        s = fx.run_port(name, cfg, grid, s0, ffn)
+        errors = fx.errors(name, cfg, s0, s, ref, factor=CARD_FACTOR)
+        worst = max(errors.items(), key=lambda kv: kv[1][0] / kv[1][1])
+        print(f"[sediment-fixture] {name}: worst against its bound: "
+              f"{worst[0]} {worst[1][0]:.3e} (bound {worst[1][1]:g})",
+              flush=True)
+        bad = {k: e for k, e in errors.items() if not e[0] <= e[1]}
+        check(not bad, f"the small {name} misses its fixture: {bad}")
+
+
+def sediment_phase(device, smi, long=False):
+    """Phase 17: SED_TOY, LAKE_SIGNELL and SED_TEST1 at their published
+    sizes: (a) kernels against plain on each case's arguments, (b) kernels
+    on against off, (c) the small fixture, (d) the physics (SED_TEST1's
+    only when `long`), (e) LAKE_SIGNELL through the CLI with restarts,
+    (f) ms/step."""
+    case_family_phase(
+        "sediment", 17, smi, SEDIMENT,
+        lambda n, d: sediment_case(n, device, d), SEDIMENT_KERNELS,
+        sediment_fixture_script(), SEDIMENT_EQUIV_STEPS,
+        [("c", lambda: sediment_fixture(device)),
+         ("d", lambda: sediment_physics(device, smi, long)),
+         ("e", lambda: cli_restart_check(
+             device, "sediment", "lake_signell",
+             ("bed_mass", "rheight", "rlength", "tau_cwmax", "tke", "gls"),
+             "tau_cwmax"))], equiv_rtol=SEDIMENT_EQUIV_RTOL)
+
+
 def column_times(device):
     """`--column-times TREE`: the time a call of rows 1-4 and 6-10, with
     the host's time (device_ms) and on the device alone (profiled_ms), on
@@ -2813,6 +3044,8 @@ def main() -> int:
     operators_only = sys.argv[1:2] == ["--operators"]
     cases2_only = sys.argv[1:2] in (["--cases2"], ["--cases2-long"])
     cases2_long = sys.argv[1:2] == ["--cases2-long"]
+    sediment_only = sys.argv[1:2] in (["--sediment"], ["--sediment-long"])
+    sediment_long = sys.argv[1:2] == ["--sediment-long"]
     sys.path.insert(0, os.path.abspath(sys.argv[2]) if timing else ROOT)
     try:
         import roms_tpu_torch  # noqa: F401
@@ -2822,7 +3055,7 @@ def main() -> int:
               f"script ({exc})", file=sys.stderr)
         return 2
     for path in (ANCHOR, BENCH_FIXTURE, REGIONAL_FIXTURE, COASTAL_FIXTURE,
-                 OPERATORS_FIXTURE, CASES2_FIXTURE):
+                 OPERATORS_FIXTURE, CASES2_FIXTURE, SEDIMENT_FIXTURE):
         if not os.path.exists(path):
             print(f"chip_smoke: missing {path}", file=sys.stderr)
             return 2
@@ -2863,6 +3096,9 @@ def main() -> int:
         if cases2_only:
             cases2_phase(device, smi, long=cases2_long)
             return 0
+        if sediment_only:
+            sediment_phase(device, smi, long=sediment_long)
+            return 0
         results = {}
         kernel_checks(results, device)
         main_path(device)
@@ -2881,6 +3117,7 @@ def main() -> int:
         coastal_phase(device, smi)
         operators_phase(device, smi)
         cases2_phase(device, smi)
+        sediment_phase(device, smi)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

@@ -185,9 +185,10 @@ class Config:
     sediment: bool = False
     sed_params: Optional[object] = None
 
-    # wave-current bottom boundary layer (bbl.F): "ssw" enables the
-    # Sherwood-Signell-Warner closure (ops/bbl.py); bbl_params is an
-    # ops.bbl.BBLParams.  Wave fields come from the forcing dict
+    # wave-current bottom boundary layer (bbl.F): "ssw", "mb" or "sg"
+    # selects the Sherwood-Signell-Warner, Blaas/Soulsby or Styles-Glenn
+    # closure (ops/bbl.py); bbl_params is an ops.bbl.BBLParams,
+    # MBBBLParams or SGBBLParams.  Wave fields come from the forcing dict
     # ("Hwave", "Pwave", "Dwave").
     bbl: Optional[str] = None
     bbl_params: Optional[object] = None

@@ -20,12 +20,16 @@ import torch
 from . import config as _config
 from .config import Config
 from .grid import Grid, torch_dtype
+from .ops.bbl import BBLParams, MBBBLParams, SGBBLParams
+from .ops.sediment import SedParams
 from .ops.sources import PointSources
 from .ops.step2d import FS_FIELDS, Fast2DState
 from .state import State, TENSOR_FIELDS
 
 # nested frozen dataclasses of the reference Config, rebuilt as the port's
-_NESTED = {"LBC": _config.LBC, "GLSParams": _config.GLSParams}
+_NESTED = {"LBC": _config.LBC, "GLSParams": _config.GLSParams,
+           "SedParams": SedParams, "BBLParams": BBLParams,
+           "MBBBLParams": MBBBLParams, "SGBBLParams": SGBBLParams}
 
 
 def config_from_reference(ref_cfg) -> Config:
@@ -41,8 +45,7 @@ def config_from_reference(ref_cfg) -> Config:
                     "not ported")
             val = cls(**{g.name: getattr(val, g.name)
                          for g in dataclasses.fields(cls)})
-        elif val is not None and f.name in ("bio_params", "sed_params",
-                                            "bbl_params"):
+        elif val is not None and f.name == "bio_params":
             raise NotImplementedError(f"Config.{f.name} is not ported")
         kw[f.name] = val
     return Config(**kw)

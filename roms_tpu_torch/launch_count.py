@@ -8,13 +8,15 @@ momentum phase takes the chain it takes on the card.
 
 CASE is upwelling (the default), benchmark, a regional case (kelvin,
 estuary, riverplume), an operator case (basin, double_gyre, grav_adj,
-seamount, canyon3d, overflow, windbasin, channel_neck), lab_canyon, or
-one of channel, lmd_test, mixed_layer, test_chan, riverplume2, weddell and
-bl_test, float32 as on the card.  --case benchmark counts a BENCHMARK1
+seamount, canyon3d, overflow, windbasin, channel_neck), lab_canyon, one
+of channel, lmd_test, mixed_layer, test_chan, riverplume2, weddell and
+bl_test, or a sediment case (sed_toy, lake_signell, sed_test1), float32 as
+on the card.  --case benchmark counts a BENCHMARK1
 step at 64x32 instead of 512x64 (the count depends on N, not on the
 horizontal size); the other cases run at their published sizes, with
-their plain stages (the general fast loop, KPP, GLS, the mixing operators
-outside the kernels) counted as stages.
+their plain stages (the general fast loop, KPP, GLS, MY2.5, the bottom
+boundary layers, sediment, the mixing operators outside the kernels)
+counted as stages.
 
 --root counts the roms_tpu_torch of another checkout (an older tree has
 fewer kernel wrappers; the ones it lacks are skipped).  Prints the count
@@ -47,7 +49,9 @@ WRAPPERS = {
 }
 # plain stages the step calls by name, counted op by op
 STAGES = {"stepping": ("set_vbc", "momentum_init", "rhs3d_momentum",
-                       "bulk_flux", "lmd_vmix", "swfrac"),
+                       "bulk_flux", "lmd_vmix", "swfrac", "my25_corstep",
+                       "apply_sediment"),
+          "ops.bbl": ("bblm", "bblm_mb", "bblm_sg"),
           "ops.mix3d": ("t3dmix2", "t3dmix4", "t3dmix2_iso", "t3dmix4_iso",
                         "t3dmix4_geo", "uv3dmix4", "uv3dmix2_geo",
                         "uv3dmix4_geo"),
@@ -62,17 +66,19 @@ REGIONAL = ("kelvin", "estuary", "riverplume")
 OPERATORS = ("basin", "double_gyre", "grav_adj", "seamount", "canyon3d",
              "overflow", "windbasin", "channel_neck")
 CASES2 = ("channel", "lmd_test", "mixed_layer", "test_chan", "riverplume2",
-          "weddell", "bl_test")
+          "weddell", "bl_test", "sed_test1")
 # the module of models/ that builds each case of --case
 MODULE = {**dict.fromkeys(REGIONAL + OPERATORS, "cases"),
           **dict.fromkeys(CASES2, "cases2"),
-          "channel_neck": "cases4", "lab_canyon": "cases4"}
+          "channel_neck": "cases4", "lab_canyon": "cases4",
+          "lake_signell": "cases"}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--case", choices=("upwelling", "benchmark") +
-                    tuple(MODULE), default="upwelling")
+    ap.add_argument("--case", choices=("upwelling", "benchmark",
+                                       "sed_toy") + tuple(MODULE),
+                    default="upwelling")
     ap.add_argument("--root", default=os.path.dirname(
         os.path.dirname(os.path.abspath(__file__))))
     args = ap.parse_args()
@@ -132,6 +138,10 @@ def main() -> int:
         cfg, grid, s, ffn = getattr(mod, args.case)(
             getattr(mod, args.case + "_config")(dtype="float32"),
             device="cpu")
+    elif args.case == "sed_toy":
+        from roms_tpu_torch.models import sed_toy
+        cfg, grid, s, ffn = sed_toy.build(
+            sed_toy.make_config(dtype="float32"), device="cpu")
     elif args.case == "benchmark":
         from roms_tpu_torch.models import benchmark
         cfg, grid, s, ffn = benchmark.build(

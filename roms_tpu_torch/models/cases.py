@@ -7,7 +7,9 @@ ana_*obc fixtures and the roms_<app>.in runtime values):
    SEAMOUNT (the pressure-gradient-error test), CANYON3D, OVERFLOW
    (isopycnal diffusion) and WINDBASIN;
  * regional cases with open boundaries, tides, rivers and GLS: KELVIN,
-   ESTUARY_TEST and RIVERPLUME1.
+   ESTUARY_TEST and RIVERPLUME1;
+ * LAKE_SIGNELL: a closed lake with MPDATA tracers, the SSW bottom
+   boundary layer under wind and waves, and suspended sand.
 
 Each case has a ``<case>_config(...)``, whose defaults are the published
 sizes, and a ``<case>(cfg=None, device=cuda)`` builder that returns
@@ -30,6 +32,8 @@ from ..grid import build_grid, hc_of, torch_dtype
 from .. import vgrid
 from ..state import initial_state
 from ..ops import bc
+from ..ops.bbl import BBLParams
+from ..ops.sediment import SedParams
 from ..ops.sources import PointSources
 
 
@@ -557,5 +561,78 @@ def riverplume(cfg: Config | None = None,
 
     def forcing_fn(cfg_, grid_, time):
         return {"sources": src}
+
+    return cfg, grid, state0, forcing_fn
+
+
+# ---------------------------------------------------------------------------
+# LAKE_SIGNELL
+# ---------------------------------------------------------------------------
+def lake_signell_config(Lm: int = 100, Mm: int = 20, N: int = 8,
+                        dt: float = 60.0, ndtfast: int = 20,
+                        dtype: str = "float64",
+                        sediment: bool = True) -> Config:
+    """LAKE_SIGNELL (lake_signell.h; roms_lake_signell.in: 100x20x8, DT =
+    60 s): a closed lake, GLS k-epsilon, MPDATA tracers, the SSW bottom
+    boundary layer and one sand class (sediment_lake_signell.in:207-232;
+    the reference's bedload is Soulsby's, roms_tpu's case has none, as
+    here)."""
+    clo = LBC()
+    nt = 2 + (1 if sediment else 0)
+    sed = SedParams(ised0=2, Sd50=(0.001,), Srho=(2650.0,),
+                    Wsed=(1.0e-3,), Erate=(1.0e-5,),
+                    tau_ce=(0.07 / 1025.0,), tau_cd=(0.07 / 1025.0,),
+                    poros=0.5) if sediment else None
+    return Config(
+        name="lake_signell", Lm=Lm, Mm=Mm, N=N, ntracers=nt,
+        ew_periodic=False, ns_periodic=False,
+        dt=dt, ndtfast=ndtfast,
+        uv_vis2=False, visc2=0.0, tnu2=nt * (0.0,),
+        t_hadv=nt * ("MPDATA",), t_vadv=nt * ("MPDATA",),
+        splines_vdiff=True, splines_vvisc=True,
+        akv_bak=5.0e-6, akt_bak=(5.0e-6,) * min(nt, 2),
+        bottom_drag="logarithmic", zob=0.005,
+        vmix="gls",
+        eos="linear", R0=1027.0, T0=10.0, S0=30.0,
+        Tcoef=1.7e-4, Scoef=7.6e-4,
+        theta_s=0.0, theta_b=0.0, tcline=1e16, vtransform=1,
+        vstretching=1,
+        lbc_zeta=clo, lbc_ubar=clo, lbc_vbar=clo, lbc_u=clo, lbc_v=clo,
+        lbc_t=clo,
+        sediment=sediment, sed_params=sed,
+        bbl="ssw",
+        bbl_params=BBLParams(d50=0.001, tau_ce=0.07 / 1025.0),
+        dtype=dtype)
+
+
+def lake_signell(cfg: Config | None = None,
+                 device: torch.device | str = torch.device("cuda")):
+    """LAKE_SIGNELL: a 50 x 10 km lake whose depth grows linearly from 2 to
+    18 m in eta (ana_grid.h:981-986), at rest at 10 degC and 30 psu; the
+    wind stress and the wave field ramp up about hour 15 and down about
+    hour 50 (ana_smflux.h:219-236, ana_wwave.h:191-202)."""
+    cfg = cfg or lake_signell_config()
+
+    def depth_fn(x, y, i, j, c):
+        return 18.0 - 16.0 * (c.Mm - j) / (c.Mm - 1.0)
+
+    grid, cfg = build_grid(cfg, 50.0e3, 10.0e3, f0=0.0, beta=0.0,
+                           depth_fn=depth_fn, device=device)
+    z_r = _rest_z_r(cfg, grid)
+    fields = [bc.fill_halo(cfg, torch.full_like(z_r, 10.0)),
+              bc.fill_halo(cfg, torch.full_like(z_r, 30.0))]
+    if cfg.sediment:
+        fields.append(torch.zeros_like(z_r))
+    state0 = initial_state(cfg, device=device, t=torch.stack(fields))
+
+    def forcing_fn(cfg_, grid_, time):
+        th = time / 3600.0
+        ramp = min(0.5 * (math.tanh((th - 15.0) / 2.0) + 1.0),
+                   1.0 - 0.5 * (math.tanh((th - 50.0) / 2.0) + 1.0))
+        one = torch.ones_like(grid_.h)
+        return {"sustr": 0.25 / cfg_.rho0 * ramp * one,
+                "Hwave": max(2.0 * 0.25 * ramp, 0.01) * one,
+                "Pwave": 5.0 * one,
+                "Dwave": 270.0 * C.deg2rad * one}
 
     return cfg, grid, state0, forcing_fn

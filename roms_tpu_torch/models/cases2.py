@@ -8,7 +8,8 @@ the roms_<app>.in runtime values):
  * MIXED_LAYER: GLS with Craig-Banner wave breaking and Charnok roughness;
  * TEST_CHAN: a flume driven by ramped Chapman/Flather/clamped boundaries;
  * RIVERPLUME2: a river into a coastal current fed by wall sources;
- * WEDDELL: an ice-shelf cavity with a boundary M2 tide.
+ * WEDDELL: an ice-shelf cavity with a boundary M2 tide;
+ * SED_TEST1: suspended sand in a steady open flume under MY2.5.
 
 Each case has a ``<case>_config(...)``, whose defaults are the published
 sizes, and a ``<case>(cfg=None, device=cuda)`` builder that returns
@@ -35,6 +36,7 @@ from .. import vgrid
 from ..state import initial_state
 from ..ops import bc
 from ..ops.bulk_flux import ana_srflux_albedo
+from ..ops.sediment import SedParams
 from ..ops.sources import PointSources
 from .cases import _build_flat, _rest_z_r
 
@@ -563,5 +565,80 @@ def bl_test(cfg: Config | None = None,
                                   time / 86400.0)
         return {"svstr": torch.full_like(grid_.h, 0.3 / cfg_.rho0),
                 "srflx": srflx, "stflux": torch.stack([srflx, zero])}
+
+    return cfg, grid, state0, forcing_fn
+
+
+# ---------------------------------------------------------------------------
+# SED_TEST1
+# ---------------------------------------------------------------------------
+def sed_test1_config(Lm: int = 100, Mm: int = 12, N: int = 10,
+                     dt: float = 1.0, ndtfast: int = 20,
+                     dtype: str = "float64") -> Config:
+    """SED_TEST1 (sed_test1.h; roms_sed_test1.in: 100x12x10, DT = 1 s):
+    MY2.5 mixing, logarithmic drag, radiation (west) and clamped (east)
+    zeta, clamped ubar/vbar, and one sand class (sediment_sed_test1.in:
+    d50 = 1 mm, ws = 1 mm/s, Erate = 5e-4, tau_ce = 0.1 N/m2; the
+    reference also carries two mud classes) advected by HSIMT (the
+    reference's U3 grows a negative front at the clamped inflow; roms_tpu's
+    documented delta, kept)."""
+    sed = SedParams(ised0=2, Sd50=(0.001,), Srho=(2650.0,),
+                    Wsed=(1.0e-3,), Erate=(5.0e-4,),
+                    tau_ce=(0.1 / 1025.0,), tau_cd=(0.1 / 1025.0,),
+                    poros=0.5)
+    open_uv = LBC(BC_GRADIENT, BC_CLOSED, BC_GRADIENT, BC_CLOSED)
+    bar = LBC(BC_CLAMPED, BC_CLOSED, BC_CLAMPED, BC_CLOSED)
+    return Config(
+        name="sed_test1", Lm=Lm, Mm=Mm, N=N, ntracers=3,
+        ew_periodic=False, ns_periodic=False,
+        dt=dt, ndtfast=ndtfast,
+        uv_vis2=False, visc2=0.0, tnu2=3 * (0.0,),
+        t_hadv=("U3", "U3", "HSIMT"), t_vadv=("C4", "C4", "HSIMT"),
+        splines_vdiff=True, splines_vvisc=True,
+        akv_bak=5.0e-5, akt_bak=(5.0e-6, 5.0e-6),
+        bottom_drag="logarithmic", zob=0.005,
+        vmix="my25",
+        eos="linear", R0=1027.0, T0=20.0, S0=0.0,
+        Tcoef=1.7e-4, Scoef=7.6e-4,
+        theta_s=1.0, theta_b=1.0, tcline=1.0, vtransform=1,
+        vstretching=1,
+        lbc_zeta=LBC(BC_RADIATION, BC_CLOSED, BC_CLAMPED, BC_CLOSED),
+        lbc_ubar=bar, lbc_vbar=bar, lbc_u=open_uv, lbc_v=open_uv,
+        lbc_t=LBC(BC_GRADIENT, BC_CLOSED, BC_CLAMPED, BC_CLOSED),
+        sediment=True, sed_params=sed, dtype=dtype)
+
+
+def sed_test1(cfg: Config | None = None,
+              device: torch.device | str = torch.device("cuda")):
+    """SED_TEST1: suspended sediment in a steady open channel, a 300 x 36 m
+    flume 10 m deep whose -1 m/s flow the clamped ends hold (the reference
+    drives it with u-face point sources of -360 m3/s at both ends,
+    ana_psource.h:192-205,386-455; roms_tpu imposes the equivalent
+    rest-depth boundary ubar, a documented delta kept here).  The initial
+    u is the log-layer profile (ana_initial.h:455-468)."""
+    cfg = cfg or sed_test1_config()
+    grid, cfg = _build_flat(cfg, 300.0, 36.0, 0.0, 0.0, 10.0, device)
+    z_r = _rest_z_r(cfg, grid)
+    h3 = grid.h.expand(z_r.shape)
+    zob = cfg.zob
+    u_log = -1.0 * torch.log((h3 + z_r) / zob) / \
+        (torch.log(h3 / zob) - 1.0 + zob / h3)
+    t0 = torch.stack([_fh(cfg, torch.full_like(z_r, 20.0)),
+                      _fh(cfg, torch.zeros_like(z_r)),
+                      _fh(cfg, torch.zeros_like(z_r))])
+    state0 = initial_state(cfg, device=device, t=t0, u=_fh(cfg, u_log),
+                           ubar=_fh(cfg, torch.full_like(grid.h, -1.0)))
+    kw = dict(dtype=torch_dtype(cfg), device=grid.h.device)
+    ny = cfg.ny_tot
+
+    def forcing_fn(cfg_, grid_, time):
+        ub = torch.full((ny,), -1.0, **kw)
+        zero = torch.zeros((ny,), **kw)
+        t_e = torch.stack([torch.full((cfg_.N, ny), 20.0, **kw),
+                           torch.zeros((cfg_.N, ny), **kw),
+                           torch.zeros((cfg_.N, ny), **kw)])
+        return {"bry": {"ubar_west": ub, "vbar_west": zero,
+                        "ubar_east": ub.clone(), "vbar_east": zero.clone(),
+                        "zeta_east": zero.clone(), "t_east": t_e}}
 
     return cfg, grid, state0, forcing_fn

@@ -18,6 +18,10 @@ from . import bc
 from .advection import hadv_fluxes, vadv_flux
 from .stencil import ip1, im1, jp1, jm1
 
+# the schemes whose predictor takes first-order upstream fluxes and
+# gamma = 1/2 (pre_step3d.F:76-100)
+_UPSTREAM_PREDICTOR = ("MPDATA", "HSIMT")
+
 
 def pre_step3d(cfg: Config, grid: Grid, iic: int, t, t_prev, u, v,
                Hz, z_r, Huon, Hvom, W, Akt,
@@ -62,14 +66,12 @@ def tracer_phase(cfg: Config, grid: Grid, iic: int, t, t_prev, Hz, Huon,
 
 def predictor_coefs(cfg: Config, iic: int, itrc: int):
     """The iic-dependent LF/AM3 predictor weights (cff, cff1, cff2, cffv);
-    gamma is 1/2 for an HSIMT scheme, 1/6 otherwise."""
+    gamma is 1/2 for an MPDATA or HSIMT scheme, 1/6 otherwise."""
     dt = cfg.dt
     hscheme = cfg.t_hadv[itrc]
     vscheme = cfg.t_vadv[itrc]
-    if "MPDATA" in (hscheme, vscheme):
-        raise NotImplementedError(f"tracer advection {hscheme}/{vscheme}")
-    gam_h = 0.5 if hscheme == "HSIMT" else 1.0 / 6.0
-    gam_v = 0.5 if vscheme == "HSIMT" else 1.0 / 6.0
+    gam_h = 0.5 if hscheme in _UPSTREAM_PREDICTOR else 1.0 / 6.0
+    gam_v = 0.5 if vscheme in _UPSTREAM_PREDICTOR else 1.0 / 6.0
     if iic == 0:
         return 0.5 * dt, 1.0, 0.0, 0.5 * dt
     return (1.0 - gam_h) * dt, 0.5 + gam_h, 0.5 - gam_h, (1.0 - gam_v) * dt
@@ -79,15 +81,16 @@ def tracer_predictor(cfg: Config, pmn, itrc: int, coefs, q, q_prev,
                      Hz, Huon, Hvom, W, Akt_l, ghats_i, srflx, swdk_w,
                      stflx_i, btflx_i, sources=None):
     """One tracer's LF-AM3 predictor (pre_step3d.F:336-598 loop body):
-    returns (t3_i, t_nnew_i).  HSIMT takes first-order upstream fluxes
-    here (pre_step3d.F:76-77, 98-100)."""
+    returns (t3_i, t_nnew_i).  MPDATA and HSIMT take first-order upstream
+    fluxes here (pre_step3d.F:76-77, 98-100)."""
     dt = cfg.dt
     cff, cff1, cff2, cffv = coefs
     hscheme = cfg.t_hadv[itrc]
     vscheme = cfg.t_vadv[itrc]
 
-    FX, FE = hadv_fluxes(cfg, "U1" if hscheme == "HSIMT" else hscheme, q,
-                         Huon, Hvom)
+    FX, FE = hadv_fluxes(
+        cfg, "U1" if hscheme in _UPSTREAM_PREDICTOR else hscheme, q, Huon,
+        Hvom)
     if sources is not None:
         # river faces carry Huon*Tsrc, not the advective stencil
         # (pre_step3d.F:530-548 LuvSrc)
@@ -98,8 +101,8 @@ def tracer_predictor(cfg: Config, pmn, itrc: int, coefs, q, q_prev,
         cff * pmn * ((ip1(FX) - FX) + (jp1(FE) - FE))
 
     # vertical advection + artificial continuity (pre_step3d.F:556-598)
-    FC = vadv_flux("U1" if vscheme == "HSIMT" else vscheme, q, W, Hz,
-                   "predictor")
+    FC = vadv_flux("U1" if vscheme in _UPSTREAM_PREDICTOR else vscheme, q,
+                   W, Hz, "predictor")
     DC = 1.0 / (Hz - cffv * pmn *
                 ((ip1(Huon) - Huon) + (jp1(Hvom) - Hvom) +
                  (W[1:] - W[:-1])))

@@ -14,6 +14,7 @@ import torch
 
 from .config import Config
 from .grid import torch_dtype
+from .ops.sediment import initial_bed
 
 
 @dataclass
@@ -89,9 +90,8 @@ def initial_state(cfg: Config,
                   zeta=None, ubar=None, vbar=None, u=None, v=None,
                   t=None) -> State:
     """Cold-start state (ini_fields semantics: histories zeroed, mixing
-    coefficients at background values)."""
-    if cfg.sediment and cfg.sed_params is not None:
-        raise NotImplementedError("initial sediment bed (SEDIMENT)")
+    coefficients at background values, a uniform sediment bed where the
+    configuration has sediment)."""
     dtype = torch_dtype(cfg)
     shp2 = (cfg.ny_tot, cfg.nx_tot)
     shp3 = (cfg.N,) + shp2
@@ -110,8 +110,6 @@ def initial_state(cfg: Config,
     v = given(v, z3)
     t = given(t, lambda: torch.zeros((cfg.ntracers,) + shp3, **kw))
     gp = cfg.gls_params
-    rlength = 535.0 * (cfg.bbl_params.d50 if cfg.bbl_params is not None
-                       else 0.00015)
     return State(
         time=0.0, iic=0,
         zeta=zeta, ubar=ubar, vbar=vbar, u=u, v=v, t=t, t_prev=t.clone(),
@@ -131,6 +129,24 @@ def initial_state(cfg: Config,
         Akp=torch.full(shpw, gp.akp_bak, **kw),
         Lscale=torch.zeros(shpw, **kw),
         DU_avg1=z2(), DV_avg1=z2(), DU_avg2=z2(), DV_avg2=z2(),
-        bed_mass=torch.zeros((0, 0) + shp2, **kw),
-        rheight=z2(), rlength=torch.full(shp2, rlength, **kw),
+        bed_mass=_initial_bed_mass(cfg, device),
+        rheight=z2(), rlength=torch.full(shp2, _initial_rlength(cfg), **kw),
         tau_cwmax=z2())
+
+
+def _initial_rlength(cfg: Config) -> float:
+    """The relict ripple wavelength floor 535 d50 (ssw_bbl.h's sheet-flow
+    value), so that the ripple roughness ar rh^2 / rl is defined from the
+    first step."""
+    if cfg.bbl_params is not None:
+        return 535.0 * cfg.bbl_params.d50
+    return 535.0 * 0.00015
+
+
+def _initial_bed_mass(cfg: Config, device):
+    """The initial bed (Nbed, NST, Ny, Nx) kg/m2 of ops/sediment.initial_bed,
+    or a (0, 0, Ny, Nx) tensor without sediment."""
+    if not cfg.sediment or cfg.sed_params is None:
+        return torch.zeros((0, 0, cfg.ny_tot, cfg.nx_tot),
+                           dtype=torch_dtype(cfg), device=device)
+    return initial_bed(cfg, cfg.sed_params, device)

@@ -3,24 +3,26 @@ main3d.F:183-868).
 
 One call advances the State by one slow step, the nfast-substep barotropic
 loop included, in main3d's order.  Ported here: the branches the cases of
-models/ (UPWELLING, BENCHMARK, the regional, coastal and operator cases)
-and the file-driven case take (analytic or file surface stress and heat
-flux, or COARE bulk fluxes from an analytic atmosphere; linear, quadratic
-or logarithmic drag; constant mixing coefficients (vmix None or "none"),
-Brunt-Vaisala mixing ("bvf"), the KPP surface and bottom layers with
-double diffusion, or GLS;
+models/ (UPWELLING, BENCHMARK, the regional, coastal, operator and
+sediment cases) and the file-driven case take (analytic or file surface
+stress and heat flux, or COARE bulk fluxes from an analytic atmosphere;
+linear, quadratic or logarithmic drag, or the SSW, MB or SG wave-current
+bottom boundary layer with the wave fields Hwave/Pwave/Dwave; constant
+mixing coefficients (vmix None or "none"), Brunt-Vaisala mixing ("bvf"),
+the KPP surface and bottom layers with double diffusion, GLS, or MY2.5;
 all five pressure-gradient schemes, djs with the tide-generating force;
-C2/U1/U3/C4/A4/SPLINES/HSIMT advection; harmonic or biharmonic viscosity
-along s-surfaces or geopotentials, with Smagorinsky's; harmonic or
-biharmonic tracer diffusion along s-surfaces, geopotentials or
+C2/U1/U3/C4/A4/SPLINES/HSIMT/MPDATA advection; harmonic or biharmonic
+viscosity along s-surfaces or geopotentials, with Smagorinsky's; harmonic
+or biharmonic tracer diffusion along s-surfaces, geopotentials or
 isopycnals; open boundaries with their `bry` data, volume conservation
 and point sources; wetting-drying; climatology nudging of ubar/vbar, u/v
 and the tracers through `clm`; curvilinear and periodic grids; the ice
 shelf (`grid.zice`: the ice-base drag, the floating-ice load and the
-displaced levels) and mean-age tracer pairs (`cfg.inert_age`)).  Every
-other branch raises NotImplementedError naming the missing feature: the
-ones listed in _check_slice when the step starts, MPDATA advection and
-BODYFORCE stresses where their stage is called.
+displaced levels), mean-age tracer pairs (`cfg.inert_age`) and suspended
+sediment with its bed layers, bedload and SED_MORPH (`cfg.sed_params`)).
+Every other branch raises NotImplementedError naming the missing feature:
+the ones listed in _check_slice when the step starts, BODYFORCE stresses
+and the general fast loop's Stokes drift where their stage is called.
 
 Kernels: with ``cfg.pallas2d`` true (the default), the kernel stages go
 through their wrappers (ops/diag_cuda.py, prsgrd_cuda.py, rhs3d_cuda.py,
@@ -46,6 +48,8 @@ for CUDA tensors and take the plain versions for CPU tensors.
 
 from __future__ import annotations
 
+import dataclasses
+import math
 from typing import Callable, Optional
 
 import torch
@@ -54,9 +58,11 @@ from .config import Config
 from .grid import Grid, hc_of
 from .state import State
 from . import vgrid
-from .ops import diag_cuda, eos, gls as gls_mod, mix3d, mix3d_cuda, \
+from .ops import bbl, diag_cuda, eos, gls as gls_mod, mix3d, mix3d_cuda, \
     prsgrd, prsgrd_cuda, rhs3d_cuda, step2d, step2d_cuda, step3d_cuda
 from .ops.bulk_flux import bulk_flux
+from .ops.my25 import my25_corstep
+from .ops.sediment import apply_sediment, bed_thickness_total
 from .ops.tides import equilibrium_tide, harmonic_constituents
 from .ops.vmix import bvf_mix, lmd_vmix, swfrac
 from .ops.pre_step3d import ab3_start_coefs, momentum_init
@@ -64,6 +70,7 @@ from .ops.rhs3d import rhs3d_momentum
 from .ops.stencil import im1, ip1, jm1, jp1
 from .ops.step2d import Fast2DState
 from .ops.vbc import set_vbc
+from .state import _initial_bed_mass
 
 DIAGS_NOT_PORTED = "budget diagnostics (collect_diags)"
 # open-boundary data and point sources, taken with either set below
@@ -72,30 +79,30 @@ _FORCING_KEYS = {"sustr", "svstr", "stflux", "btflux", "srflx"}
 # the analytic atmosphere that feeds the bulk fluxes (cfg.bulk_fluxes)
 _BULK_KEYS = {"Uwind", "Vwind", "Tair", "Pair", "Hair", "cloud", "rain",
               "srflx", "btflux"}
+# the wave fields the bottom boundary layers and GLS read (without the
+# nearshore radiation stress, which would read them too)
+_WAVE_KEYS = {"Hwave", "Pwave", "Dwave", "Lwave"}
 
 
 def _check_slice(cfg: Config, grid: Grid, frc: dict, collect_diags: bool):
     """Raise NotImplementedError for every branch of the reference step
-    that this port does not have yet: the budget diagnostics, sediment,
-    the nearshore radiation stress, the bottom boundary layer, the MY2.5
-    closure, biology, and forcing fields outside the set the step reads.
-    MPDATA tracer advection and BODYFORCE raise where their stage is
-    called."""
+    that this port does not have yet: the budget diagnostics, the
+    nearshore radiation stress, biology, a vertical closure other than the
+    ported ones, and forcing fields outside the set the step reads.
+    BODYFORCE and the general fast loop's Stokes drift raise where their
+    stage is called."""
     missing = []
     if collect_diags:
         missing.append(DIAGS_NOT_PORTED)
-    if cfg.sediment or cfg.sed_params is not None:
-        missing.append("sediment (SEDIMENT)")
     if cfg.nearshore is not None:
         missing.append(f"nearshore radiation stress ({cfg.nearshore})")
-    if cfg.bbl is not None:
-        missing.append(f"bottom boundary layer ({cfg.bbl})")
-    if cfg.vmix not in (None, "none", "kpp", "gls", "bvf"):
+    if cfg.vmix not in (None, "none", "kpp", "gls", "bvf", "my25"):
         missing.append(f"vertical mixing closure ({cfg.vmix})")
     if cfg.biology is not None:
         missing.append(f"biology ({cfg.biology})")
     extra = set(frc) - (_BULK_KEYS if cfg.bulk_fluxes else _FORCING_KEYS) \
-        - _BOUNDARY_KEYS - {"clm"}
+        - _BOUNDARY_KEYS - {"clm"} - \
+        (_WAVE_KEYS if cfg.nearshore is None else set())
     if extra:
         missing.append(f"forcing fields {sorted(extra)}")
     if missing:
@@ -137,9 +144,11 @@ def step(cfg: Config, grid: Grid, state: State,
     cfg.bulk_fluxes it returns the atmosphere instead (Uwind, Vwind, Tair,
     Pair, Hair, cloud, rain, srflx), from which the COARE fluxes give the
     stress and the surface heat flux.  Either may add "bry" (open-boundary
-    data, ops/obc.py), "sources" (ops/sources.PointSources) and "clm"
+    data, ops/obc.py), "sources" (ops/sources.PointSources), "clm"
     (climatology and nudging coefficients: ubarclm/vbarclm with m2nudg,
-    uclm/vclm with m3nudg, tclm with tnudg)."""
+    uclm/vclm with m3nudg, tclm with tnudg) and the wave fields Hwave,
+    Pwave, Dwave and Lwave at rho points (the bottom boundary layers read
+    the first three, GLS's surface roughness Hwave)."""
     frc = forcing_fn(cfg, grid, state.time) if forcing_fn is not None else {}
     _check_slice(cfg, grid, frc, collect_diags)
     hc = hc_of(cfg)
@@ -174,6 +183,17 @@ def step(cfg: Config, grid: Grid, state: State,
         sustr, svstr, stflux, srflx = _under_ice(cfg, grid, state, sustr,
                                                  svstr, stflux, srflx)
 
+    # --- SED_MORPH: the bed-thickness change reaches h (set_depth.F
+    #     :166,214; deposition shoals the column).  grid.h is the virgin
+    #     bathymetry; the offset is the evolving bed's departure from the
+    #     configuration's initial bed ---
+    sed = cfg.sed_params if cfg.sediment else None
+    if sed is not None and sed.sed_morph:
+        thick0 = bed_thickness_total(sed, _initial_bed_mass(cfg, zero2.device))
+        grid = dataclasses.replace(
+            grid, h=grid.h - (bed_thickness_total(sed, state.bed_mass) -
+                              thick0))
+
     # --- vertical grid, mass fluxes and omega at time n (main3d.F:307,474)
     #     and density (main3d.F:314) ---
     kernels = cfg.pallas2d and diag_cuda.supported(cfg, grid)
@@ -189,6 +209,28 @@ def step(cfg: Config, grid: Grid, state: State,
     bustr, bvstr, stflx, btflx = set_vbc(cfg, grid, state.u, state.v,
                                          state.t, stflux, btflux,
                                          z_r=z_r, z_w=z_w)
+
+    # --- wave-current bottom boundary layer (main3d.F:389 bblm): it
+    #     replaces the drag law's bottom stress and gives sediment the
+    #     maximum combined stress; another cfg.bbl runs none, as in
+    #     roms_tpu ---
+    rheight, rlength, tau_cwmax = state.rheight, state.rlength, \
+        state.tau_cwmax
+    if cfg.bbl in ("ssw", "sg", "mb"):
+        waves = (frc.get("Hwave", zero2), frc.get("Pwave", zero2 + 8.0),
+                 frc.get("Dwave", zero2))
+        if cfg.bbl == "ssw":
+            out = bbl.bblm(cfg, grid, cfg.bbl_params or bbl.BBLParams(),
+                           state.u, state.v, z_r, z_w, *waves, state.rheight,
+                           state.rlength, state.tau_cwmax)
+        elif cfg.bbl == "sg":
+            out = bbl.bblm_sg(cfg, grid, cfg.bbl_params or bbl.SGBBLParams(),
+                              state.u, state.v, z_r, z_w, rho[0], *waves)
+        else:
+            out = bbl.bblm_mb(cfg, grid, cfg.bbl_params or bbl.MBBBLParams(),
+                              state.u, state.v, z_r, z_w, rho[0], *waves,
+                              state.rheight, state.rlength)
+        bustr, bvstr, tau_c_b, tau_w_b, tau_cwmax, rheight, rlength = out
 
     # --- vertical mixing coefficients (main3d.F:465-469): KPP, BVF, or
     #     last step's values (constant background with vmix None or
@@ -296,8 +338,9 @@ def step(cfg: Config, grid: Grid, state: State,
         else:
             t_nnew = mix3d.t3dmix4(cfg, grid, state.t, Hz, t_nnew, cfg.dt)
 
-    # --- GLS predictor (main3d.F:565-567) ---
-    if cfg.vmix == "gls":
+    # --- GLS predictor (main3d.F:565-567); my25_prestep.F is
+    #     gls_prestep.F ---
+    if cfg.vmix in ("gls", "my25"):
         tke3, gls3, tke_nnew, gls_nnew = gls_mod.gls_prestep(
             cfg, grid, cfg.gls_params, iic, state.tke, state.gls,
             state.tke_prev, state.gls_prev, Hz, Huon, Hvom, W)
@@ -355,7 +398,16 @@ def step(cfg: Config, grid: Grid, state: State,
     #     step ---
     tke_new, gls_new = state.tke, state.gls
     Akk_new, Akp_new, Lscale_new = state.Akk, state.Akp, state.Lscale
-    if cfg.vmix == "gls":
+    if cfg.vmix == "my25":
+        # the Mellor-Yamada 2.5 corrector (my25_corstep.F)
+        bvf_g = eos.brunt_vaisala(cfg, state.t, z_r, z_w)
+        (tke_new, gls_new, Akv, Akt, Akk_new, Lscale_new) = my25_corstep(
+            cfg, grid, iic, state.tke, state.gls, tke3, gls3, tke_nnew,
+            gls_nnew, state.u, state.v, bvf_g, Hz2, z_r2, z_w2, Huon2, Hvom2,
+            W2, state.Akv, state.Akt, state.Akk, state.Lscale, sustr, svstr,
+            bustr, bvstr, kantha_clayson=cfg.my25_kantha_clayson)
+        Akp_new = Akk_new
+    elif cfg.vmix == "gls":
         bvf_g = eos.brunt_vaisala(cfg, state.t, z_r, z_w)
         (tke_new, gls_new, Akv, Akt, Akk_new, Akp_new,
          Lscale_new) = gls_mod.gls_corstep(
@@ -381,6 +433,23 @@ def step(cfg: Config, grid: Grid, state: State,
         t_age[iage] = t2[iage] + cfg.dt * t2[icons]
         t2 = t_age
 
+    # --- sediment settling, erosion and bed exchange (main3d.F sediment
+    #     call; Sediment/sediment.F) ---
+    bed_mass = state.bed_mass
+    if sed is not None:
+        sed_kw = {}
+        if cfg.bbl and sed.bedload_method == "soulsby":
+            # the wave/current stress split and the wave-current angle of
+            # the Soulsby-Damgaard rates (sed_bedload.F:391-403)
+            phic = torch.atan2(0.5 * (bvstr + jp1(bvstr)),
+                               0.5 * (bustr + ip1(bustr)))
+            sed_kw = dict(tau_c=tau_c_b, tau_wav=tau_w_b,
+                          phicw=1.5 * math.pi - frc.get("Dwave", zero2) -
+                          phic - grid.angler)
+        t2, bed_mass = apply_sediment(
+            cfg, grid, sed, t2, bed_mass, Hz2, z_w2, bustr, bvstr,
+            tau_cw=tau_cwmax if cfg.bbl else None, **sed_kw)
+
     return state.replace(
         time=state.time + cfg.dt, iic=iic + 1,
         zeta=fs.Zt_avg1, ubar=ubar2, vbar=vbar2,
@@ -394,7 +463,8 @@ def step(cfg: Config, grid: Grid, state: State,
         tke=tke_new, gls=gls_new, tke_prev=state.tke, gls_prev=state.gls,
         Akk=Akk_new, Akp=Akp_new, Lscale=Lscale_new,
         DU_avg1=fs.DU_avg1, DV_avg1=fs.DV_avg1,
-        DU_avg2=fs.DU_avg2, DV_avg2=fs.DV_avg2)
+        DU_avg2=fs.DU_avg2, DV_avg2=fs.DV_avg2, bed_mass=bed_mass,
+        rheight=rheight, rlength=rlength, tau_cwmax=tau_cwmax)
 
 
 def _check_nfast(cfg: Config):

@@ -76,9 +76,12 @@ CASES = {
     "test_head": ("roms_tpu_torch.models.cases4", "test_head",
                   "test_head_config"),
     "soliton": ("roms_tpu_torch.models.soliton", "build", "make_config"),
+    "sed_toy": ("roms_tpu_torch.models.sed_toy", "build", "make_config"),
+    "lake_signell": ("roms_tpu_torch.models.cases", "lake_signell",
+                     "lake_signell_config"),
     **{name: ("roms_tpu_torch.models.cases2", name, name + "_config")
        for name in ("channel", "lmd_test", "mixed_layer", "test_chan",
-                    "riverplume2", "weddell", "bl_test")},
+                    "riverplume2", "weddell", "bl_test", "sed_test1")},
 }
 # the surface forcing a file case reads by default: variable -> time axis
 FRC_VARS = {"sustr": "sms_time", "svstr": "sms_time", "shflux": "shf_time",

@@ -16,7 +16,7 @@ on the CPU.
     where roms_tpu's step takes its Pallas kernel (the JAX gates asked as
     under ROMS_PALLAS_INTERPRET, with the case's bry/sources), the general
     plain stages everywhere else;
-(d) the registry has roms_tpu's 24 cases that the package runs, and a
+(d) the registry has roms_tpu's 27 cases that the package runs, and a
     2-D-only case builds in the "2d" mode.
 """
 
@@ -188,7 +188,7 @@ def test_dispatch_mirrors_jax_gates(case, monkeypatch):
 
 
 def test_registry_and_cli_list_the_cases():
-    assert len(REGISTRY) == 24
+    assert len(REGISTRY) == 27
     assert set(REGISTERED) <= set(REGISTRY)
     out = io.StringIO()
     with contextlib.redirect_stdout(out):

@@ -23,9 +23,10 @@ def test_cases(capsys):
     assert capsys.readouterr().out.split() == [
         "basin", "benchmark", "bl_test", "canyon3d", "channel",
         "channel_neck", "double_gyre", "estuary", "grav_adj", "inlet_test",
-        "kelvin", "lab_canyon", "lmd_test", "mixed_layer", "overflow",
-        "riverplume", "riverplume2", "seamount", "soliton", "test_chan",
-        "test_head", "upwelling", "weddell", "windbasin", "file"]
+        "kelvin", "lab_canyon", "lake_signell", "lmd_test", "mixed_layer",
+        "overflow", "riverplume", "riverplume2", "seamount", "sed_test1",
+        "sed_toy", "soliton", "test_chan", "test_head", "upwelling",
+        "weddell", "windbasin", "file"]
 
 
 def test_cases_registered():
@@ -74,7 +75,7 @@ def test_module_entry_point():
     assert res.stdout.count("KE=") == 2
 
 
-@pytest.mark.parametrize("case", ["flt_test", "lake_signell",
+@pytest.mark.parametrize("case", ["flt_test", "shoreface",
                                   "no_such_case"])
 def test_cases_not_ported_raise(case):
     with pytest.raises(NotImplementedError,

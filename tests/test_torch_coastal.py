@@ -174,14 +174,22 @@ def test_tide_generating_force_moves_benchmark(tmp):
     assert float(off.u.abs().max()) < 0.1 * umax
 
 
-@pytest.mark.parametrize("change, feature", [
-    (dict(vmix="my25"), "vertical mixing closure"),
-    (dict(bbl="ssw"), "bottom boundary layer"),
-    (dict(sediment=True), "sediment"),
-    (dict(nearshore="mellor05"), "nearshore radiation stress"),
-    (dict(t_hadv=("MPDATA",), t_vadv=("MPDATA",)), "MPDATA"),
+@pytest.mark.parametrize("change, kw, feature", [
+    (dict(biology="npzd_powell"), {}, "biology"),
+    (dict(bodyforce=True), {}, "BODYFORCE"),
+    ({}, dict(collect_diags=True), "budget diagnostics"),
+    (dict(nearshore="mellor05"), {}, "nearshore radiation stress"),
+    ({}, dict(stokes=True), "Stokes drift"),
 ])
-def test_unported_branches_raise(change, feature, tmp):
+def test_unported_branches_raise(change, kw, feature, tmp):
+    """The step (with `kw`), or with stokes the general fast loop handed a
+    Stokes transport, raises naming the branch."""
     cfg, grid, s0, ffn = fx.build_port("lab_canyon", tmp)
+    cfg = dataclasses.replace(cfg, **change)
     with pytest.raises(NotImplementedError, match=feature):
-        stepping.step(dataclasses.replace(cfg, **change), grid, s0, ffn)
+        if kw.get("stokes"):
+            zero = torch.zeros_like(s0.zeta)
+            step2d.fast_loop(cfg, grid, step2d.make_fast_state(
+                cfg, s0.zeta, s0.ubar, s0.vbar), us2d=(zero, zero))
+        else:
+            stepping.step(cfg, grid, s0, ffn, **kw)

@@ -25,8 +25,8 @@ from roms_tpu.config import (Config as JConfig, LBC as JLBC, BC_CLAMPED,
                              BC_FLATHER, BC_RADIATION, BC_REDUCED,
                              BC_SHCHEPETKIN)
 from roms_tpu.grid import build_grid as jbuild_grid, hc_of
-from roms_tpu.ops import advection as jadv, bc as jbc, obc as jobc, \
-    sources as jsrc, vbc as jvbc
+from roms_tpu.ops import advection as jadv, bbl as jbbl, bc as jbc, \
+    obc as jobc, sediment as jsediment, sources as jsrc, vbc as jvbc
 from roms_tpu.ops.omega import omega as jomega, set_massflux as jmassflux
 from roms_tpu_torch import convert
 from roms_tpu_torch.grid import build_grid as tbuild_grid
@@ -58,13 +58,16 @@ def _close(got, ref, name=""):
 
 
 def jax_config(cfg):
-    """roms_tpu's Config with the field values of the port's."""
+    """roms_tpu's Config with the field values of the port's (its nested
+    parameter classes from roms_tpu.config, ops.sediment or ops.bbl)."""
     kw = {}
     for f in dataclasses.fields(jconfig.Config):
         val = getattr(cfg, f.name)
         if dataclasses.is_dataclass(val):
-            val = getattr(jconfig, type(val).__name__)(
-                **dataclasses.asdict(val))
+            name = type(val).__name__
+            home = next(m for m in (jconfig, jsediment, jbbl)
+                        if hasattr(m, name))
+            val = getattr(home, name)(**dataclasses.asdict(val))
         kw[f.name] = val
     return jconfig.Config(**kw)
 

@@ -135,9 +135,9 @@ def test_dispatch_mirrors_jax_gates(case, monkeypatch):
 
 
 @pytest.mark.parametrize("change, frc, feature", [
-    (dict(bbl="ssw"), {}, "bottom boundary layer"),
+    (dict(bodyforce=True), {}, "BODYFORCE"),
     (dict(nearshore="mellor05"), {}, "nearshore radiation stress"),
-    (dict(vmix="my25"), {}, "vertical mixing closure"),
+    ({}, {"Uwind": 0.0}, "forcing fields"),
     (dict(biology="npzd_powell"), {}, "biology"),
 ])
 def test_unported_branches_raise(change, frc, feature):

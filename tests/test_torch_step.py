@@ -20,6 +20,7 @@ from roms_tpu import stepping as jstepping
 from roms_tpu.models import upwelling as jup
 from roms_tpu_torch import convert, stepping
 from roms_tpu_torch.models import upwelling as tup
+from roms_tpu_torch.ops import step2d
 from roms_tpu_torch.state import State, TENSOR_FIELDS
 
 torch.set_num_threads(1)
@@ -99,17 +100,25 @@ def _constancy_error(cfg, s):
                float((interior(cfg, s.t[1]) - 35.0).abs().max()))
 
 
-@pytest.mark.parametrize("change, feature", [
-    (dict(sediment=True), "sediment"),
-    (dict(vmix="my25"), "vertical mixing closure"),
-    (dict(biology="npzd_powell"), "biology"),
-    (dict(bbl="ssw"), "bottom boundary layer"),
-    (dict(nearshore="mellor05"), "nearshore radiation stress"),
+@pytest.mark.parametrize("change, kw, feature", [
+    (dict(bodyforce=True), {}, "BODYFORCE"),
+    ({}, dict(collect_diags=True), "budget diagnostics"),
+    (dict(biology="npzd_powell"), {}, "biology"),
+    ({}, dict(stokes=True), "Stokes drift"),
+    (dict(nearshore="mellor05"), {}, "nearshore radiation stress"),
 ])
-def test_step_raises_for_unported_branches(upw, change, feature):
+def test_step_raises_for_unported_branches(upw, change, kw, feature):
+    """The step (with `kw`), or with stokes the general fast loop handed a
+    Stokes transport, raises naming the branch."""
     cfg, grid, s0, ffn = upw
+    cfg = dataclasses.replace(cfg, **change)
     with pytest.raises(NotImplementedError, match=feature):
-        stepping.step(dataclasses.replace(cfg, **change), grid, s0, ffn)
+        if kw.get("stokes"):
+            zero = torch.zeros_like(s0.zeta)
+            step2d.fast_loop(cfg, grid, step2d.make_fast_state(
+                cfg, s0.zeta, s0.ubar, s0.vbar), us2d=(zero, zero))
+        else:
+            stepping.step(cfg, grid, s0, ffn, **kw)
 
 
 def test_tracer_constancy_no_wind(upw):
