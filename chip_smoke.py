@@ -16,6 +16,7 @@ BENCHMARK1 steps through them, and checks the results.
     python3 chip_smoke.py --sediment             # the build and phase 17
     python3 chip_smoke.py --sediment-long        # the same, with
                                                  # SED_TEST1's 400 steps
+    python3 chip_smoke.py --biology              # the build and phase 18
 
 Phases, one or more lines each; any failure exits non-zero:
   1. device: card name and power limit (nvidia-smi), torch and CUDA versions;
@@ -215,6 +216,29 @@ their published sizes:
      restart every 10), the restart, which holds the bed and the BBL
      memory, bitwise the straight run; (f) float32 and float64 ms/step of
      each case with its launches a step.
+Then biology: BIO_TOY (10x12x12, NPZD Powell on 6 tracers) and seven more
+models on UPWELLING's 41x80x16 (models/bio_toy.SETUPS: Franks, iron,
+Fennel with oxygen and carbon, hypoxia with a respiration field, NEMURO,
+the red tide with a cyst map and DIN, EcoSim on 22 tracers):
+ 18. (a) each kernel a case's step launches (rows 1-4, 6-11 on every case:
+     the tracer kernels carry the bio tracers, 22 on EcoSim, whose tiles
+     are printed) against its plain version on that step's arguments,
+     float64 and float32, untimed, and no other kernel called; (b) three
+     float64 steps of BIO_TOY and five of each model with the kernels on
+     against cfg.pallas2d=False, each field within 1e-12 x max|field|
+     (each tracer against its own max), one launch a step of each of its
+     kernels; (c) the small BIO_TOY, Fennel and EcoSim steps against
+     tests/data/torch_biology_small.npz at CARD_FACTOR x the CPU bounds,
+     and each model's source term on the card against the CPU's and
+     roms_tpu's stored output; (d) roms_tpu's BIO_TOY checks (40 steps
+     conserve nitrogen to 1e-9 while the bloom grows, 30 steps with wDet
+     = 80 m/day export monotonically) and the models' runs of (b) finite,
+     EcoSim's PhyC1 positive; (e) examples/bio_toy.yaml through the CLI in
+     a temporary directory, and BIO_TOY through the CLI with restarts,
+     bitwise a straight run; (g) rows 8 and 9 on EcoSim's 22-tracer
+     arguments and row 5 on them with tnu2 = 500 m2/s for all 22, bitwise,
+     timed with their bounds; (f) float32 and float64 ms/step of each case
+     with its launches a step.
 The last two lines are a JSON object of per-kernel results (BENCHMARK1
 float32, launches of phase 10) and a JSON object {"ok": true, "device":
 {...}}.  Without CUDA it exits non-zero and prints no result.
@@ -245,6 +269,8 @@ CASES2_FIXTURE = os.path.join(ROOT, "tests", "data",
                               "torch_cases2_small.npz")
 SEDIMENT_FIXTURE = os.path.join(ROOT, "tests", "data",
                                 "torch_sediment_small.npz")
+BIOLOGY_FIXTURE = os.path.join(ROOT, "tests", "data",
+                               "torch_biology_small.npz")
 # kernels-on against kernels-off over three full-size BENCHMARK1 float64
 # steps, relative to max|field|
 BENCH_EQUIV_RTOL = 1e-9
@@ -263,8 +289,9 @@ FAST_RTOL = {"float64": 1e-10, "float32": 1e-4}
 # column sum in another order than torch's (None: every output); rhs3d's
 # and uv3dmix2's rufrc and rvfrc and grid_flux's W are column sums
 BITWISE = {"tracer_predictor": None, "tracer_corrector": None,
-           "prsgrd32": None, "rhs3d": (0, 1, 4, 5), "uv3dmix2": (0, 1),
-           "grid_flux": (0, 1, 2, 3, 4), "eos": (0, 1, 2)}
+           "t3dmix2_geo": None, "prsgrd32": None, "rhs3d": (0, 1, 4, 5),
+           "uv3dmix2": (0, 1), "grid_flux": (0, 1, 2, 3, 4),
+           "eos": (0, 1, 2)}
 # kernels that update arguments in place: each timed call gets fresh copies
 IN_PLACE = ("uv3dmix2", "t3dmix2_geo")
 NRUNS, NBATCH = 10, 5
@@ -1233,6 +1260,11 @@ def sediment_fixture_script():
     return _script("torch_sediment_fixture")
 
 
+def biology_fixture_script():
+    """scripts/torch_biology_fixture.py as a module."""
+    return _script("torch_biology_fixture")
+
+
 def bench_fixture(device):
     """Phase 9: the small BENCHMARK with the kernels on against the
     fixture, at CARD_FACTOR times the CPU test's bounds."""
@@ -1605,11 +1637,18 @@ def case_kernel_checks(tag, names, case_fn, kernels, developed):
 def _rel_errors(case, fx, a, b):
     """{field: (|a - b| / max|b|, a finite)} over the fields the case's
     step writes, a velocity-like field against the larger of its own and
-    its partner's max (fx.PARTNER)."""
+    its partner's max (fx.PARTNER), each tracer against its own max
+    ("t[<n>]") where fx.PER_TRACER says so."""
     import torch
     out = {}
     for k in fx.fields_of(case):
         x, y = getattr(a, k), getattr(b, k)
+        if k == "t" and getattr(fx, "PER_TRACER", False):
+            for n in range(len(y)):
+                out[f"t[{n}]"] = (float((x[n] - y[n]).abs().max()) /
+                                  max(float(y[n].abs().max()), 1e-300),
+                                  bool(torch.isfinite(x[n]).all()))
+            continue
         scale = float(y.abs().max())
         if k in fx.PARTNER:
             scale = max(scale, float(getattr(b, fx.PARTNER[k]).abs().max()))
@@ -1628,12 +1667,13 @@ def regional_equivalence(device, name, cfg, grid, s0, ffn):
 
 
 def kernels_on_off(tag, name, cfg, grid, s0, ffn, kernels, fx, n,
-                   rtol=BENCH_EQUIV_RTOL):
+                   rtol=BENCH_EQUIV_RTOL, keep=None):
     """n float64 steps from s0 with the kernels on against
     cfg.pallas2d=False, every field fx.fields_of(name) lists within
     rtol x max|field| (a v-like field against its u-like partner's max
     too), one launch a step of each of `kernels` and none of the others;
-    returns the launches a step."""
+    returns the launches a step, and puts the kernels-on state in
+    keep[name] where `keep` is given."""
     import torch
     from roms_tpu_torch import stepping
     table = {k: getattr(mod, attr) for k, (mod, attr, _) in
@@ -1655,6 +1695,8 @@ def kernels_on_off(tag, name, cfg, grid, s0, ffn, kernels, fx, n,
           + f"; worst {worst:.3e} (bound {rtol:g})", flush=True)
     check(all(f and e <= rtol for e, f in errs.values()),
           f"{name}: kernels on and off disagree")
+    if keep is not None:
+        keep[name] = s_on
     return {k: v / n for k, v in launches.items() if v}
 
 
@@ -1826,14 +1868,15 @@ def case_times(tag, names, case_fn, smi, launches, ms64=None):
 
 def case_family_phase(tag, phase, smi, names, case_fn, kernels, fx,
                       equiv_steps, parts, tiles=(),
-                      equiv_rtol=BENCH_EQUIV_RTOL):
+                      equiv_rtol=BENCH_EQUIV_RTOL, keep=None):
     """The frame of phases 13, 15 and 16 over the cases `names` at their
     published sizes (case_fn(name, dtype) builds one on the card):
     (a) every kernel each case's step launches against its plain version
     on that step's arguments, three plain float64 steps from rest, after
     the column tiles of the cases `tiles`; (b) kernels on against off
-    over equiv_steps steps, held to fixture module fx's fields within
-    equiv_rtol x max|field|; then
+    over equiv_steps steps (or equiv_steps[name]), held to fixture module
+    fx's fields within equiv_rtol x max|field|, the kernels-on states
+    into `keep` where given; then
     each (label, fn) of `parts` in turn, fn() returning None or the
     float64 {case: (ms/step, steps)} of its longer runs; and (f) float32
     and float64 ms/step (those from the parts where they gave them) with
@@ -1861,7 +1904,8 @@ def case_family_phase(tag, phase, smi, names, case_fn, kernels, fx,
     lap("a")
     launches = {name: kernels_on_off(
         f"{tag}-equiv", name, *developed[name], kernels[name], fx,
-        equiv_steps, equiv_rtol) for name in names}
+        equiv_steps[name] if isinstance(equiv_steps, dict) else equiv_steps,
+        equiv_rtol, keep) for name in names}
     del developed
     lap("b")
     ms64 = {}
@@ -2986,6 +3030,255 @@ def sediment_phase(device, smi, long=False):
              "tau_cwmax"))], equiv_rtol=SEDIMENT_EQUIV_RTOL)
 
 
+# phase 18: biology.  BIO_TOY (10x12x12, NPZD Powell on 6 tracers) and
+# seven more models on UPWELLING's 41x80x16 (models/bio_toy.SETUPS; Fennel
+# with oxygen and carbon, 14 tracers, for Fennel): every tracer kernel row
+# carries the bio tracers beside temperature and salt (22 tracers on
+# EcoSim); their tnu2 = 0 keeps row 5 off, as the JAX gates do, so row 5
+# is checked at NT = 22 on EcoSim's arguments with tnu2 = 500 m2/s for
+# every tracer.
+BIOLOGY = ("bio_toy", "npzd_franks", "npzd_iron", "fennel_oxygen_carbon",
+           "hypoxia_srm", "nemuro", "red_tide", "ecosim")
+BIOLOGY_KERNELS = dict.fromkeys(
+    BIOLOGY, _DIAG3 + ("prsgrd32", "rhs3d", "uv3dmix2") + _COLUMN_ROWS)
+# kernels on against off: BIO_TOY over 3 float64 steps, the models over 5
+BIOLOGY_EQUIV_STEPS = {name: 5 for name in BIOLOGY}
+BIOLOGY_EQUIV_STEPS["bio_toy"] = 3
+# relative to max|field|, each tracer against its own: the column sums'
+# round-off of rows 1, 4, 7 and 10 through the step and the biology
+BIOLOGY_EQUIV_RTOL = 1e-12
+# roms_tpu's physics tests (tests/test_biology.py): their steps, at
+# BIOLOGY_TEST_SIZE
+BIOLOGY_PHYSICS_STEPS = {"conservation": 40, "export": 30}
+BIOLOGY_TEST_SIZE = dict(Lm=6, Mm=8, N=10)
+
+
+def biology_case(name, device, dtype="float64", **sizes):
+    """(cfg, grid, state0, forcing_fn) of BIO_TOY (models/bio_toy.py) or of
+    a biology model of models/bio_toy.SETUPS on UPWELLING, at the published
+    sizes unless `sizes` cut them; BIO_TOY also takes `params`."""
+    from roms_tpu_torch.models import bio_toy
+    if name == "bio_toy":
+        return bio_toy.build(bio_toy.make_config(dtype=dtype, **sizes),
+                             device=device)
+    return bio_toy.build_model(name, bio_toy.model_config(
+        name, dtype=dtype, **sizes), device=device)
+
+
+def _bio_inventory(cfg, grid, s):
+    """The interior inventory sum t Hz area of each bio tracer."""
+    from roms_tpu_torch import vgrid
+    from roms_tpu_torch.grid import hc_of
+    _, _, Hz = vgrid.set_depth(grid.h, s.zeta, hc_of(cfg), grid.sc_r,
+                               grid.Cs_r, grid.sc_w, grid.Cs_w,
+                               cfg.vtransform)
+    area = interior(cfg, grid.omn)
+    return [float((interior(cfg, s.t[i] * Hz) * area).sum())
+            for i in cfg.ibio]
+
+
+def biology_fixture(device):
+    """Phase 18 (c): the small BIO_TOY, Fennel and EcoSim steps with the
+    kernels on against tests/data/torch_biology_small.npz, and each model's
+    source term on the card against the CPU's (and against roms_tpu's
+    stored output where the fixture holds it), at CARD_FACTOR times the
+    CPU test's bounds."""
+    import numpy as np
+    fx = biology_fixture_script()
+    ref = np.load(fx.OUT)
+    for name in fx.STEP_CASES:
+        cfg, grid, s0, ffn = fx.build_port(name, device=device)
+        s = fx.run_port(name, cfg, grid, s0, ffn)
+        errors = fx.errors(name, cfg, s0, s, ref, factor=CARD_FACTOR)
+        worst = max(errors.items(), key=lambda kv: kv[1][0] / kv[1][1])
+        print(f"[biology-fixture] {name}: worst against its bound: "
+              f"{worst[0]} {worst[1][0]:.3e} (bound {worst[1][1]:g})",
+              flush=True)
+        bad = {k: e for k, e in errors.items() if not e[0] <= e[1]}
+        check(not bad, f"the small {name} misses its fixture: {bad}")
+    bound = CARD_FACTOR * fx.MODEL_BOUND
+    for name in fx.MODELS:
+        card = fx.port_model(name, device)
+        errs = [fx.model_errors(name, card, fx.port_model(name)).max()]
+        if fx.MODELS[name][3]:
+            errs.append(fx.model_errors(name, card,
+                                        ref[f"{name}/out"]).max())
+        print(f"[biology-fixture] model {name}: card against the CPU "
+              f"{errs[0]:.3e}" + (f", against roms_tpu's stored output "
+                                  f"{errs[1]:.3e}" if len(errs) > 1 else "")
+              + f" x max|tracer| (bound {bound:g})", flush=True)
+        check(all(e <= bound for e in errs),
+              f"the {name} source term on the card misses its bound")
+
+
+def biology_physics(device, smi, keep):
+    """Phase 18 (d): roms_tpu's BIO_TOY checks in float64 at its test size
+    (40 steps without sinking conserve nitrogen to rtol 1e-9 while the
+    bloom grows; 30 steps with wDet = 80 m/day lose it monotonically),
+    with ms/step; and the models' 5 kernels-on steps of (b) (keep): finite,
+    EcoSim's small phytoplankton carbon positive (test_bio_models.py)."""
+    import numpy as np
+    import torch
+    from roms_tpu_torch import stepping
+    from roms_tpu_torch.models import bio_toy
+    from roms_tpu_torch.ops.biology import NPZDParams
+    ms = {}
+
+    def timed(cfg, grid, s, ffn, n, name):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = []
+        for _ in range(n):
+            s = stepping.step(cfg, grid, s, ffn)
+            out.append(sum(_bio_inventory(cfg, grid, s)))
+        torch.cuda.synchronize()
+        ms[name] = ((time.perf_counter() - t0) * 1e3 / n, n)
+        return s, out
+
+    p = NPZDParams(const_par=158.075, wPhy=0.0, wDet=0.0)
+    cfg, grid, s0, ffn = biology_case("bio_toy", device, params=p,
+                                      **BIOLOGY_TEST_SIZE)
+    n = BIOLOGY_PHYSICS_STEPS["conservation"]
+    tot0 = sum(_bio_inventory(cfg, grid, s0))
+    s, tots = timed(cfg, grid, s0, ffn, n, "conservation")
+    H = cfg.halo
+    phy = float(s.t[3][-1, H + 4, H + 3])
+    no3 = float(s.t[2][-1, H + 4, H + 3])
+    drift = abs(tots[-1] - tot0) / tot0
+    ok = bool(torch.isfinite(s.t).all()) and drift <= 1e-9 and \
+        phy > bio_toy.BIO_INI[1] and no3 < bio_toy.BIO_INI[0]
+    print(f"[biology-physics] bio_toy {cfg.Lm}x{cfg.Mm}x{cfg.N}, {n} float64 "
+          f"steps without sinking: {ms['conservation'][0]:.1f} ms/step on "
+          f"{smi}; total N {tot0:.9e} -> {tots[-1]:.9e} (drift {drift:.3e}, "
+          f"<= 1e-9), surface P {phy:.5f} (> {bio_toy.BIO_INI[1]}), NO3 "
+          f"{no3:.5f} (< {bio_toy.BIO_INI[0]})  {'OK' if ok else 'FAIL'}",
+          flush=True)
+    check(ok, "BIO_TOY: nitrogen not conserved or no bloom")
+
+    p = NPZDParams(const_par=0.0, wPhy=0.0, wDet=80.0, DetRR=0.0, ZooGR=0.0,
+                   PhyMRD=0.0, ZooMRD=0.0)
+    cfg, grid, s0, ffn = biology_case("bio_toy", device, params=p,
+                                      **BIOLOGY_TEST_SIZE)
+    n = BIOLOGY_PHYSICS_STEPS["export"]
+    tot0 = sum(_bio_inventory(cfg, grid, s0))
+    s, tots = timed(cfg, grid, s0, ffn, n, "export")
+    steps = np.diff([tot0] + tots)
+    ok = bool(np.isfinite(tots).all()) and tots[-1] < tot0 and \
+        (steps <= 1e-9).all()
+    print(f"[biology-physics] bio_toy, wDet = 80 m/day, {n} float64 steps: "
+          f"{ms['export'][0]:.1f} ms/step; total N {tot0:.9e} -> "
+          f"{tots[-1]:.9e}, largest step change {steps.max():.3e} (<= "
+          f"1e-9: monotone export)  {'OK' if ok else 'FAIL'}", flush=True)
+    check(ok, "BIO_TOY: the seabed export is not monotone")
+
+    for name in BIOLOGY[1:]:
+        s = keep[name]
+        finite = bool(torch.isfinite(s.t).all())
+        H = cfg.halo
+        bio = s.t[2:, :, H:-H, H:-H]
+        lo = [float(b.min()) for b in bio]
+        ok = finite and (name != "ecosim" or lo[5] > 0.0)
+        N, ny, nx = s.t.shape[1:]
+        print(f"[biology-physics] {name} {nx - 2 * H}x{ny - 2 * H}x{N}, "
+              f"{BIOLOGY_EQUIV_STEPS[name]} float64 steps with the kernels "
+              f"on: finite={finite}; bio tracer minima "
+              + ", ".join(f"{v:.4g}" for v in lo)
+              + ("; PhyC1 > 0" if name == "ecosim" else "")
+              + f"  {'OK' if ok else 'FAIL'}", flush=True)
+        check(ok, f"{name}: the model run is not finite or not positive")
+
+
+def biology_cli(device):
+    """Phase 18 (e): the committed examples/bio_toy.yaml through the CLI
+    in a temporary directory (its history file bio_his.nc there): exit 0,
+    the NPZD tracers in the record, finite; then BIO_TOY through the CLI
+    with restarts (cli_restart_check)."""
+    import io
+    import tempfile
+    import numpy as np
+    from roms_tpu_torch.__main__ import main as cli
+    from roms_tpu_torch.io.netcdf import read_history
+    here = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["run", os.path.join(ROOT, "examples", "bio_toy.yaml"),
+                "--device", str(device)]
+        out = io.StringIO()
+        os.chdir(tmp)
+        try:
+            with contextlib.redirect_stdout(out):
+                rc = cli(argv)
+        finally:
+            os.chdir(here)
+        print(f"[biology-cli] in a temporary directory: python -m "
+              f"roms_tpu_torch run examples/bio_toy.yaml --device "
+              f"{device}: exit {rc}", flush=True)
+        for ln in [ln for ln in out.getvalue().splitlines() if "KE=" in ln]:
+            print(f"[biology-cli] | {ln}")
+        check(rc == 0, f"the CLI exited {rc}")
+        h = read_history(os.path.join(tmp, "bio_his.nc"))
+        names = ("NO3", "phytoplankton", "zooplankton", "detritus")
+        ok = all(k in h and len(h[k]) == 2 and np.isfinite(h[k]).all()
+                 for k in names)
+        print(f"[biology-cli] bio_his.nc: {len(h['ocean_time'])} records, "
+              f"{', '.join(names)} finite: {ok}; surface phytoplankton max "
+              f"{float(h['phytoplankton'][-1].max()):.5f}", flush=True)
+        check(ok, "the example's history lacks its NPZD records")
+    cli_restart_check(device, "biology", "bio_toy", ("t", "t_prev"), "t")
+
+
+def biology_nt22(device):
+    """Phase 18 (g): rows 8 and 9 on EcoSim's 22-tracer step arguments and
+    row 5 on them with tnu2 = 500 m2/s for all 22 tracers, float64 and
+    float32 (three plain float64 steps from rest): bitwise their plain
+    versions, timed with their bound, and row 5's tile and registers."""
+    from roms_tpu_torch import stepping
+    from roms_tpu_torch.ops import diag_cuda, mix3d_cuda
+    from roms_tpu_torch.state import TENSOR_FIELDS
+    import torch
+    cfg, grid, s0, ffn = biology_case("ecosim", device)
+    s = stepping.run(cfg.replace(pallas2d=False), grid, s0, 3, ffn)
+    for dtype in ("float64", "float32"):
+        cfg, grid, _, ffn = biology_case("ecosim", device, dtype)
+        state = s.replace(**{k: getattr(s, k).to(grid.h.dtype)
+                             for k in TENSOR_FIELDS})
+        calls = captured_calls(cfg, grid, state, ffn)
+        z_r, _, Hz, *_ = diag_cuda.grid_flux_plain(*calls["grid_flux"][0])
+        t = calls["tracer_predictor"][0][3]
+        geo = (cfg.replace(tnu2=cfg.ntracers * (500.0,)), grid, t, Hz, z_r,
+               t * Hz[None], cfg.dt)
+        check_variants("biology-nt22", grid, [
+            ("ecosim:tracer_predictor", "tracer_predictor",
+             *calls["tracer_predictor"]),
+            ("ecosim:tracer_corrector", "tracer_corrector",
+             *calls["tracer_corrector"]),
+            (f"ecosim:t3dmix2_geo[{cfg.ntracers} tracers]", "t3dmix2_geo",
+             geo, {})], dtype, {}, timed=True)
+        lay = mix3d_cuda.geo_layout(getattr(torch, dtype))
+        print(f"[biology-nt22] t3dmix2_geo {dtype}: {cfg.ntracers} tracers "
+              f"(a block row each), tile {lay['tile'][0]}x{lay['tile'][1]}, "
+              f"{lay['shared_bytes']} bytes of shared memory, "
+              f"{lay['registers']} registers a thread", flush=True)
+
+
+def biology_phase(device, smi):
+    """Phase 18: BIO_TOY and seven more biology models on UPWELLING at
+    41x80x16: (a) kernels against plain on each case's arguments (with the
+    tracer kernels' tiles at EcoSim's 22 tracers), (b) kernels on against
+    off, (c) the small fixture and the models' source terms, (d) roms_tpu's
+    BIO_TOY physics and the models' runs, (e) the example through the CLI
+    and a restart, (g) rows 5, 8 and 9 at 22 tracers, (f) ms/step."""
+    keep = {}
+    case_family_phase(
+        "biology", 18, smi, BIOLOGY,
+        lambda n, d: biology_case(n, device, d), BIOLOGY_KERNELS,
+        biology_fixture_script(), BIOLOGY_EQUIV_STEPS,
+        [("c", lambda: biology_fixture(device)),
+         ("d", lambda: biology_physics(device, smi, keep)),
+         ("e", lambda: biology_cli(device)),
+         ("g", lambda: biology_nt22(device))], tiles=("ecosim",),
+        equiv_rtol=BIOLOGY_EQUIV_RTOL, keep=keep)
+
+
 def column_times(device):
     """`--column-times TREE`: the time a call of rows 1-4 and 6-10, with
     the host's time (device_ms) and on the device alone (profiled_ms), on
@@ -3046,6 +3339,7 @@ def main() -> int:
     cases2_long = sys.argv[1:2] == ["--cases2-long"]
     sediment_only = sys.argv[1:2] in (["--sediment"], ["--sediment-long"])
     sediment_long = sys.argv[1:2] == ["--sediment-long"]
+    biology_only = sys.argv[1:2] == ["--biology"]
     sys.path.insert(0, os.path.abspath(sys.argv[2]) if timing else ROOT)
     try:
         import roms_tpu_torch  # noqa: F401
@@ -3055,7 +3349,8 @@ def main() -> int:
               f"script ({exc})", file=sys.stderr)
         return 2
     for path in (ANCHOR, BENCH_FIXTURE, REGIONAL_FIXTURE, COASTAL_FIXTURE,
-                 OPERATORS_FIXTURE, CASES2_FIXTURE, SEDIMENT_FIXTURE):
+                 OPERATORS_FIXTURE, CASES2_FIXTURE, SEDIMENT_FIXTURE,
+                 BIOLOGY_FIXTURE):
         if not os.path.exists(path):
             print(f"chip_smoke: missing {path}", file=sys.stderr)
             return 2
@@ -3099,6 +3394,9 @@ def main() -> int:
         if sediment_only:
             sediment_phase(device, smi, long=sediment_long)
             return 0
+        if biology_only:
+            biology_phase(device, smi)
+            return 0
         results = {}
         kernel_checks(results, device)
         main_path(device)
@@ -3118,6 +3416,7 @@ def main() -> int:
         operators_phase(device, smi)
         cases2_phase(device, smi)
         sediment_phase(device, smi)
+        biology_phase(device, smi)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

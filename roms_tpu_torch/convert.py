@@ -20,7 +20,9 @@ import torch
 from . import config as _config
 from .config import Config
 from .grid import Grid, torch_dtype
+from .ops import bio_models
 from .ops.bbl import BBLParams, MBBBLParams, SGBBLParams
+from .ops.biology import NPZDParams
 from .ops.sediment import SedParams
 from .ops.sources import PointSources
 from .ops.step2d import FS_FIELDS, Fast2DState
@@ -29,7 +31,13 @@ from .state import State, TENSOR_FIELDS
 # nested frozen dataclasses of the reference Config, rebuilt as the port's
 _NESTED = {"LBC": _config.LBC, "GLSParams": _config.GLSParams,
            "SedParams": SedParams, "BBLParams": BBLParams,
-           "MBBBLParams": MBBBLParams, "SGBBLParams": SGBBLParams}
+           "MBBBLParams": MBBBLParams, "SGBBLParams": SGBBLParams,
+           "NPZDParams": NPZDParams,
+           **{cls.__name__: cls for cls in (
+               bio_models.FranksParams, bio_models.IronParams,
+               bio_models.FennelParams, bio_models.HypoxiaParams,
+               bio_models.NemuroParams, bio_models.RedTideParams,
+               bio_models.EcosimParams)}}
 
 
 def config_from_reference(ref_cfg) -> Config:
@@ -45,8 +53,6 @@ def config_from_reference(ref_cfg) -> Config:
                     "not ported")
             val = cls(**{g.name: getattr(val, g.name)
                          for g in dataclasses.fields(cls)})
-        elif val is not None and f.name == "bio_params":
-            raise NotImplementedError(f"Config.{f.name} is not ported")
         kw[f.name] = val
     return Config(**kw)
 

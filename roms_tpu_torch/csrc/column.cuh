@@ -17,7 +17,14 @@
 
 namespace roms {
 
-constexpr int kMaxTr = 16;    // most tracers a tracer kernel takes
+// most tracers a tracer kernel takes: its per-tracer scheme codes and
+// coefficients ride in the kernel's by-value parameters (step3d.cuh
+// PredParams, CorrParams; mix3d.cuh GeoParams), each asserted to stay under
+// the 4 KB a launch's parameters may take.  ops/step3d_cuda.py and
+// ops/mix3d_cuda.py read this value as their MAX_TRACERS.
+constexpr int kMaxTr = 64;
+// the most bytes of parameters a kernel launch takes
+constexpr int kMaxParamBytes = 4096;
 
 // scheme codes, as passed from Python (ops/step3d_cuda.py)
 enum HScheme { H_U3 = 0, H_C4 = 1, H_C2 = 2, H_U1 = 3, H_A4 = 4 };

@@ -315,6 +315,8 @@ struct GeoPtrs {
   const T *t, *Hz, *z_r, *pm, *pn;
   T* t_nnew;   // read and written in place
 };
+static_assert(sizeof(GeoParams) + sizeof(GeoPtrs<double>) <= kMaxParamBytes,
+              "t3dmix2_geo's parameters outgrow a launch at kMaxTr");
 
 constexpr int kGeoTX = 32, kGeoTY = 8;            // the tile, in points
 constexpr int kGeoThreads = kGeoTX * kGeoTY;      // one thread a point

@@ -120,6 +120,8 @@ extern "C" {
 // dp:  dt | cff cff1 cff2 cffv per tracer
 int roms_tracer_predictor(int f64, void* const* ptr, const int* ip,
                           const double* dp, void* stream) {
+  if (ip[8] < 1 || ip[8] > roms::kMaxTr)
+    return static_cast<int>(cudaErrorInvalidValue);
   const roms::PredParams P = roms::pred_params(ip, dp);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return f64 ? launch_predictor<double>(P, ptr, s)
@@ -132,6 +134,8 @@ int roms_tracer_predictor(int f64, void* const* ptr, const int* ip,
 // dp:  dt
 int roms_tracer_corrector(int f64, void* const* ptr, const int* ip,
                           const double* dp, void* stream) {
+  if (ip[8] < 1 || ip[8] > roms::kMaxTr)
+    return static_cast<int>(cudaErrorInvalidValue);
   const roms::CorrParams P = roms::corr_params(ip, dp);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return f64 ? launch_corrector<double>(P, ptr, s)

@@ -176,6 +176,9 @@ struct PredPtrs {
       *btflx, *ghats, *srflx, *swdk_w;
   T *t3, *t_nnew;
 };
+static_assert(sizeof(PredParams) + sizeof(PredPtrs<double>) <=
+                  kMaxParamBytes,
+              "the tracer predictor's parameters outgrow a launch at kMaxTr");
 
 // The tile of block blk; sm: its tracer_rows(false, N, NT) x tile words.
 template <typename T>
@@ -388,6 +391,9 @@ struct CorrPtrs {
   const T *t_nnew, *t3, *Huon, *Hvom, *W, *Hz, *z_r, *Akt, *pm, *pn;
   T* t;
 };
+static_assert(sizeof(CorrParams) + sizeof(CorrPtrs<double>) <=
+                  kMaxParamBytes,
+              "the tracer corrector's parameters outgrow a launch at kMaxTr");
 
 // The tile of block blk; sm: its tracer_rows(true, N, NT) x tile words.
 template <typename T>

@@ -10,13 +10,15 @@ CASE is upwelling (the default), benchmark, a regional case (kelvin,
 estuary, riverplume), an operator case (basin, double_gyre, grav_adj,
 seamount, canyon3d, overflow, windbasin, channel_neck), lab_canyon, one
 of channel, lmd_test, mixed_layer, test_chan, riverplume2, weddell and
-bl_test, or a sediment case (sed_toy, lake_signell, sed_test1), float32 as
-on the card.  --case benchmark counts a BENCHMARK1
+bl_test, a sediment case (sed_toy, lake_signell, sed_test1), bio_toy, or a
+biology model on UPWELLING (models/bio_toy.SETUPS: npzd_franks, npzd_iron,
+fennel, fennel_oxygen_carbon, hypoxia_srm, nemuro, red_tide, ecosim),
+float32 as on the card.  --case benchmark counts a BENCHMARK1
 step at 64x32 instead of 512x64 (the count depends on N, not on the
 horizontal size); the other cases run at their published sizes, with
 their plain stages (the general fast loop, KPP, GLS, MY2.5, the bottom
-boundary layers, sediment, the mixing operators outside the kernels)
-counted as stages.
+boundary layers, sediment, biology, the mixing operators outside the
+kernels) counted as stages.
 
 --root counts the roms_tpu_torch of another checkout (an older tree has
 fewer kernel wrappers; the ones it lacks are skipped).  Prints the count
@@ -50,7 +52,7 @@ WRAPPERS = {
 # plain stages the step calls by name, counted op by op
 STAGES = {"stepping": ("set_vbc", "momentum_init", "rhs3d_momentum",
                        "bulk_flux", "lmd_vmix", "swfrac", "my25_corstep",
-                       "apply_sediment"),
+                       "apply_sediment", "apply_biology"),
           "ops.bbl": ("bblm", "bblm_mb", "bblm_sg"),
           "ops.mix3d": ("t3dmix2", "t3dmix4", "t3dmix2_iso", "t3dmix4_iso",
                         "t3dmix4_geo", "uv3dmix4", "uv3dmix2_geo",
@@ -72,12 +74,16 @@ MODULE = {**dict.fromkeys(REGIONAL + OPERATORS, "cases"),
           **dict.fromkeys(CASES2, "cases2"),
           "channel_neck": "cases4", "lab_canyon": "cases4",
           "lake_signell": "cases"}
+# the biology models on UPWELLING (models/bio_toy.SETUPS)
+BIO_SETUPS = ("npzd_franks", "npzd_iron", "fennel", "fennel_oxygen_carbon",
+              "hypoxia_srm", "nemuro", "red_tide", "ecosim")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--case", choices=("upwelling", "benchmark",
-                                       "sed_toy") + tuple(MODULE),
+    ap.add_argument("--case", choices=("upwelling", "benchmark", "sed_toy",
+                                       "bio_toy") + tuple(MODULE) +
+                    BIO_SETUPS,
                     default="upwelling")
     ap.add_argument("--root", default=os.path.dirname(
         os.path.dirname(os.path.abspath(__file__))))
@@ -142,6 +148,15 @@ def main() -> int:
         from roms_tpu_torch.models import sed_toy
         cfg, grid, s, ffn = sed_toy.build(
             sed_toy.make_config(dtype="float32"), device="cpu")
+    elif args.case == "bio_toy":
+        from roms_tpu_torch.models import bio_toy
+        cfg, grid, s, ffn = bio_toy.build(
+            bio_toy.make_config(dtype="float32"), device="cpu")
+    elif args.case in BIO_SETUPS:
+        from roms_tpu_torch.models import bio_toy
+        cfg, grid, s, ffn = bio_toy.build_model(
+            args.case, bio_toy.model_config(args.case, dtype="float32"),
+            device="cpu")
     elif args.case == "benchmark":
         from roms_tpu_torch.models import benchmark
         cfg, grid, s, ffn = benchmark.build(

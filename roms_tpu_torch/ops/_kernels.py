@@ -227,6 +227,20 @@ def geometry(cfg) -> list:
 MAX_N = 64      # most levels the column kernels' plans are tested for
 
 
+def header_int(header: str, name: str) -> int:
+    """The value of `constexpr int <name> = <value>;` in csrc/<header>."""
+    import re
+    text = (CSRC / header).read_text()
+    found = re.search(rf"constexpr\s+int\s+{name}\s*=\s*(\d+)\s*;", text)
+    if found is None:
+        raise RuntimeError(f"csrc/{header} defines no constexpr int {name}")
+    return int(found.group(1))
+
+
+# most tracers a tracer kernel takes (csrc/column.cuh kMaxTr)
+MAX_TRACERS = header_int("column.cuh", "kMaxTr")
+
+
 def column_ints(cfg, name: str) -> list:
     """N and the geometry ints of a column kernel (csrc/column.cuh); raise
     for a depth outside the kernels' plans."""

@@ -28,12 +28,11 @@ import torch
 
 from ..config import Config
 from ..grid import Grid
-from ._kernels import SMEM_MAX, check_tensors, column_ints, kernel_layout, \
-    launch, library, on_card, tile_plan
+from ._kernels import MAX_TRACERS, SMEM_MAX, check_tensors, column_ints, \
+    kernel_layout, launch, library, on_card, tile_plan
 from .mix3d import t3dmix2_geo as t3dmix2_geo_plain
 from .mix3d import uv3dmix2 as uv3dmix2_plain
 
-MAX_TRACERS = 16                 # csrc/column.cuh kMaxTr
 THREADS = 256       # uv3dmix2: threads a block, at most (mix3d.cu kMaxThreads)
 
 
@@ -119,6 +118,17 @@ def uv3dmix2(cfg: Config, grid: Grid, u, v, Hz, u_nnew, v_nnew, rufrc,
 uv3dmix2.launches = 0
 
 
+def geo_tracers(cfg: Config) -> list:
+    """The tracers t3dmix2_geo's kernel mixes, those with tnu2 != 0 (a
+    block row each); raise for more than MAX_TRACERS of them."""
+    active = [k for k in range(cfg.ntracers)
+              if k < len(cfg.tnu2) and cfg.tnu2[k] != 0.0]
+    if len(active) > MAX_TRACERS:
+        raise ValueError(f"t3dmix2_geo kernel: {len(active)} mixed tracers, "
+                         f"more than {MAX_TRACERS}")
+    return active
+
+
 def t3dmix2_geo(cfg: Config, grid: Grid, t, Hz, z_r, t_nnew, dt: float):
     """Returns the updated t_nnew (NT,N,Ny,Nx); tracers with tnu2 = 0 are
     left as they are."""
@@ -128,11 +138,7 @@ def t3dmix2_geo(cfg: Config, grid: Grid, t, Hz, z_r, t_nnew, dt: float):
         raise ValueError("t3dmix2_geo kernel: the sponge is not in it")
     ints = column_ints(cfg, "t3dmix2_geo")
     nt = cfg.ntracers
-    active = [k for k in range(nt)
-              if k < len(cfg.tnu2) and cfg.tnu2[k] != 0.0]
-    if len(active) > MAX_TRACERS:
-        raise ValueError(f"t3dmix2_geo kernel: {len(active)} mixed tracers, "
-                         f"more than {MAX_TRACERS}")
+    active = geo_tracers(cfg)
     s2 = (cfg.ny_tot, cfg.nx_tot)
     s3 = (cfg.N,) + s2
     ins = dict(t=t, Hz=Hz, z_r=z_r, pm=grid.pm, pn=grid.pn, t_nnew=t_nnew)

@@ -28,8 +28,8 @@ import torch
 from ..config import Config
 from ..grid import Grid
 from . import bc
-from ._kernels import SMEM_MAX, bc_kinds, check_tensors, column_ints, \
-    kernel_layout, launch, on_card
+from ._kernels import MAX_TRACERS, SMEM_MAX, bc_kinds, check_tensors, \
+    column_ints, kernel_layout, launch, on_card
 from .pre_step3d import predictor_coefs, tracer_phase as tracer_predictor_plain
 from .step3d_t import step3d_t as tracer_corrector_plain
 from .step3d_uv import corrector_cff, step3d_uv as uv_corrector_plain
@@ -38,7 +38,6 @@ from .step3d_uv import corrector_cff, step3d_uv as uv_corrector_plain
 _OK_SCHEMES = {"C2", "U1", "U3", "C4", "A4", "SPLINES"}
 _HADV_CODE = {"U3": 0, "C4": 1, "C2": 2, "U1": 3, "A4": 4}  # HScheme
 _VADV_CODE = {"C4": 0, "SPLINES": 1, "C2": 2, "U1": 3, "A4": 4}  # VScheme
-MAX_TRACERS = 16                          # column.cuh kMaxTr
 TILE = 32                # padded points a tile holds, at most
 TILE_THREADS = 256       # threads a tile block (step3d.cu kTileThreads)
 

@@ -18,8 +18,10 @@ isopycnals; open boundaries with their `bry` data, volume conservation
 and point sources; wetting-drying; climatology nudging of ubar/vbar, u/v
 and the tracers through `clm`; curvilinear and periodic grids; the ice
 shelf (`grid.zice`: the ice-base drag, the floating-ice load and the
-displaced levels), mean-age tracer pairs (`cfg.inert_age`) and suspended
-sediment with its bed layers, bedload and SED_MORPH (`cfg.sed_params`)).
+displaced levels), mean-age tracer pairs (`cfg.inert_age`), the eight
+biology models of the biology slot (`cfg.biology`, ops/biology.py and
+ops/bio_models.py) and suspended sediment with its bed layers, bedload and
+SED_MORPH (`cfg.sed_params`)).
 Every other branch raises NotImplementedError naming the missing feature:
 the ones listed in _check_slice when the step starts, BODYFORCE stresses
 and the general fast loop's Stokes drift where their stage is called.
@@ -60,6 +62,7 @@ from .state import State
 from . import vgrid
 from .ops import bbl, diag_cuda, eos, gls as gls_mod, mix3d, mix3d_cuda, \
     prsgrd, prsgrd_cuda, rhs3d_cuda, step2d, step2d_cuda, step3d_cuda
+from .ops.biology import apply_biology
 from .ops.bulk_flux import bulk_flux
 from .ops.my25 import my25_corstep
 from .ops.sediment import apply_sediment, bed_thickness_total
@@ -82,13 +85,20 @@ _BULK_KEYS = {"Uwind", "Vwind", "Tair", "Pair", "Hair", "cloud", "rain",
 # the wave fields the bottom boundary layers and GLS read (without the
 # nearshore radiation stress, which would read them too)
 _WAVE_KEYS = {"Hwave", "Pwave", "Dwave", "Lwave"}
+# the fields a biology model reads from the forcing besides the surface
+# fluxes: the winds of the air-sea gas exchange, the respiration rate and
+# the red tide's cyst map and DIN climatology
+_BIO_KEYS = {"fennel": {"Uwind", "Vwind"},
+             "hypoxia_srm": {"Uwind", "Vwind", "respiration"},
+             "red_tide": {"CystIni", "DIN_obs"}}
 
 
 def _check_slice(cfg: Config, grid: Grid, frc: dict, collect_diags: bool):
     """Raise NotImplementedError for every branch of the reference step
     that this port does not have yet: the budget diagnostics, the
-    nearshore radiation stress, biology, a vertical closure other than the
-    ported ones, and forcing fields outside the set the step reads.
+    nearshore radiation stress, a vertical closure other than the ported
+    ones, and forcing fields outside the set the step reads (a biology
+    model's own fields, _BIO_KEYS, under that model only).
     BODYFORCE and the general fast loop's Stokes drift raise where their
     stage is called."""
     missing = []
@@ -98,11 +108,10 @@ def _check_slice(cfg: Config, grid: Grid, frc: dict, collect_diags: bool):
         missing.append(f"nearshore radiation stress ({cfg.nearshore})")
     if cfg.vmix not in (None, "none", "kpp", "gls", "bvf", "my25"):
         missing.append(f"vertical mixing closure ({cfg.vmix})")
-    if cfg.biology is not None:
-        missing.append(f"biology ({cfg.biology})")
     extra = set(frc) - (_BULK_KEYS if cfg.bulk_fluxes else _FORCING_KEYS) \
         - _BOUNDARY_KEYS - {"clm"} - \
-        (_WAVE_KEYS if cfg.nearshore is None else set())
+        (_WAVE_KEYS if cfg.nearshore is None else set()) - \
+        _BIO_KEYS.get(cfg.biology, set())
     if extra:
         missing.append(f"forcing fields {sorted(extra)}")
     if missing:
@@ -432,6 +441,14 @@ def step(cfg: Config, grid: Grid, state: State,
         t_age = t2.clone()
         t_age[iage] = t2[iage] + cfg.dt * t2[icons]
         t2 = t_age
+
+    # --- biological source and sink terms (main3d.F biology call): the
+    #     increment from the old tracers onto the new ---
+    if cfg.biology is not None:
+        t2 = apply_biology(cfg, grid, state.t, t2, Hz2, z_w2, srflx,
+                           z_r=z_r2, sustr=sustr, svstr=svstr,
+                           uwind=frc.get("Uwind"), vwind=frc.get("Vwind"),
+                           frc=frc, time=state.time)
 
     # --- sediment settling, erosion and bed exchange (main3d.F sediment
     #     call; Sediment/sediment.F) ---

@@ -77,6 +77,7 @@ CASES = {
                   "test_head_config"),
     "soliton": ("roms_tpu_torch.models.soliton", "build", "make_config"),
     "sed_toy": ("roms_tpu_torch.models.sed_toy", "build", "make_config"),
+    "bio_toy": ("roms_tpu_torch.models.bio_toy", "build", "make_config"),
     "lake_signell": ("roms_tpu_torch.models.cases", "lake_signell",
                      "lake_signell_config"),
     **{name: ("roms_tpu_torch.models.cases2", name, name + "_config")

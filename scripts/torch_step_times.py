@@ -5,12 +5,19 @@ by default, phase 10 (200 float32 BENCHMARK1 steps); with
 ``--upwelling-profile``, phase 5 and phase 6 (torch.profiler over 10
 UPWELLING steps: launches, device busy and idle, device time by kernel);
 with ``--profiles``, phases 6 and 11 alone (the profiles of UPWELLING and
-of 5 BENCHMARK1 steps).
+of 5 BENCHMARK1 steps); with ``--tracer-times``, the time a call of the
+three tracer kernels (rows 5, 8 and 9: t3dmix2_geo, tracer_predictor,
+tracer_corrector) on the arguments the UPWELLING and BENCHMARK1 steps give
+them (row 5 at UPWELLING, which does not call it, on its tracers with
+tnu2 = 500 m2/s), float64 and float32, with the host's time (CUDA events)
+and the device's alone (torch.profiler), and the kernels' registers and
+stack frames.
 
     cd CHECKOUT && python3 scripts/torch_step_times.py TREE
     cd CHECKOUT && python3 scripts/torch_step_times.py TREE \\
         --upwelling-profile
     cd CHECKOUT && python3 scripts/torch_step_times.py TREE --profiles
+    cd CHECKOUT && python3 scripts/torch_step_times.py TREE --tracer-times
 
 TREE holds the roms_tpu_torch to time (a `git archive` checkout of
 another commit, or `.`); chip_smoke.py comes from the current directory.
@@ -19,6 +26,54 @@ Needs a CUDA card.
 
 import os
 import sys
+
+
+def tracer_times(dev) -> None:
+    """--tracer-times: rows 5, 8 and 9 a call on the UPWELLING and
+    BENCHMARK1 steps' arguments, and the kernels' layouts."""
+    import torch
+
+    import chip_smoke as cs
+    from roms_tpu_torch import stepping
+    from roms_tpu_torch.models import benchmark, upwelling
+    from roms_tpu_torch.ops import mix3d_cuda, step3d_cuda
+    from roms_tpu_torch.state import TENSOR_FIELDS
+
+    for dtype in ("float64", "float32"):
+        t = getattr(torch, dtype)
+        for name in ("tracer_predictor", "tracer_corrector"):
+            lay = step3d_cuda.tracer_layout(name, t)
+            print(f"[tracer-times] {name} {dtype}: {lay['registers']} "
+                  f"registers and {lay['stack_bytes']} bytes of stack frame "
+                  f"a thread", flush=True)
+        lay = mix3d_cuda.geo_layout(t)
+        print(f"[tracer-times] t3dmix2_geo {dtype}: {lay['registers']} "
+              f"registers a thread, {lay['shared_bytes']} bytes of shared "
+              f"memory a block", flush=True)
+    table = cs.wrappers()
+    cfg, grid, s, ffn = upwelling.build(upwelling.make_config(), device=dev)
+    developed = {
+        "upwelling": (upwelling, stepping.run(cfg.replace(pallas2d=False),
+                                              grid, s, 3, ffn)),
+        "benchmark1": (benchmark, cs.bench_developed(dev)[2])}
+    for case, (model, s) in developed.items():
+        for dtype in ("float64", "float32"):
+            cfg, grid, _, ffn = model.build(model.make_config(dtype=dtype),
+                                            device=dev)
+            state = s.replace(**{k: getattr(s, k).to(grid.h.dtype)
+                                 for k in TENSOR_FIELDS})
+            calls = cs.captured_calls(cfg, grid, state, ffn)
+            if "t3dmix2_geo" not in calls:
+                calls["t3dmix2_geo"] = (cs.geo_args(cfg, grid, calls), {})
+            for name in ("t3dmix2_geo", "tracer_predictor",
+                         "tracer_corrector"):
+                fn = getattr(*table[name][:2])
+                per_call = name in cs.IN_PLACE
+                print(f"[tracer-times] {case} {name} {dtype}: kernel "
+                      f"{cs.device_ms(fn, *calls[name], per_call):.4f} ms, "
+                      f"device "
+                      f"{cs.profiled_ms(fn, *calls[name], per_call):.4f} "
+                      f"ms", flush=True)
 
 
 def main() -> int:
@@ -34,6 +89,10 @@ def main() -> int:
           os.path.dirname(roms_tpu_torch.__file__), flush=True)
     dev = torch.device("cuda:0")
     name = torch.cuda.get_device_name(0)
+    if "--tracer-times" in sys.argv[2:]:
+        print(f"[tracer-times] {name}", flush=True)
+        tracer_times(dev)
+        return 0
     if "--profiles" in sys.argv[2:]:
         chip_smoke.profile(dev)
         chip_smoke.profile(dev, "benchmark")

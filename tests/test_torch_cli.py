@@ -21,7 +21,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def test_cases(capsys):
     assert main(["cases"]) == 0
     assert capsys.readouterr().out.split() == [
-        "basin", "benchmark", "bl_test", "canyon3d", "channel",
+        "basin", "benchmark", "bio_toy", "bl_test", "canyon3d", "channel",
         "channel_neck", "double_gyre", "estuary", "grav_adj", "inlet_test",
         "kelvin", "lab_canyon", "lake_signell", "lmd_test", "mixed_layer",
         "overflow", "riverplume", "riverplume2", "seamount", "sed_test1",

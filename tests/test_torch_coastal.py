@@ -175,7 +175,7 @@ def test_tide_generating_force_moves_benchmark(tmp):
 
 
 @pytest.mark.parametrize("change, kw, feature", [
-    (dict(biology="npzd_powell"), {}, "biology"),
+    (dict(nearshore="mellor08"), {}, "nearshore radiation stress"),
     (dict(bodyforce=True), {}, "BODYFORCE"),
     ({}, dict(collect_diags=True), "budget diagnostics"),
     (dict(nearshore="mellor05"), {}, "nearshore radiation stress"),

@@ -26,7 +26,8 @@ from roms_tpu.config import (Config as JConfig, LBC as JLBC, BC_CLAMPED,
                              BC_SHCHEPETKIN)
 from roms_tpu.grid import build_grid as jbuild_grid, hc_of
 from roms_tpu.ops import advection as jadv, bbl as jbbl, bc as jbc, \
-    obc as jobc, sediment as jsediment, sources as jsrc, vbc as jvbc
+    bio_models as jbio_models, biology as jbiology, obc as jobc, \
+    sediment as jsediment, sources as jsrc, vbc as jvbc
 from roms_tpu.ops.omega import omega as jomega, set_massflux as jmassflux
 from roms_tpu_torch import convert
 from roms_tpu_torch.grid import build_grid as tbuild_grid
@@ -59,14 +60,15 @@ def _close(got, ref, name=""):
 
 def jax_config(cfg):
     """roms_tpu's Config with the field values of the port's (its nested
-    parameter classes from roms_tpu.config, ops.sediment or ops.bbl)."""
+    parameter classes from roms_tpu.config, ops.sediment, ops.bbl,
+    ops.biology or ops.bio_models)."""
     kw = {}
     for f in dataclasses.fields(jconfig.Config):
         val = getattr(cfg, f.name)
         if dataclasses.is_dataclass(val):
             name = type(val).__name__
-            home = next(m for m in (jconfig, jsediment, jbbl)
-                        if hasattr(m, name))
+            home = next(m for m in (jconfig, jsediment, jbbl, jbiology,
+                                    jbio_models) if hasattr(m, name))
             val = getattr(home, name)(**dataclasses.asdict(val))
         kw[f.name] = val
     return jconfig.Config(**kw)

@@ -138,7 +138,7 @@ def test_dispatch_mirrors_jax_gates(case, monkeypatch):
     (dict(bodyforce=True), {}, "BODYFORCE"),
     (dict(nearshore="mellor05"), {}, "nearshore radiation stress"),
     ({}, {"Uwind": 0.0}, "forcing fields"),
-    (dict(biology="npzd_powell"), {}, "biology"),
+    (dict(nearshore="mellor08"), {}, "nearshore radiation stress"),
 ])
 def test_unported_branches_raise(change, frc, feature):
     cfg, grid, s0, ffn = _build("kelvin")

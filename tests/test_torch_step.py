@@ -103,7 +103,7 @@ def _constancy_error(cfg, s):
 @pytest.mark.parametrize("change, kw, feature", [
     (dict(bodyforce=True), {}, "BODYFORCE"),
     ({}, dict(collect_diags=True), "budget diagnostics"),
-    (dict(biology="npzd_powell"), {}, "biology"),
+    (dict(nearshore="mellor08"), {}, "nearshore radiation stress"),
     ({}, dict(stokes=True), "Stokes drift"),
     (dict(nearshore="mellor05"), {}, "nearshore radiation stress"),
 ])
