@@ -3,10 +3,15 @@ each against its plain PyTorch version, drives the UPWELLING and the
 BENCHMARK1 steps through them, and checks the results.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --column-times TREE    # rows 1-4 and 6-10's
-                                                 # times only,
+    python3 chip_smoke.py --column-times TREE [KERNEL ...]
+                                                 # rows 1-4 and 6-10's
+                                                 # times only (or the
+                                                 # KERNELs'),
                                                  # roms_tpu_torch from TREE
     python3 chip_smoke.py --regional             # the build and phase 13
+    python3 chip_smoke.py --regional-long        # the same, with
+                                                 # ESTUARY_TEST's and
+                                                 # RIVERPLUME1's signatures
     python3 chip_smoke.py --coastal              # the build and phase 14
     python3 chip_smoke.py --operators            # the build and phase 15
     python3 chip_smoke.py --cases2               # the build and phase 16
@@ -17,6 +22,9 @@ BENCHMARK1 steps through them, and checks the results.
     python3 chip_smoke.py --sediment-long        # the same, with
                                                  # SED_TEST1's 400 steps
     python3 chip_smoke.py --biology              # the build and phase 18
+    python3 chip_smoke.py --forward              # the build and phase 19
+    python3 chip_smoke.py --forward-long         # the same, with
+                                                 # SHOREFACE's 400 steps
 
 Phases, one or more lines each; any failure exits non-zero:
   1. device: card name and power limit (nvidia-smi), torch and CUDA versions;
@@ -100,11 +108,13 @@ river keep rows 8-11 on their plain versions (the general fast loop):
      of the others; (c) the small cases against
      tests/data/torch_regional_small.npz at CARD_FACTOR x the CPU bounds;
      (d) the physics of roms_tpu's case tests in float64: KELVIN after 24
-     steps (coastal amplitude over twice the offshore), ESTUARY_TEST after
-     720 (6 h: |zeta| > 0.05, salt in [-0.5, 30.5], |u| > 0.05),
-     RIVERPLUME1 after 120 (4 h: salt below S0 - 1 near the source, u
-     exactly 0 on masked faces), with ms/step; (e) ESTUARY_TEST through the
-     CLI (20 steps, HIS and a restart every 10): the restart of step 10 +
+     steps (coastal amplitude over twice the offshore); ESTUARY_TEST after
+     60 steps (salt in [-0.5, 30.5]) and RIVERPLUME1 after 24 (u exactly
+     0 on masked faces, salt under S0 + 0.5 away from the channel), with
+     --regional-long after 720 (6 h: also |zeta| > 0.05, |u| > 0.05) and
+     120 (4 h: also salt below S0 - 1 near the source); with ms/step;
+     (e) ESTUARY_TEST through the CLI (20 steps, HIS and a restart every
+     10): the restart of step 10 +
      10 Simulation steps and 20 straight steps bitwise the restart of step
      20, which holds the GLS fields, and the last HIS record; (f) float32
      ms/step of each case (5 steps) beside (d)'s float64, with its
@@ -239,6 +249,28 @@ the red tide with a cyst map and DIN, EcoSim on 22 tracers):
      arguments and row 5 on them with tnu2 = 500 m2/s for all 22, bitwise,
      timed with their bounds; (f) float32 and float64 ms/step of each case
      with its launches a step.
+Then the last branches of the forward model: FLT_TEST (14x12x4, the
+stresses as body forces, floats), SHOREFACE (59x7x20, the Mellor05
+radiation stress with the Stokes drift, wet/dry, GLS, the SSW layer,
+sand) and the budget diagnostics on UPWELLING (41x80x16):
+ 19. (a) each kernel a case's step launches (rows 1-3, 6-11 on FLT_TEST,
+     row 7 with its BODYFORCE branch; 2, 6, 7 on SHOREFACE, whose active
+     radiation stress keeps 1 and 3 plain and whose bry and wet/dry keep
+     8-11 plain) against its plain version, float64 and float32,
+     untimed; (b) three float64 steps kernels on against off, within
+     1e-12 x max|field| (SHOREFACE's wall fields within roms_tpu's own
+     one-ulp spread there); (c) the small FLT_TEST with floats, SHOREFACE
+     under Mellor05 and Mellor08 and UPWELLING's budget dict against
+     tests/data/torch_forward_small.npz at CARD_FACTOR x the CPU bounds;
+     (d) roms_tpu's float check (40 steps: the floats stay in the basin
+     and move), SHOREFACE finite over 20 steps and, with --forward-long,
+     its wave setup after 400; (e) FLT_TEST through the CLI with restarts,
+     bitwise a straight run; (g) the budgets on UPWELLING: rows 7-9 off,
+     rate the sum of the terms, the state unchanged, the DIA stream
+     through the CLI; (h) row 7 under BODYFORCE on UPWELLING's arguments,
+     bitwise but the column sums, timed with its bound beside the launch
+     without it, and both kernels' registers; (f) float32 and float64
+     ms/step of each case with its launches a step.
 The last two lines are a JSON object of per-kernel results (BENCHMARK1
 float32, launches of phase 10) and a JSON object {"ok": true, "device":
 {...}}.  Without CUDA it exits non-zero and prints no result.
@@ -271,6 +303,8 @@ SEDIMENT_FIXTURE = os.path.join(ROOT, "tests", "data",
                                 "torch_sediment_small.npz")
 BIOLOGY_FIXTURE = os.path.join(ROOT, "tests", "data",
                                "torch_biology_small.npz")
+FORWARD_FIXTURE = os.path.join(ROOT, "tests", "data",
+                               "torch_forward_small.npz")
 # kernels-on against kernels-off over three full-size BENCHMARK1 float64
 # steps, relative to max|field|
 BENCH_EQUIV_RTOL = 1e-9
@@ -1265,6 +1299,11 @@ def biology_fixture_script():
     return _script("torch_biology_fixture")
 
 
+def forward_fixture_script():
+    """scripts/torch_forward_fixture.py as a module."""
+    return _script("torch_forward_fixture")
+
+
 def bench_fixture(device):
     """Phase 9: the small BENCHMARK with the kernels on against the
     fixture, at CARD_FACTOR times the CPU test's bounds."""
@@ -1593,6 +1632,10 @@ REGIONAL_EQUIV_STEPS = 3
 # tests/test_cases_extra.py:73-106: KELVIN 6 h, ESTUARY_TEST 6 h (half an
 # M2 cycle), RIVERPLUME1 4 h
 REGIONAL_PHYSICS_STEPS = {"kelvin": 24, "estuary": 720, "riverplume": 120}
+# the default run's ESTUARY_TEST and RIVERPLUME1 (their signatures take
+# 300-430 s of the general plain fast loop: --regional-long): finite, the
+# salt within its bounds, u 0 on masked faces
+REGIONAL_SHORT_STEPS = {"kelvin": 24, "estuary": 60, "riverplume": 24}
 # float32 steps timed on every phase-13 and phase-14 case
 TIMED_STEPS = 5
 # steps of the CLI runs with restarts (HIS and a restart every half)
@@ -1667,13 +1710,13 @@ def regional_equivalence(device, name, cfg, grid, s0, ffn):
 
 
 def kernels_on_off(tag, name, cfg, grid, s0, ffn, kernels, fx, n,
-                   rtol=BENCH_EQUIV_RTOL, keep=None):
+                   rtol=BENCH_EQUIV_RTOL, keep=None, bounds=None):
     """n float64 steps from s0 with the kernels on against
     cfg.pallas2d=False, every field fx.fields_of(name) lists within
     rtol x max|field| (a v-like field against its u-like partner's max
-    too), one launch a step of each of `kernels` and none of the others;
-    returns the launches a step, and puts the kernels-on state in
-    keep[name] where `keep` is given."""
+    too; bounds[field] instead where given), one launch a step of each of
+    `kernels` and none of the others; returns the launches a step, and
+    puts the kernels-on state in keep[name] where `keep` is given."""
     import torch
     from roms_tpu_torch import stepping
     table = {k: getattr(mod, attr) for k, (mod, attr, _) in
@@ -1689,11 +1732,14 @@ def kernels_on_off(tag, name, cfg, grid, s0, ffn, kernels, fx, n,
           f"{launches}", flush=True)
     check(launches == want, f"{name}: launches {launches}, not {want}")
     errs = _rel_errors(name, fx, s_on, s_off)
+    bounds = bounds or {}
     worst = max(e for e, _ in errs.values())
     print(f"[{tag}] {name}: |kernels on - off| / max|field| "
           + ", ".join(f"{k} {e:.3e}" for k, (e, _) in errs.items())
-          + f"; worst {worst:.3e} (bound {rtol:g})", flush=True)
-    check(all(f and e <= rtol for e, f in errs.values()),
+          + f"; worst {worst:.3e} (bound {rtol:g}"
+          + "".join(f", {k} {b:g}" for k, b in bounds.items()) + ")",
+          flush=True)
+    check(all(f and e <= bounds.get(k, rtol) for k, (e, f) in errs.items()),
           f"{name}: kernels on and off disagree")
     if keep is not None:
         keep[name] = s_on
@@ -1721,16 +1767,19 @@ def regional_fixture(device):
         check(not bad, f"the small {name} misses its fixture: {bad}")
 
 
-def regional_physics(device, smi):
+def regional_physics(device, smi, long=False):
     """Phase 13 (d): the physics signatures of roms_tpu's case tests, at
-    the published sizes in float64; returns {case: (ms/step, steps)}."""
+    the published sizes in float64 (ESTUARY_TEST's and RIVERPLUME1's
+    only when `long`, else their short runs' bounds); returns {case:
+    (ms/step, steps)}."""
     import numpy as np
     import torch
     from roms_tpu_torch import stepping
     ms = {}
     for name in REGIONAL:
         cfg, grid, s0, ffn = regional_case(name, device)
-        n = REGIONAL_PHYSICS_STEPS[name]
+        n = (REGIONAL_PHYSICS_STEPS if long else REGIONAL_SHORT_STEPS)[name]
+        signature = n == REGIONAL_PHYSICS_STEPS[name]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         s = stepping.run(cfg, grid, s0, n, ffn)
@@ -1754,22 +1803,28 @@ def regional_physics(device, smi):
                   flush=True)
         elif name == "estuary":
             umax = float(np.abs(s.u.cpu().numpy()).max())
-            ok = finite and np.abs(z).max() > 0.05 and \
-                salt.min() > -0.5 and salt.max() < 30.5 and umax > 0.05
-            print(f"{head}; max|zeta| {np.abs(z).max():.4f} m (> 0.05), "
+            ok = finite and salt.min() > -0.5 and salt.max() < 30.5
+            tide = ""
+            if signature:
+                ok = ok and np.abs(z).max() > 0.05 and umax > 0.05
+                tide = " (> 0.05)"
+            print(f"{head}; max|zeta| {np.abs(z).max():.4f} m{tide}, "
                   f"salt in [{salt.min():.4f}, {salt.max():.4f}] (within "
-                  f"[-0.5, 30.5]), max|u| {umax:.4f} m/s (> 0.05)  "
+                  f"[-0.5, 30.5]), max|u| {umax:.4f} m/s{tide}  "
                   f"{'OK' if ok else 'FAIL'}", flush=True)
         else:
             masked = float(np.abs(s.u.cpu().numpy() *
                                   (1.0 - grid.umask.cpu().numpy())).max())
-            ok = finite and salt.min() < cfg.S0 - 1.0 and \
-                salt[:, :, 4:].max() < cfg.S0 + 0.5 and masked == 0.0
-            print(f"{head}; min salt {salt.min():.4f} (< S0 - 1 = "
-                  f"{cfg.S0 - 1.0:g}), max salt away from the channel "
-                  f"{salt[:, :, 4:].max():.4f} (< S0 + 0.5), max|u| on "
-                  f"masked faces {masked:g} (= 0)  {'OK' if ok else 'FAIL'}",
-                  flush=True)
+            ok = finite and salt[:, :, 4:].max() < cfg.S0 + 0.5 and \
+                masked == 0.0
+            plume = ""
+            if signature:
+                ok = ok and salt.min() < cfg.S0 - 1.0
+                plume = f" (< S0 - 1 = {cfg.S0 - 1.0:g})"
+            print(f"{head}; min salt {salt.min():.4f}{plume}, max salt "
+                  f"away from the channel {salt[:, :, 4:].max():.4f} (< S0 "
+                  f"+ 0.5), max|u| on masked faces {masked:g} (= 0)  "
+                  f"{'OK' if ok else 'FAIL'}", flush=True)
         check(ok, f"{name}: the physics signature failed")
     return ms
 
@@ -1778,8 +1833,8 @@ def cli_restart_check(device, tag, case, fields, evolved):
     """`case` through the CLI with HIS and restarts: a restart plus the
     remaining steps through Simulation, and the straight run, bitwise
     equal to the last restart, which holds `fields`, `evolved` among them
-    changed from the initial state; the last HIS salt record bitwise the
-    restart's."""
+    changed from the initial state; the last HIS salt record (temperature
+    on a one-tracer case) bitwise the restart's."""
     import io
     import tempfile
     import numpy as np
@@ -1826,12 +1881,15 @@ def cli_restart_check(device, tag, case, fields, evolved):
                       for k in TENSOR_FIELDS)
         whole = all(torch.equal(getattr(straight, k), getattr(last, k))
                     for k in TENSOR_FIELDS)
-        record = _same(cfg, h["salt"][-1], last.t[1])
+        tracer = 1 if cfg.ntracers > 1 else 0
+        record = _same(cfg, h[("temp", "salt")[tracer]][-1],
+                       last.t[tracer])
         print(f"[{tag}-cli] restart of step {half} + {n - half} Simulation "
               f"steps bitwise the restart of step {n}: {resumed}; {n} "
               f"straight steps bitwise it: {whole}; {', '.join(fields)} in "
-              f"the restart and {evolved} evolved: {held}; last HIS salt "
-              f"record bitwise it: {record}", flush=True)
+              f"the restart and {evolved} evolved: {held}; last HIS "
+              f"{('temp', 'salt')[tracer]} record bitwise it: {record}",
+              flush=True)
         check(resumed and whole, "the restarted run is not the straight run")
         check(held, f"{', '.join(fields)} are not in the restart")
         check(record, "the HIS record is not the restart's state")
@@ -1868,15 +1926,17 @@ def case_times(tag, names, case_fn, smi, launches, ms64=None):
 
 def case_family_phase(tag, phase, smi, names, case_fn, kernels, fx,
                       equiv_steps, parts, tiles=(),
-                      equiv_rtol=BENCH_EQUIV_RTOL, keep=None):
+                      equiv_rtol=BENCH_EQUIV_RTOL, keep=None,
+                      equiv_bounds=None):
     """The frame of phases 13, 15 and 16 over the cases `names` at their
     published sizes (case_fn(name, dtype) builds one on the card):
     (a) every kernel each case's step launches against its plain version
     on that step's arguments, three plain float64 steps from rest, after
     the column tiles of the cases `tiles`; (b) kernels on against off
     over equiv_steps steps (or equiv_steps[name]), held to fixture module
-    fx's fields within equiv_rtol x max|field|, the kernels-on states
-    into `keep` where given; then
+    fx's fields within equiv_rtol x max|field| (equiv_bounds[name][field]
+    instead where given), the kernels-on states into `keep` where given;
+    then
     each (label, fn) of `parts` in turn, fn() returning None or the
     float64 {case: (ms/step, steps)} of its longer runs; and (f) float32
     and float64 ms/step (those from the parts where they gave them) with
@@ -1905,7 +1965,8 @@ def case_family_phase(tag, phase, smi, names, case_fn, kernels, fx,
     launches = {name: kernels_on_off(
         f"{tag}-equiv", name, *developed[name], kernels[name], fx,
         equiv_steps[name] if isinstance(equiv_steps, dict) else equiv_steps,
-        equiv_rtol, keep) for name in names}
+        equiv_rtol, keep, (equiv_bounds or {}).get(name))
+        for name in names}
     del developed
     lap("b")
     ms64 = {}
@@ -1919,17 +1980,18 @@ def case_family_phase(tag, phase, smi, names, case_fn, kernels, fx,
           flush=True)
 
 
-def regional_phase(device, smi):
+def regional_phase(device, smi, long=False):
     """Phase 13: KELVIN, ESTUARY_TEST and RIVERPLUME1 at their published
     sizes: (a) kernels against plain on each case's arguments, (b) kernels
-    on against off, (c) the small fixture, (d) the physics signatures,
-    (e) ESTUARY_TEST through the CLI with restarts, (f) ms/step."""
+    on against off, (c) the small fixture, (d) the physics signatures
+    (ESTUARY_TEST's and RIVERPLUME1's only when `long`), (e) ESTUARY_TEST
+    through the CLI with restarts, (f) ms/step."""
     case_family_phase(
         "regional", 13, smi, REGIONAL,
         lambda n, d: regional_case(n, device, d), REGIONAL_KERNELS,
         regional_fixture_script(), REGIONAL_EQUIV_STEPS,
         [("c", lambda: regional_fixture(device)),
-         ("d", lambda: regional_physics(device, smi)),
+         ("d", lambda: regional_physics(device, smi, long)),
          ("e", lambda: cli_restart_check(device, "regional", "estuary",
                                          GLS_FIELDS, "tke"))])
 
@@ -3279,21 +3341,320 @@ def biology_phase(device, smi):
         equiv_rtol=BIOLOGY_EQUIV_RTOL, keep=keep)
 
 
-def column_times(device):
-    """`--column-times TREE`: the time a call of rows 1-4 and 6-10, with
-    the host's time (device_ms) and on the device alone (profiled_ms), on
-    the arguments the UPWELLING and BENCHMARK1 steps give them, f64 and
-    f32 (uv3dmix2 on fresh copies for each call), with roms_tpu_torch
-    imported from TREE, so that two trees' kernels can be timed in turn in
-    one run."""
+# phase 19: the last branches of the forward model.  FLT_TEST (14x12x4,
+# the stresses as body forces: row 7's BODYFORCE branch, with every row
+# but 4 and 5) with its floats, SHOREFACE (59x7x20: the Mellor05 radiation
+# stress with the Stokes drift keeps rows 1 and 3 plain, its bry and
+# wet/dry rows 8-11) and the budget diagnostics on UPWELLING (41x80x16:
+# rows 7-9 off, the momentum phase staged).
+FORWARD = ("flt_test", "shoreface")
+FORWARD_KERNELS = {
+    "flt_test": _DIAG3 + ("prsgrd32", "rhs3d") + _COLUMN_ROWS,
+    "shoreface": ("omega", "prsgrd32", "rhs3d")}
+FORWARD_EQUIV_STEPS = 3
+FORWARD_EQUIV_RTOL = 1e-12
+# roms_tpu's float check (tests/test_cases3.py:52-84), SHOREFACE's short
+# run and its wave setup (tests/test_cases3.py:199-215, --forward-long)
+FORWARD_PHYSICS_STEPS = {"flt_test": 40, "shoreface": 20,
+                         "shoreface_setup": 400, "dia": 3}
+# row 7's BODYFORCE level ranges inside UPWELLING's 16 levels
+BODYFORCE_LEVELS = (12, 4)
+
+
+forward_case = functools.partial(model_case, "cases2")
+
+
+def flt_floats(cfg, grid, s, fl):
+    """One float step after a model step: omega from the state's fluxes
+    (tests/test_cases3.py:68-74)."""
+    from roms_tpu_torch import floats, vgrid
+    from roms_tpu_torch.grid import hc_of
+    from roms_tpu_torch.ops.omega import omega, set_massflux
+    _, z_w, Hz = vgrid.set_depth(grid.h, s.zeta, hc_of(cfg), grid.sc_r,
+                                 grid.Cs_r, grid.sc_w, grid.Cs_w,
+                                 cfg.vtransform)
+    Huon, Hvom = set_massflux(cfg, grid, s.u, s.v, Hz)
+    W = omega(cfg, grid, Huon, Hvom, z_w)
+    return floats.step_floats(cfg, grid, s.u, s.v, W, Hz, fl)
+
+
+def forward_physics(device, smi, long):
+    """Phase 19 (d): roms_tpu's FLT_TEST float check (40 float64 steps, the
+    floats stepped after each: inside the basin and moved by the wind),
+    SHOREFACE finite over 20 steps, and with `long` its wave setup after
+    400 (tests/test_cases3.py:199-215); ms/step."""
+    import numpy as np
+    import torch
+    from roms_tpu_torch import floats, stepping
+    ms = {}
+    cfg, grid, s, ffn = forward_case("flt_test", device)
+    H = cfg.halo
+    x0, y0 = np.meshgrid(np.arange(3.0, 6.0), np.arange(4.0, 7.0))
+    fl = floats.init_floats(x0.ravel() + H - 0.5, y0.ravel() + H - 0.5,
+                            np.full(9, -5.0), device=device)
+    n = FORWARD_PHYSICS_STEPS["flt_test"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        s = stepping.step(cfg, grid, s, ffn)
+        fl = flt_floats(cfg, grid, s, fl)
+    torch.cuda.synchronize()
+    ms["flt_test"] = ((time.perf_counter() - t0) * 1e3 / n, n)
+    xg, yg = fl.xg[0].cpu().numpy(), fl.yg[0].cpu().numpy()
+    moved = float(np.abs(xg - x0.ravel() - H + 0.5).max())
+    inside = bool((xg > H - 1).all() and (xg < H + cfg.Lm).all() and
+                  (yg > H - 1).all() and (yg < H + cfg.Mm).all())
+    finite = all(bool(torch.isfinite(getattr(s, k)).all())
+                 for k in ("zeta", "u", "v", "t")) and \
+        bool(np.isfinite(xg).all() and np.isfinite(yg).all())
+    ok = finite and inside and moved > 1e-3
+    print(f"[forward-physics] flt_test {cfg.Lm}x{cfg.Mm}x{cfg.N}, {n} "
+          f"float64 steps with 9 floats stepped after each: "
+          f"{ms['flt_test'][0]:.1f} ms/step on {smi}; floats inside the "
+          f"basin: {inside}, moved up to {moved:.4e} cells (> 1e-3), "
+          f"finite={finite}  {'OK' if ok else 'FAIL'}", flush=True)
+    check(ok, "FLT_TEST: the floats left the basin or did not move")
+
+    runs = [("shoreface", FORWARD_PHYSICS_STEPS["shoreface"])]
+    if long:
+        runs.append(("shoreface_setup",
+                     FORWARD_PHYSICS_STEPS["shoreface_setup"]))
+    for name, n in runs:
+        cfg, grid, s, ffn = forward_case("shoreface", device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s = stepping.run(cfg, grid, s, n, ffn)
+        torch.cuda.synchronize()
+        ms[name] = ((time.perf_counter() - t0) * 1e3 / n, n)
+        finite = all(bool(torch.isfinite(getattr(s, k)).all()) for k in
+                     ("zeta", "ubar", "vbar", "u", "v", "t", "tke", "gls"))
+        what, ok = "", finite
+        if name == "shoreface_setup":
+            z, h = s.zeta.cpu().numpy(), grid.h.cpu().numpy()
+            H = cfg.halo
+            jj, shoal = slice(H, H + cfg.Mm), slice(H + 40, H + 50)
+            wet = h > 0.5
+            inner = float(z[jj, shoal][wet[jj, shoal]].mean())
+            outer = float(z[jj, H:H + 10].mean())
+            ok = finite and inner > outer + 1e-4
+            what = (f"; mean zeta in the shoaling zone {inner:.5f} m, "
+                    f"offshore {outer:.5f} m (setup > 1e-4)")
+        print(f"[forward-physics] {name} {cfg.Lm}x{cfg.Mm}x{cfg.N}, {n} "
+              f"float64 steps: {ms[name][0]:.1f} ms/step on {smi}; "
+              f"finite={finite}{what}  {'OK' if ok else 'FAIL'}",
+              flush=True)
+        check(ok, f"{name}: not finite or no wave setup")
+    return {k: v for k, v in ms.items() if k in FORWARD}
+
+
+def forward_fixture(device):
+    """Phase 19 (c): FLT_TEST with its floats, the small SHOREFACE under
+    Mellor05 and Mellor08 and UPWELLING's budget dict with the kernels on
+    against tests/data/torch_forward_small.npz, at CARD_FACTOR times the
+    CPU test's bounds."""
+    import numpy as np
+    fx = forward_fixture_script()
+    ref = np.load(fx.OUT)
+    for name in fx.CASES:
+        cfg, grid, s0, ffn = fx.build_port(name, device=device)
+        _, outs = fx.run_port(name, cfg, grid, s0, ffn)
+        errors = fx.errors(name, cfg, s0, outs, ref, factor=CARD_FACTOR)
+        worst = max(errors.items(), key=lambda kv: kv[1][0] / kv[1][1])
+        print(f"[forward-fixture] {name}: worst against its bound: "
+              f"{worst[0]} {worst[1][0]:.3e} (bound {worst[1][1]:g})",
+              flush=True)
+        bad = {k: e for k, e in errors.items() if not e[0] <= e[1]}
+        check(not bad, f"the small {name} misses its fixture: {bad}")
+
+
+def forward_dia(device):
+    """Phase 19 (g): the budgets on UPWELLING 41x80x16 in float64: three
+    steps with collect_diags, one launch a step of rows 1-4, 6, 10 and
+    11 and none of rows 7-9, rate the sum of the momentum terms, the
+    tracer terms integrating to zero; with the kernels off the state
+    bitwise the state of the same steps without the budgets; with them
+    on, where the budgets keep rows 7-9 plain, the state against the
+    steps without the budgets (rows 7-9 on) within FORWARD_EQUIV_RTOL x
+    max|field|; and the DIA stream through the CLI (a JSON run file with
+    dia_file and ndia: four steps, two records)."""
+    import io
+    import tempfile
+    import torch
+    from roms_tpu_torch import stepping, vgrid
+    from roms_tpu_torch.__main__ import main as cli
+    from roms_tpu_torch.grid import hc_of
+    from roms_tpu_torch.io.netcdf import read_history
+    from roms_tpu_torch.models import upwelling
+    from roms_tpu_torch.state import TENSOR_FIELDS
+    cfg, grid, s0, ffn = upwelling.build(upwelling.make_config(),
+                                         device=device)
+    n = FORWARD_PHYSICS_STEPS["dia"]
+
+    def dia_run(c):
+        s = s0
+        for _ in range(n):
+            s, dia = stepping.step(c, grid, s, ffn, collect_diags=True)
+        return s, dia
+
+    terms = ("prestep", "hvisc", "prsgrd", "cor", "xadv", "yadv", "vadv",
+             "vvisc")
+    table = {k: getattr(mod, attr) for k, (mod, attr, _) in
+             wrappers().items()}
+    for w in table.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    s_on, dia = dia_run(cfg)
+    torch.cuda.synchronize()
+    ms_dia = (time.perf_counter() - t0) * 1e3 / n
+    launches = {k: w.launches / n for k, w in table.items() if w.launches}
+    want = {"grid_flux", "eos", "omega", "uv3dmix2", "prsgrd32",
+            "uv_corrector", "fast_loop"}
+    close = max(float((sum(dia[f"{c}_{k}"] for k in terms) -
+                       dia[f"{c}_rate"]).abs().max() /
+                      dia[f"{c}_rate"].abs().max()) for c in "uv")
+    H = cfg.halo
+    jj, ii = slice(H, H + cfg.Mm), slice(H, H + cfg.Lm)
+    _, _, Hz = vgrid.set_depth(grid.h, s_on.zeta, hc_of(cfg), grid.sc_r,
+                               grid.Cs_r, grid.sc_w, grid.Cs_w,
+                               cfg.vtransform)
+    vol = Hz[:, jj, ii] * grid.omn[jj, ii]
+    net = max(abs(float((dia[k][0][:, jj, ii] * vol).sum())) /
+              max(float((dia[k][0][:, jj, ii].abs() * vol).sum()), 1e-300)
+              for k in ("yadv", "vadv", "vdiff"))
+    off = cfg.replace(pallas2d=False)
+    s_off, _ = dia_run(off)
+    plain = stepping.run(off, grid, s0, n, ffn)
+    bitwise = all(torch.equal(getattr(s_off, k), getattr(plain, k))
+                  for k in TENSOR_FIELDS)
+    t0 = time.perf_counter()
+    kern = stepping.run(cfg, grid, s0, n, ffn)
+    torch.cuda.synchronize()
+    ms_plain = (time.perf_counter() - t0) * 1e3 / n
+    diff = max(float((getattr(s_on, k) - getattr(kern, k)).abs().max()) /
+               max(float(getattr(kern, k).abs().max()), 1e-300)
+               for k in ("zeta", "ubar", "u", "t"))
+    ok = close <= 1e-12 and net <= 1e-9 and bitwise and \
+        diff <= FORWARD_EQUIV_RTOL and launches == dict.fromkeys(want, 1.0)
+    print(f"[forward-dia] upwelling {cfg.Lm}x{cfg.Mm}x{cfg.N}, {n} float64 "
+          f"steps with the budgets: {ms_dia:.1f} ms/step (without: "
+          f"{ms_plain:.1f}); kernel launches a step {launches} (rows 7-9 "
+          f"off); |rate - sum of terms| / max|rate| {close:.3e} "
+          f"(<= 1e-12); worst |net| / gross of yadv, vadv, vdiff "
+          f"{net:.3e} (<= 1e-9); kernels off: the state bitwise the one "
+          f"without the budgets: {bitwise}; kernels on (rows 7-9 off with "
+          f"the budgets) against the steps without them: {diff:.3e} x "
+          f"max|field| (<= {FORWARD_EQUIV_RTOL:g})  "
+          f"{'OK' if ok else 'FAIL'}", flush=True)
+    check(ok, "the budgets do not close or change the state")
+    with tempfile.TemporaryDirectory() as tmp:
+        run = os.path.join(tmp, "dia.json")
+        path = os.path.join(tmp, "dia.nc")
+        with open(run, "w") as f:
+            json.dump({"case": "upwelling", "nsteps": 4,
+                       "output": {"dia_file": path, "ndia": 2}}, f)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli(["run", run, "--device", str(device), "--ninfo", "0"])
+        d = read_history(path) if rc == 0 else {}
+        ok = rc == 0 and len(d.get("ocean_time", ())) == 2 and all(
+            k in d for k in ("temp_hdiff", "salt_vdiff", "u_vvisc",
+                             "v_prsgrd"))
+        print(f"[forward-dia] python -m roms_tpu_torch run dia.json (4 "
+              f"steps, dia_file and ndia = 2): exit {rc}, "
+              f"{len(d.get('ocean_time', ()))} DIA records, "
+              f"{len(d)} variables  {'OK' if ok else 'FAIL'}", flush=True)
+        check(ok, "the DIA stream through the CLI")
+
+
+def bodyforce_rows(device):
+    """Phase 19 (h): row 7 under BODYFORCE on UPWELLING 41x80x16 with the
+    surface levels from BODYFORCE_LEVELS[0] and the bottom levels up to
+    BODYFORCE_LEVELS[1] (three plain float64 steps from rest, the step's
+    arguments), float64 and float32, against its plain version (ru, rv,
+    u_nnew, v_nnew bitwise: the level sums run in k order in both), timed
+    with its bound beside the same launch without BODYFORCE; and both
+    kernels' registers and stack frames."""
+    import torch
+    from roms_tpu_torch import stepping
+    from roms_tpu_torch.models import upwelling
+    from roms_tpu_torch.ops import rhs3d_cuda
+    from roms_tpu_torch.state import TENSOR_FIELDS
+    ks, kb = BODYFORCE_LEVELS
+    cfg, grid, s, ffn = upwelling.build(upwelling.make_config(),
+                                        device=device)
+    s = stepping.run(cfg.replace(pallas2d=False), grid, s, 3, ffn)
+    for dtype in ("float64", "float32"):
+        cfg, grid, _, ffn = upwelling.build(
+            upwelling.make_config(dtype=dtype), device=device)
+        state = s.replace(**{k: getattr(s, k).to(grid.h.dtype)
+                             for k in TENSOR_FIELDS})
+        bf = cfg.replace(bodyforce=True, levsfrc=ks, levbfrc=kb)
+        args, kw = captured_calls(bf, grid, state, ffn)["rhs3d"]
+        check_variants("forward-rhs3d", grid, [
+            (f"rhs3d[bodyforce {ks}..{cfg.N}, 1..{kb}]", "rhs3d", args,
+             kw),
+            ("rhs3d", "rhs3d", (cfg,) + args[1:], kw)], dtype, {})
+        t = getattr(torch, dtype)
+        lay = rhs3d_cuda.rhs3d_layout(t)
+        body = rhs3d_cuda.rhs3d_layout(t, bodyforce=True)
+        plan = rhs3d_cuda.rhs3d_plan(t, cfg.N, cfg.ny_tot, cfg.nx_tot,
+                                     bodyforce=True)
+        print(f"[forward-rhs3d] rhs3d {dtype}: {lay['registers']} "
+              f"registers and {lay['stack_bytes']} bytes of stack frame a "
+              f"thread; its BODYFORCE kernel {body['registers']} and "
+              f"{body['stack_bytes']}, tile {plan['tile'][0]}x"
+              f"{plan['tile'][1]}, {plan['levels']} level slot(s), "
+              f"{plan['smem_bytes']} bytes of shared memory", flush=True)
+
+
+def forward_phase(device, smi, long=False):
+    """Phase 19: FLT_TEST and SHOREFACE at their published sizes: (a)
+    kernels against plain on each case's arguments (row 7 under
+    BODYFORCE on FLT_TEST's), (b) kernels on against off, (c) the small
+    fixture, (d) the float check and SHOREFACE's run (its 400-step setup
+    only when `long`), (e) FLT_TEST through the CLI with restarts, (g) the
+    budgets and the DIA stream on UPWELLING, (h) row 7 under BODYFORCE on
+    UPWELLING, timed, (f) ms/step."""
+    case_family_phase(
+        "forward", 19, smi, FORWARD,
+        lambda n, d: forward_case(n, device, d), FORWARD_KERNELS,
+        forward_fixture_script(), FORWARD_EQUIV_STEPS,
+        [("c", lambda: forward_fixture(device)),
+         ("d", lambda: forward_physics(device, smi, long)),
+         ("e", lambda: cli_restart_check(device, "forward", "flt_test",
+                                         ("t", "u", "ru_prev"), "u")),
+         ("g", lambda: forward_dia(device)),
+         ("h", lambda: bodyforce_rows(device))],
+        equiv_rtol=FORWARD_EQUIV_RTOL,
+        # SHOREFACE's zeta and sand at its closed east wall: roms_tpu's own
+        # one-ulp spread there, which the column sums' order reaches
+        equiv_bounds={"shoreface":
+                      forward_fixture_script().WALL_BOUND})
+
+
+def column_times(device, names=()):
+    """`--column-times TREE [KERNEL ...]`: the time a call of rows 1-4 and
+    6-10 (or of the KERNELs named), with the host's time (device_ms) and
+    on the device alone (profiled_ms), on the arguments the UPWELLING and
+    BENCHMARK1 steps give them, f64 and f32 (uv3dmix2 on fresh copies for
+    each call), and rhs3d's registers and stack frame, with
+    roms_tpu_torch imported from TREE, so that two trees' kernels can be
+    timed in turn in one run."""
+    import torch
     import roms_tpu_torch
     from roms_tpu_torch import stepping
     from roms_tpu_torch.models import benchmark, upwelling
     from roms_tpu_torch.state import TENSOR_FIELDS
 
+    from roms_tpu_torch.ops import rhs3d_cuda
     print(f"[column-times] roms_tpu_torch from "
           f"{os.path.dirname(os.path.abspath(roms_tpu_torch.__file__))}",
           flush=True)
+    for dtype in ("float64", "float32"):
+        lay = rhs3d_cuda.rhs3d_layout(getattr(torch, dtype))
+        print(f"[column-times] rhs3d {dtype}: {lay['registers']} "
+              f"registers, {lay['stack_bytes']} bytes of stack frame a "
+              f"thread", flush=True)
     table = wrappers()
     cfg, grid, s, ffn = upwelling.build(upwelling.make_config(),
                                         device=device)
@@ -3308,9 +3669,10 @@ def column_times(device):
             state = s.replace(**{k: getattr(s, k).to(grid.h.dtype)
                                  for k in TENSOR_FIELDS})
             calls = captured_calls(cfg, grid, state, ffn)
-            for name in ("grid_flux", "eos", "omega", "uv3dmix2",
-                         "prsgrd32", "rhs3d", "tracer_predictor",
-                         "tracer_corrector", "uv_corrector"):
+            for name in names or (
+                    "grid_flux", "eos", "omega", "uv3dmix2", "prsgrd32",
+                    "rhs3d", "tracer_predictor", "tracer_corrector",
+                    "uv_corrector"):
                 fn = getattr(*table[name][:2])
                 per_call = name in IN_PLACE
                 print(f"[column-times] {case} {name} {dtype}: kernel "
@@ -3332,7 +3694,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     timing = sys.argv[1:2] == ["--column-times"]
-    regional_only = sys.argv[1:2] == ["--regional"]
+    regional_only = sys.argv[1:2] in (["--regional"], ["--regional-long"])
+    regional_long = sys.argv[1:2] == ["--regional-long"]
     coastal_only = sys.argv[1:2] == ["--coastal"]
     operators_only = sys.argv[1:2] == ["--operators"]
     cases2_only = sys.argv[1:2] in (["--cases2"], ["--cases2-long"])
@@ -3340,6 +3703,8 @@ def main() -> int:
     sediment_only = sys.argv[1:2] in (["--sediment"], ["--sediment-long"])
     sediment_long = sys.argv[1:2] == ["--sediment-long"]
     biology_only = sys.argv[1:2] == ["--biology"]
+    forward_only = sys.argv[1:2] in (["--forward"], ["--forward-long"])
+    forward_long = sys.argv[1:2] == ["--forward-long"]
     sys.path.insert(0, os.path.abspath(sys.argv[2]) if timing else ROOT)
     try:
         import roms_tpu_torch  # noqa: F401
@@ -3350,7 +3715,7 @@ def main() -> int:
         return 2
     for path in (ANCHOR, BENCH_FIXTURE, REGIONAL_FIXTURE, COASTAL_FIXTURE,
                  OPERATORS_FIXTURE, CASES2_FIXTURE, SEDIMENT_FIXTURE,
-                 BIOLOGY_FIXTURE):
+                 BIOLOGY_FIXTURE, FORWARD_FIXTURE):
         if not os.path.exists(path):
             print(f"chip_smoke: missing {path}", file=sys.stderr)
             return 2
@@ -3360,7 +3725,7 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     if timing:
         print(f"[device] {name}; {nvidia_smi()}", flush=True)
-        column_times(device)
+        column_times(device, sys.argv[3:])
         return 0
     try:
         smi = nvidia_smi()
@@ -3380,7 +3745,7 @@ def main() -> int:
                 print(f"[build] {line.strip()}")
 
         if regional_only:
-            regional_phase(device, smi)
+            regional_phase(device, smi, long=regional_long)
             return 0
         if coastal_only:
             coastal_phase(device, smi)
@@ -3396,6 +3761,9 @@ def main() -> int:
             return 0
         if biology_only:
             biology_phase(device, smi)
+            return 0
+        if forward_only:
+            forward_phase(device, smi, long=forward_long)
             return 0
         results = {}
         kernel_checks(results, device)
@@ -3417,6 +3785,7 @@ def main() -> int:
         cases2_phase(device, smi)
         sediment_phase(device, smi)
         biology_phase(device, smi)
+        forward_phase(device, smi)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

@@ -4,12 +4,15 @@
 //
 //   start (optional) - u_nnew/v_nnew: the AB3 history terms and the
 //                      surface - bottom stress fluxes (pre_step3d.py
-//                      momentum_init);
+//                      momentum_init; zero under BODYFORCE);
 //   terms            - Coriolis, curvilinear metric terms, U3 horizontal
 //                      and C4 vertical advection added to the pressure
-//                      gradient ru/rv;
+//                      gradient ru/rv; under BODYFORCE also the surface
+//                      and bottom stresses as body forces over the levels
+//                      k >= levsfrc - 1 and k < levbfrc (rhs3d.py);
 //   column sum       - the barotropic forcing rufrc = sum_k ru + (surface
-//                      - bottom stress) om on.
+//                      - bottom stress) om on, without the stresses under
+//                      BODYFORCE.
 //
 // Replaces the TPU kernel roms_tpu/ops/rhs3d_pallas.py::rhs3d_fused (two
 // pallas_calls a direction, split for the TPU's VMEM) and the XLA
@@ -45,6 +48,11 @@
 // edge extrapolations of U3 (bc.extrap_*) are index shifts of the second
 // differences' centres, tabled once a block (bc.cuh extrap_src); they move
 // a centre by one point at most, so a face reads its region only.
+// Under BODYFORCE, slot 0 forms each point's two body-force coefficients a
+// direction before the levels start (the stress over the column sums of Hz
+// over the surface and bottom level ranges at the point and its i-1 or j-1
+// neighbour, each sum in k order as rhs3d.level_sum adds it) and keeps
+// them in shared memory for every slot.
 // Neighbours wrap modulo the padded extent, as torch.roll does, so every
 // padded point is computed, halo included.  Every value keeps the plain
 // version's expression and operation order, so ru, rv, u_nnew and v_nnew
@@ -73,6 +81,10 @@ struct RhsParams {
   int start;   // compute momentum_init's u_nnew/v_nnew too
   RhsPlan plan;
   double dt, a1, a2;
+  // after the fields above, whose offsets stay those of the kernel
+  // without BODYFORCE
+  int bodyforce;   // cfg.bodyforce (the kernel's kBody)
+  int ks, kb;      // its surface levels ks..N-1 and bottom levels 0..kb-1
 };
 
 template <typename T>
@@ -94,17 +106,19 @@ struct RhsLayout {
       : rx(tx + 6), ry(ty + 6), ra((tx + 6) * (ty + 6)), fw(tx + 1),
         fa((tx + 1) * (ty + 1)), npts(tx * ty) {}
   // words of T: a slot's two sets of 6 planes and its 8 face arrays; fomn,
-  // dndx and dmde; the start's DC0 of each point and direction
-  __host__ __device__ constexpr int words(int ks) const {
-    return ks * (12 * ra + 8 * fa) + 3 * fa + 2 * npts;
+  // dndx and dmde; the start's DC0 of each point and direction; under
+  // BODYFORCE (bf) the surface and bottom coefficients of each
+  __host__ __device__ constexpr int words(int ks, int bf) const {
+    return ks * (12 * ra + 8 * fa) + 3 * fa + (bf ? 6 : 2) * npts;
   }
   // ints: the region's padded offsets and the faces' edge shifts
   __host__ __device__ constexpr int ints() const { return ra + fa; }
 };
 
-__host__ __device__ constexpr int rhs3d_smem(int tx, int ty, int ks,
+__host__ __device__ constexpr int rhs3d_smem(int tx, int ty, int ks, int bf,
                                              int word) {
-  return RhsLayout(tx, ty).words(ks) * word + RhsLayout(tx, ty).ints() * 4;
+  return RhsLayout(tx, ty).words(ks, bf) * word +
+         RhsLayout(tx, ty).ints() * 4;
 }
 
 constexpr double kGadv = -0.25;   // rhs3d.py GADV
@@ -173,11 +187,12 @@ __device__ __forceinline__ int edge_shift(int bits, int f) {
   return ((bits >> (2 * f)) & 3) - 1;
 }
 
-// The tile (bx, by) of block tid's thread; sm: rhs3d_smem bytes.
-// slot_sync() is the barrier of the thread's level slot (the tile's
-// points); every thread reaches every barrier of its slot, and every
-// __syncthreads().
-template <typename T, class Sync>
+// The tile (bx, by) of block tid's thread; sm: rhs3d_smem bytes; kBody:
+// BODYFORCE (P.bodyforce), a kernel of its own, so that the kernel without
+// it is the one it was.  slot_sync() is the barrier of the thread's level
+// slot (the tile's points); every thread reaches every barrier of its
+// slot, and every __syncthreads().
+template <typename T, bool kBody, class Sync>
 __device__ void rhs3d_tile(const RhsParams& P, const RhsPtrs<T>& A,
                            unsigned char* sm, int bx, int by, int tid,
                            Sync slot_sync) {
@@ -193,14 +208,15 @@ __device__ void rhs3d_tile(const RhsParams& P, const RhsPtrs<T>& A,
 
   // shared arrays: this slot's two sets of planes u v Huon Hvom Hz W (W at
   // the level's top interface) over the region and its face arrays; fomn,
-  // dndx, dmde on the rho rectangle; DC0; the region's padded offsets; the
-  // faces' edge shifts
+  // dndx, dmde on the rho rectangle; DC0; the body-force coefficients
+  // (BODYFORCE only); the region's padded offsets; the faces' edge shifts
   T* base = reinterpret_cast<T*>(sm);
   T* planes = base + slot * 12 * ra;
   T* fc = base + ks * 12 * ra + slot * 8 * fa;
   T* rect = base + ks * (12 * ra + 8 * fa);
   T* DC0 = rect + 3 * fa;
-  int* off = reinterpret_cast<int*>(DC0 + 2 * npts);
+  T* BF = DC0 + 2 * npts;   // [surface u, surface v, bottom u, bottom v]
+  int* off = reinterpret_cast<int*>(BF + (kBody ? 4 * npts : 0));
   int* shf = off + ra;
   T *Xcu = fc, *Xcv = fc + fa, *Xku = fc + 2 * fa, *Xkv = fc + 3 * fa,
     *UFx = fc + 4 * fa, *VFe = fc + 5 * fa, *UFe = fc + 6 * fa,
@@ -250,11 +266,35 @@ __device__ void rhs3d_tile(const RhsParams& P, const RhsPtrs<T>& A,
   auto qm = [&](int d) {
     return d == 0 ? jr + wrap(i - 1, g.Nx) : wrap(j - 1, g.Ny) * g.Nx + ir;
   };
-  if (slot == 0)
+  if (slot == 0) {
 #pragma unroll
     for (int d = 0; d < 2; ++d)
       DC0[d * npts + pt] = T(P.dt * 0.25) * (A.pm[p] + A.pm[qm(d)]) *
                            (A.pn[p] + A.pn[qm(d)]);
+    if constexpr (kBody) {
+      // the column sums of Hz over the surface (ws) and bottom (wb) level
+      // ranges at the point, its i-1 and its j-1 neighbours, in k order
+      const int col[3] = {p, qm(0), qm(1)};
+      T ws[3], wb[3];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        ws[c] = T(0);
+        wb[c] = T(0);
+        for (int k = max(P.ks, 0); k < N; ++k)
+          ws[c] = ws[c] + __ldg(A.Hz + k * S + col[c]);
+        for (int k = 0; k < min(P.kb, N); ++k)
+          wb[c] = wb[c] + __ldg(A.Hz + k * S + col[c]);
+      }
+#pragma unroll
+      for (int d = 0; d < 2; ++d) {
+        const int m = col[1 + d];
+        const T ocff = T(0.25) * (A.pm[p] + A.pm[m]) * (A.pn[p] + A.pn[m]);
+        BF[d * npts + pt] = A.sstr[d][p] / (ocff * (ws[0] + ws[1 + d]));
+        BF[(2 + d) * npts + pt] =
+            A.bstr[d][p] / (ocff * (wb[0] + wb[1 + d]));
+      }
+    }
+  }
   __syncthreads();
   const int cp = (ly + 3) * rx + lx + 3;
   const int fr = (ly + 1) * fw + lx + 1;
@@ -398,15 +438,28 @@ __device__ void rhs3d_tile(const RhsParams& P, const RhsPtrs<T>& A,
           x[d][2] = x3[d];
         }
       }
+      if constexpr (kBody) {
+        // ru + where(k >= ks, Us Hz_u, 0) - where(k < kb, Ub Hz_u, 0),
+        // Hz_u = Hz + Hz[i-1] (rhs3d.py)
+#pragma unroll
+        for (int d = 0; d < 2; ++d) {
+          const T hz2 = HZ[cp] + HZ[cp - st[d]];
+          r[d] = r[d] + (k >= P.ks ? BF[d * npts + pt] * hz2 : T(0));
+          r[d] = r[d] - (k < P.kb ? BF[(2 + d) * npts + pt] * hz2 : T(0));
+        }
+      }
       if (live) {
         A.r[0][o + p] = r[0];
         A.r[1][o + p] = r[1];
       }
       if (P.start) {
+        // under BODYFORCE the stresses are not boundary fluxes here
+        constexpr bool flux = !kBody;
 #pragma unroll
         for (int d = 0; d < 2; ++d) {
-          const T fc_lo = k == 0 ? T(P.dt) * A.bstr[d][p] : T(0);
-          const T fc_hi = k == N - 1 ? T(P.dt) * A.sstr[d][p] : T(0);
+          const T fc_lo = flux && k == 0 ? T(P.dt) * A.bstr[d][p] : T(0);
+          const T fc_hi =
+              flux && k == N - 1 ? T(P.dt) * A.sstr[d][p] : T(0);
           const T vn = pl[d * ra + cp] * T(0.5) * (HZ[cp] + HZ[cp - st[d]]) +
                        DC0[d * npts + pt] *
                            (T(P.a1) * prev2[d] + T(P.a2) * prev[d]) +
@@ -418,8 +471,9 @@ __device__ void rhs3d_tile(const RhsParams& P, const RhsPtrs<T>& A,
     slot_sync();
   }
 
-  // rufrc = sum_k ru + (sustr - bustr) om_u on_u, om_u = 2/(pm[i-1] + pm),
-  // the sum in k order from what the block's slots wrote
+  // rufrc = sum_k ru + (sustr - bustr) om_u on_u, om_u = 2/(pm[i-1] + pm)
+  // (the sum alone under BODYFORCE), the sum in k order from what the
+  // block's slots wrote
   __syncthreads();
 #pragma unroll
   for (int d = 0; d < 2; ++d)
@@ -429,7 +483,8 @@ __device__ void rhs3d_tile(const RhsParams& P, const RhsPtrs<T>& A,
       const int m = qm(d);
       const T om = T(1) / (A.pm[m] + A.pm[p]) * T(2);
       const T on = T(1) / (A.pn[m] + A.pn[p]) * T(2);
-      A.rfrc[d][p] = sum + (A.sstr[d][p] - A.bstr[d][p]) * om * on;
+      A.rfrc[d][p] =
+          kBody ? sum : sum + (A.sstr[d][p] - A.bstr[d][p]) * om * on;
     }
 }
 
@@ -448,6 +503,9 @@ inline RhsParams rhs_params(const int* ip, const double* dp) {
   P.adv = ip[n++];
   P.curv = ip[n++];
   P.start = ip[n++];
+  P.bodyforce = ip[n++];
+  P.ks = ip[n++];
+  P.kb = ip[n++];
   P.plan.tx = ip[n++];
   P.plan.ty = ip[n++];
   P.plan.ks = ip[n++];

@@ -10,7 +10,10 @@ and blowup handling.
 
 The streams' writers take numpy arrays: a record copies the State to the
 host once (``convert.state_to_numpy``).  Each restart is a file of its
-own, ``<rst_file>_<step>.pt`` (``Simulation.rst_paths``).
+own, ``<rst_file>_<step>.pt`` (``Simulation.rst_paths``).  With dia_file
+and ndia, every step also returns its budget terms
+(``stepping.step(collect_diags=True)``), which are summed on the device
+and written as their mean every ndia steps (the DIA file, wrt_diags.F).
 """
 
 from __future__ import annotations
@@ -95,10 +98,6 @@ class Simulation:
                  qck_file: Optional[str] = None, nqck: int = 0,
                  ndef_his: int = 0,
                  ninfo: int = 10, log: Callable = print):
-        if dia_file and ndia > 0:
-            # the DIA stream needs the step's budget terms
-            raise NotImplementedError(
-                "not ported: " + stepping.DIAGS_NOT_PORTED)
         self.cfg = cfg
         self.grid = grid
         # private copy: the caller's tensors stay as they are
@@ -113,11 +112,19 @@ class Simulation:
         self.log = log
         self.profiler = Profiler()
         self.navg = navg
+        self.ndia = ndia
         self.avg_writer = None
+        self.dia_writer = None
         self._avg_acc = None
+        self._dia_acc = None
         self._avg_on = avg_on = bool(avg_file and navg > 0)
+        self._dia_on = dia_on = bool(dia_file and ndia > 0)
 
-        if avg_on:
+        if dia_on:
+            # the step's budget terms, every step (DIAGNOSTICS_TS/UV)
+            self._step = lambda s: stepping.step(cfg, grid, s, forcing_fn,
+                                                 collect_diags=True)
+        elif avg_on:
             # the averages' sums, on the device, every step
             drv = self._avg_derived()
             self._step = lambda s: stepping.run_accum(
@@ -126,7 +133,7 @@ class Simulation:
         else:
             self._step = stepping.make_stepper(cfg, grid, forcing_fn)
 
-        from .io.netcdf import HistoryWriter, FileRing
+        from .io.netcdf import DiagWriter, HistoryWriter, FileRing
         self.writer = None
         if his_file and nhis > 0:
             if ndef_his > 0:
@@ -142,6 +149,8 @@ class Simulation:
         if avg_on:
             self.avg_writer = HistoryWriter(avg_file, cfg, grid,
                                             fields=self.AVG_OUT)
+        if dia_on:
+            self.dia_writer = DiagWriter(dia_file, cfg)
 
     # -- ROMS_run ------------------------------------------------------
     def run(self, nsteps: int):
@@ -151,7 +160,14 @@ class Simulation:
             # the step's time is not charged to the region that reads it
             with self.profiler.region("3d time stepping",
                                       sync=self._reads(self.state.iic + 1)):
-                if self._avg_on:
+                if self._dia_on:
+                    self.state, dia = self._step(self.state)
+                    if self._dia_acc is None:
+                        self._dia_acc = dia
+                    else:
+                        for k, v in dia.items():
+                            self._dia_acc[k].add_(v)
+                elif self._avg_on:
                     self.state, sums = self._step(self.state)
                     if self._avg_acc is None:
                         self._avg_acc = sums
@@ -196,6 +212,16 @@ class Simulation:
                         mean, time=float(self.state.time) -
                         0.5 * self.navg * self.cfg.dt)
                     self._avg_acc = None
+            if self.dia_writer and iic % self.ndia == 0 and \
+                    self._dia_acc is not None:
+                with self.profiler.region("output: diagnostics"):
+                    self.dia_writer.write(
+                        {k: a.cpu().numpy()
+                         for k, a in self._dia_acc.items()},
+                        time=float(self.state.time) -
+                        0.5 * self.ndia * self.cfg.dt,
+                        scale=1.0 / self.ndia)
+                    self._dia_acc = None
             if self.rst_file and self.nrst and iic % self.nrst == 0:
                 with self.profiler.region("output: restart"):
                     self._write_rst()
@@ -207,7 +233,7 @@ class Simulation:
         return any(w and n and iic % n == 0 for w, n in (
             (True, self.ninfo), (self.writer, self.nhis),
             (self.qck_writer, self.nqck), (self.avg_writer, self.navg),
-            (self.rst_file, self.nrst)))
+            (self.dia_writer, self.ndia), (self.rst_file, self.nrst)))
 
     def _write_rst(self):
         from .io import checkpoint
@@ -217,7 +243,8 @@ class Simulation:
 
     # -- ROMS_finalize -------------------------------------------------
     def finalize(self):
-        for w in (self.writer, self.avg_writer, self.qck_writer):
+        for w in (self.writer, self.avg_writer, self.qck_writer,
+                  self.dia_writer):
             if w:
                 w.close()
         self.log(self.profiler.report())

@@ -9,16 +9,17 @@ momentum phase takes the chain it takes on the card.
 CASE is upwelling (the default), benchmark, a regional case (kelvin,
 estuary, riverplume), an operator case (basin, double_gyre, grav_adj,
 seamount, canyon3d, overflow, windbasin, channel_neck), lab_canyon, one
-of channel, lmd_test, mixed_layer, test_chan, riverplume2, weddell and
-bl_test, a sediment case (sed_toy, lake_signell, sed_test1), bio_toy, or a
-biology model on UPWELLING (models/bio_toy.SETUPS: npzd_franks, npzd_iron,
-fennel, fennel_oxygen_carbon, hypoxia_srm, nemuro, red_tide, ecosim),
-float32 as on the card.  --case benchmark counts a BENCHMARK1
+of channel, lmd_test, mixed_layer, test_chan, riverplume2, weddell,
+bl_test, flt_test and shoreface, a sediment case (sed_toy, lake_signell,
+sed_test1), bio_toy, or a biology model on UPWELLING
+(models/bio_toy.SETUPS: npzd_franks, npzd_iron, fennel,
+fennel_oxygen_carbon, hypoxia_srm, nemuro, red_tide, ecosim), float32 as
+on the card.  --case benchmark counts a BENCHMARK1
 step at 64x32 instead of 512x64 (the count depends on N, not on the
 horizontal size); the other cases run at their published sizes, with
 their plain stages (the general fast loop, KPP, GLS, MY2.5, the bottom
-boundary layers, sediment, biology, the mixing operators outside the
-kernels) counted as stages.
+boundary layers, sediment, biology, the radiation stress, the mixing
+operators outside the kernels) counted as stages.
 
 --root counts the roms_tpu_torch of another checkout (an older tree has
 fewer kernel wrappers; the ones it lacks are skipped).  Prints the count
@@ -52,7 +53,8 @@ WRAPPERS = {
 # plain stages the step calls by name, counted op by op
 STAGES = {"stepping": ("set_vbc", "momentum_init", "rhs3d_momentum",
                        "bulk_flux", "lmd_vmix", "swfrac", "my25_corstep",
-                       "apply_sediment", "apply_biology"),
+                       "apply_sediment", "apply_biology", "set_massflux"),
+          "ops.nearshore": ("radiation_stress", "radiation_stress08"),
           "ops.bbl": ("bblm", "bblm_mb", "bblm_sg"),
           "ops.mix3d": ("t3dmix2", "t3dmix4", "t3dmix2_iso", "t3dmix4_iso",
                         "t3dmix4_geo", "uv3dmix4", "uv3dmix2_geo",
@@ -63,12 +65,12 @@ STAGES = {"stepping": ("set_vbc", "momentum_init", "rhs3d_momentum",
           "ops.step3d_cuda": ("tracer_predictor_plain", "uv_corrector_plain",
                               "tracer_corrector_plain"),
           "ops.gls": ("gls_prestep", "gls_corstep"),
-          "ops.diag_cuda": ("grid_flux_plain", "eos_plain")}
+          "ops.diag_cuda": ("grid_flux_plain", "eos_plain", "omega_plain")}
 REGIONAL = ("kelvin", "estuary", "riverplume")
 OPERATORS = ("basin", "double_gyre", "grav_adj", "seamount", "canyon3d",
              "overflow", "windbasin", "channel_neck")
 CASES2 = ("channel", "lmd_test", "mixed_layer", "test_chan", "riverplume2",
-          "weddell", "bl_test", "sed_test1")
+          "weddell", "bl_test", "sed_test1", "flt_test", "shoreface")
 # the module of models/ that builds each case of --case
 MODULE = {**dict.fromkeys(REGIONAL + OPERATORS, "cases"),
           **dict.fromkeys(CASES2, "cases2"),
@@ -133,7 +135,10 @@ def main() -> int:
             # momentum_rhs: the card's chain of wrappers, not its plain one
             mod.on_card = lambda t: True
     for mod_name, names in STAGES.items():
-        mod = importlib.import_module("roms_tpu_torch." + mod_name)
+        try:
+            mod = importlib.import_module("roms_tpu_torch." + mod_name)
+        except ImportError:
+            continue
         for name in names:
             if hasattr(mod, name):
                 setattr(mod, name, span(name, getattr(mod, name), False))

@@ -9,14 +9,19 @@ the roms_<app>.in runtime values):
  * TEST_CHAN: a flume driven by ramped Chapman/Flather/clamped boundaries;
  * RIVERPLUME2: a river into a coastal current fed by wall sources;
  * WEDDELL: an ice-shelf cavity with a boundary M2 tide;
- * SED_TEST1: suspended sand in a steady open flume under MY2.5.
+ * SED_TEST1: suspended sand in a steady open flume under MY2.5;
+ * FLT_TEST: a basin with an island for Lagrangian floats, its stresses as
+   body forces (BODYFORCE);
+ * SHOREFACE: a planar-beach surf zone driven by the nearshore radiation
+   stress, with wet/dry, GLS, the SSW bottom boundary layer and sand.
 
 Each case has a ``<case>_config(...)``, whose defaults are the published
 sizes, and a ``<case>(cfg=None, device=cuda)`` builder that returns
 (cfg, grid, state0, forcing_fn) with every tensor on `device`.  The
 deltas from the reference that roms_tpu documents are kept (rest-depth
 boundary cross-sections and source shapes, the boundary-value limit of
-WEDDELL's tidal ellipse, BL_TEST's uniform dx and direct wind stress).
+WEDDELL's tidal ellipse, BL_TEST's uniform dx and direct wind stress,
+SHOREFACE's Mellor05 with analytic waves).
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from ..grid import build_grid, hc_of, torch_dtype
 from .. import vgrid
 from ..state import initial_state
 from ..ops import bc
+from ..ops.bbl import BBLParams
 from ..ops.bulk_flux import ana_srflux_albedo
 from ..ops.sediment import SedParams
 from ..ops.sources import PointSources
@@ -640,5 +646,146 @@ def sed_test1(cfg: Config | None = None,
         return {"bry": {"ubar_west": ub, "vbar_west": zero,
                         "ubar_east": ub.clone(), "vbar_east": zero.clone(),
                         "zeta_east": zero.clone(), "t_east": t_e}}
+
+    return cfg, grid, state0, forcing_fn
+
+
+# ---------------------------------------------------------------------------
+# FLT_TEST
+# ---------------------------------------------------------------------------
+def flt_test_config(Lm: int = 14, Mm: int = 12, N: int = 4,
+                    dt: float = 512.0, ndtfast: int = 9,
+                    dtype: str = "float64") -> Config:
+    """FLT_TEST (flt_test.h; roms_flt_test3d.in: 14x12x4, DT = 512 s):
+    closed walls, linear EOS in temperature, quadratic drag, and both
+    stresses as body forces over the whole column (LEVSFRC = 1, LEVBFRC =
+    N)."""
+    clo = LBC()
+    return Config(
+        name="flt_test", Lm=Lm, Mm=Mm, N=N, ntracers=1,
+        ew_periodic=False, ns_periodic=False,
+        dt=dt, ndtfast=ndtfast,
+        uv_vis2=True, visc2=0.0,
+        tnu2=(0.0,), t_hadv=("U3",), t_vadv=("C4",),
+        splines_vdiff=True, splines_vvisc=True,
+        akv_bak=1.0e-5, akt_bak=(1.0e-6,),
+        bottom_drag="quadratic", rdrg2=3.0e-3,
+        bodyforce=True, levsfrc=1, levbfrc=N,
+        eos="linear", R0=1027.0, T0=14.0, Tcoef=1.7e-4, Scoef=0.0,
+        theta_s=0.0, theta_b=0.0, tcline=1e16, vtransform=1,
+        vstretching=1,
+        lbc_zeta=clo, lbc_ubar=clo, lbc_vbar=clo, lbc_u=clo, lbc_v=clo,
+        lbc_t=clo, dtype=dtype)
+
+
+def flt_test(cfg: Config | None = None,
+             device: torch.device | str = torch.device("cuda")):
+    """FLT_TEST: 1 km cells, 10 m deep, f = 0, land rows at j = 1 and j =
+    Mm and a 2 x 2 island in the centre (ana_mask.h:137-148), T = T0, and
+    the constant eastward wind sustr = 1e-3 m2/s2 (ana_smflux.h:210-218).
+    The caller releases the floats (floats.init_floats) and steps them
+    after each model step (floats.step_floats)."""
+    cfg = cfg or flt_test_config()
+
+    def mask_fn(x, y, i, j, c):
+        land = (j == 1) | (j == c.Mm)
+        ic, jc = (c.Lm + 1) // 2, (c.Mm + 1) // 2
+        island = (i >= ic) & (i <= ic + 1) & (j >= jc) & (j <= jc + 1)
+        return np.where(land | island, 0.0, 1.0)
+
+    grid, cfg = build_grid(cfg, 1.0e3 * cfg.Lm, 1.0e3 * cfg.Mm, f0=0.0,
+                           beta=0.0,
+                           depth_fn=lambda x, y, i, j, c: 10.0 + 0 * x,
+                           mask_fn=mask_fn, device=device)
+    z_r = _rest_z_r(cfg, grid)
+    state0 = initial_state(cfg, device=device,
+                           t=torch.full_like(z_r, cfg.T0)[None])
+
+    def forcing_fn(cfg_, grid_, time):
+        return {"sustr": torch.full_like(grid_.h, 1.0e-3)}
+
+    return cfg, grid, state0, forcing_fn
+
+
+# ---------------------------------------------------------------------------
+# SHOREFACE
+# ---------------------------------------------------------------------------
+def shoreface_config(Lm: int = 59, Mm: int = 7, N: int = 20,
+                     dt: float = 5.0, ndtfast: int = 20,
+                     dtype: str = "float64") -> Config:
+    """SHOREFACE (shoreface.h; roms_shoreface.in: 59x7x20, DT = 5 s): NS
+    periodic, west Chapman/Flather, east closed (the shoreline), the
+    nearshore radiation stress (roms_tpu's documented delta: Mellor05,
+    with an analytic shoaling wave field, where the reference runs
+    Mellor08 on SWAN's waves), the SSW wave-current bottom boundary layer, GLS k-epsilon,
+    one sand class (sediment_shoreface.in: d50 = 1 mm, ws = 1 mm/s,
+    tau_ce = 0.07 N/m2) and wet/dry."""
+    sed = SedParams(ised0=2, Sd50=(0.001,), Srho=(2650.0,),
+                    Wsed=(1.0e-3,), Erate=(1.0e-5,),
+                    tau_ce=(0.07 / 1025.0,), tau_cd=(0.07 / 1025.0,),
+                    poros=0.5)
+    nt = 3
+    per = "Per"
+    return Config(
+        name="shoreface", Lm=Lm, Mm=Mm, N=N, ntracers=nt,
+        ew_periodic=False, ns_periodic=True,
+        dt=dt, ndtfast=ndtfast,
+        uv_vis2=True, visc2=0.0, tnu2=nt * (0.0,),
+        t_hadv=nt * ("U3",), t_vadv=nt * ("C4",),
+        splines_vdiff=True, splines_vvisc=True,
+        akv_bak=5.0e-5, akt_bak=(5.0e-6, 5.0e-6),
+        bottom_drag="quadratic", rdrg2=0.0015, zob=0.015,
+        vmix="gls", nearshore="mellor05",
+        sediment=True, sed_params=sed,
+        bbl="ssw", bbl_params=BBLParams(d50=0.001, tau_ce=0.07 / 1025.0),
+        wetdry=True, dcrit=0.1,
+        eos="linear", R0=1027.0, T0=10.0, S0=30.0,
+        Tcoef=1.7e-4, Scoef=7.6e-4,
+        theta_s=0.0, theta_b=0.0, tcline=1e16, vtransform=1,
+        vstretching=1,
+        lbc_zeta=LBC(BC_CHAPMAN_EXPLICIT, per, BC_CLOSED, per),
+        lbc_ubar=LBC(BC_FLATHER, per, BC_CLOSED, per),
+        lbc_vbar=LBC(BC_FLATHER, per, BC_CLOSED, per),
+        lbc_u=LBC(BC_GRADIENT, per, BC_CLOSED, per),
+        lbc_v=LBC(BC_GRADIENT, per, BC_CLOSED, per),
+        lbc_t=LBC(BC_GRADIENT, per, BC_CLOSED, per),
+        dtype=dtype)
+
+
+def shoreface(cfg: Config | None = None,
+              device: torch.device | str = torch.device("cuda")):
+    """SHOREFACE: a 1180 x 140 m beach, h = 11.75 - 0.0125 x
+    (ana_grid.h:1035-1040), at rest with T = 10, S = 30 and no sand; the
+    dry beach starts at the critical depth (total depth >= Dcrit).  The
+    waves are 10 s, shore-normal and 50 m long, 1 m high offshore and
+    depth-limited (gamma = 0.5) toward the shore, ramped up over 600 s;
+    the west boundary holds zeta = ubar = vbar = 0."""
+    cfg = cfg or shoreface_config()
+    Xsize = 1180.0
+
+    def depth_fn(x, y, i, j, c):
+        return 11.75 - 0.0125 * Xsize / (c.Lm + 1.0) * i
+
+    grid, cfg = build_grid(cfg, Xsize, 140.0, f0=0.0, beta=0.0,
+                           depth_fn=depth_fn, device=device)
+    z_r = _rest_z_r(cfg, grid)
+    t0 = torch.stack([_fh(cfg, torch.full_like(z_r, 10.0)),
+                      _fh(cfg, torch.full_like(z_r, 30.0)),
+                      _fh(cfg, torch.zeros_like(z_r))])
+    zeta0 = torch.clamp(cfg.dcrit - grid.h, min=0.0)
+    state0 = initial_state(cfg, device=device, t=t0, zeta=_fh(cfg, zeta0))
+    kw = dict(dtype=torch_dtype(cfg), device=grid.h.device)
+    ny = cfg.ny_tot
+    Hw = torch.clamp(0.5 * torch.clamp(grid.h, min=0.05), max=1.0)
+    one = torch.ones_like(grid.h)
+
+    def forcing_fn(cfg_, grid_, time):
+        ramp = min(time / 600.0, 1.0)
+        return {"Hwave": torch.clamp(Hw * ramp, min=0.01),
+                "Pwave": 10.0 * one, "Dwave": 270.0 * C.deg2rad * one,
+                "Lwave": 50.0 * one,
+                "bry": {"zeta_west": torch.zeros((ny,), **kw),
+                        "ubar_west": torch.zeros((ny,), **kw),
+                        "vbar_west": torch.zeros((ny,), **kw)}}
 
     return cfg, grid, state0, forcing_fn

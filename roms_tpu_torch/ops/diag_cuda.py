@@ -96,9 +96,11 @@ def eos_layout(dtype) -> dict:
 
 def supported(cfg: Config, grid: Grid) -> bool:
     """True when the diag kernels implement this configuration exactly
-    (the ice-shelf draft and the Stokes drift are outside them)."""
-    return (grid.zice is None and cfg.nearshore is None
-            and cfg.vtransform in (1, 2) and cfg.eos in ("linear", "jm95"))
+    (the ice-shelf draft is outside them; the step also keeps grid_flux
+    and eos plain while the radiation stress is active, as roms_tpu's
+    ns_active does)."""
+    return (grid.zice is None and cfg.vtransform in (1, 2)
+            and cfg.eos in ("linear", "jm95"))
 
 
 # ---------------------------------------------------------------------------

@@ -132,9 +132,12 @@ def momentum_init(cfg: Config, pm, pn, a1, a2, u, v, Hz,
                   ru_prev, ru_prev2, rv_prev, rv_prev2,
                   sustr, svstr, bustr, bvstr):
     """Mass-weighted momentum start (pre_step3d.F:659-700): AB3 history
-    terms plus surface/bottom stress boundary fluxes."""
+    terms plus surface/bottom stress boundary fluxes.  Under BODYFORCE
+    the stresses enter through ru/rv in rhs3d instead, and the fluxes are
+    zero (pre_step3d.F:931-1106)."""
     if cfg.bodyforce:
-        raise NotImplementedError("BODYFORCE stresses")
+        sustr = bustr = torch.zeros_like(sustr)
+        svstr = bvstr = torch.zeros_like(svstr)
     dt = cfg.dt
     DC0u = dt * 0.25 * (pm + im1(pm)) * (pn + im1(pn))
     FCu = torch.cat(

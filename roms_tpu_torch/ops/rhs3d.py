@@ -6,7 +6,10 @@ Adds to the pressure-gradient ru/rv: Coriolis, curvilinear metric terms,
 centered vertical advection; then integrates vertically into the barotropic
 forcing rufrc/rvfrc and adds the surface - bottom stress difference.
 With `clm` (uclm/vclm and m3nudg) it nudges toward the 3-D momentum
-climatology after the advection (rhs3d.F:211-241).
+climatology after the advection (rhs3d.F:211-241).  Under BODYFORCE the
+surface and bottom stresses enter as body forces over the levels
+k >= levsfrc and k <= levbfrc (1-based) instead, and rufrc/rvfrc leave
+out the stress difference (rhs3d.F:326-470).
 """
 
 from __future__ import annotations
@@ -34,8 +37,6 @@ def rhs3d_momentum(cfg: Config, grid: Grid, u, v, Huon, Hvom, W, Hz,
     if want_diags and (parts != "uv" or set(pieces) != set(ALL_PIECES)):
         # the reference reaches a NameError on this combination
         raise ValueError("want_diags needs parts='uv' and every piece")
-    if cfg.bodyforce:
-        raise NotImplementedError("BODYFORCE stresses")
     H = cfg.halo
     L, M = cfg.Lm, cfg.Mm
     dia = {} if want_diags else None
@@ -170,14 +171,44 @@ def rhs3d_momentum(cfg: Config, grid: Grid, u, v, Huon, Hvom, W, Hz,
             rv = rv + nudg * (grid.om_v * grid.on_v) * 0.5 * \
                 (Hz + jm1(Hz)) * (clm["vclm"] - v)
 
-    # ---- vertical integral -> barotropic forcing (rhs3d.F:523-559) ----
+    # ---- BODYFORCE: the stresses as body forces over the surface and
+    #      bottom level ranges instead of boundary fluxes (rhs3d.F:326-470)
+    if cfg.bodyforce and "bodyforce" in pieces:
+        pm, pn = grid.pm, grid.pn
+        N = Hz.shape[0]
+        ks = cfg.levsfrc - 1                 # surface levels ks..N-1
+        kb = cfg.levbfrc                     # bottom levels 0..kb-1
+        levels = torch.arange(N, device=Hz.device)[:, None, None]
+        kmask_s = levels >= ks
+        kmask_b = levels < kb
+        wrk_s = level_sum(Hz, ks, N)
+        wrk_b = level_sum(Hz, 0, kb)
+        if do_u:
+            ocffu = 0.25 * (pm + im1(pm)) * (pn + im1(pn))
+            Hz_u = Hz + im1(Hz)
+            Uwrk_s = sustr / (ocffu * (wrk_s + im1(wrk_s)))
+            Uwrk_b = bustr / (ocffu * (wrk_b + im1(wrk_b)))
+            ru = ru + torch.where(kmask_s, Uwrk_s[None] * Hz_u, 0.0) - \
+                torch.where(kmask_b, Uwrk_b[None] * Hz_u, 0.0)
+        if do_v:
+            ocffv = 0.25 * (pm + jm1(pm)) * (pn + jm1(pn))
+            Hz_v = Hz + jm1(Hz)
+            Vwrk_s = svstr / (ocffv * (wrk_s + jm1(wrk_s)))
+            Vwrk_b = bvstr / (ocffv * (wrk_b + jm1(wrk_b)))
+            rv = rv + torch.where(kmask_s, Vwrk_s[None] * Hz_v, 0.0) - \
+                torch.where(kmask_b, Vwrk_b[None] * Hz_v, 0.0)
+
+    # ---- vertical integral -> barotropic forcing (rhs3d.F:523-559), with
+    #      the stress difference unless BODYFORCE put it into ru/rv ----
     if "frc" in pieces:
         if do_u:
-            rufrc = torch.sum(ru, dim=0) + \
-                (sustr - bustr) * grid.om_u * grid.on_u
+            rufrc = torch.sum(ru, dim=0)
+            if not cfg.bodyforce:
+                rufrc = rufrc + (sustr - bustr) * grid.om_u * grid.on_u
         if do_v:
-            rvfrc = torch.sum(rv, dim=0) + \
-                (svstr - bvstr) * grid.om_v * grid.on_v
+            rvfrc = torch.sum(rv, dim=0)
+            if not cfg.bodyforce:
+                rvfrc = rvfrc + (svstr - bvstr) * grid.om_v * grid.on_v
     if parts == "u":
         return (ru, rufrc) if "frc" in pieces else ru
     if parts == "v":
@@ -185,3 +216,13 @@ def rhs3d_momentum(cfg: Config, grid: Grid, u, v, Huon, Hvom, W, Hz,
     if want_diags:
         return ru, rv, rufrc, rvfrc, dia
     return ru, rv, rufrc, rvfrc
+
+
+def level_sum(Hz, k0: int, k1: int):
+    """The column sum of Hz over the levels k0..k1-1, added in k order
+    from zero: the order of the rhs3d kernel (csrc/rhs3d.cuh), which
+    carries these sums into every level of ru/rv under BODYFORCE."""
+    s = torch.zeros_like(Hz[0])
+    for k in range(max(k0, 0), min(k1, Hz.shape[0])):
+        s = s + Hz[k]
+    return s

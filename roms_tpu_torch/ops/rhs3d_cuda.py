@@ -2,8 +2,9 @@
 the momentum phase of the step that chains it.
 
 rhs3d        - Coriolis, curvilinear terms and U3/C4 advection added to the
-               pressure gradient ru/rv, and the barotropic forcing
-               rufrc/rvfrc; with ``start``, also pre_step3d's momentum start
+               pressure gradient ru/rv (and the stresses as body forces
+               under BODYFORCE), and the barotropic forcing rufrc/rvfrc;
+               with ``start``, also pre_step3d's momentum start
                u_nnew/v_nnew.  Replaces the TPU kernel
                roms_tpu/ops/rhs3d_pallas.py::rhs3d_fused.
 momentum_rhs - the momentum side of the rhs3d phase, as
@@ -38,7 +39,8 @@ from .rhs3d import rhs3d_momentum
 THREADS = 256       # threads a block, at most (csrc/rhs3d.cu kMaxThreads)
 
 
-def rhs3d_plan(dtype, N: int, ny: int, nx: int) -> dict:
+def rhs3d_plan(dtype, N: int, ny: int, nx: int,
+               bodyforce: bool = False) -> dict:
     """The kernel's launch on a padded ny x nx grid of N levels: {"tile":
     (points along xi, along eta), "levels": level slots, "blocks",
     "threads": a block, "smem_bytes": its dynamic shared memory}.  A block
@@ -46,13 +48,15 @@ def rhs3d_plan(dtype, N: int, ny: int, nx: int) -> dict:
     each slot with two sets of planes over the tile's region and its face
     arrays (csrc/rhs3d.cuh RhsLayout), halved while they leave no room for
     three blocks an SM; _kernels.tile_plan picks the tile.  The shared
-    memory does not depend on N."""
+    memory does not depend on N; BODYFORCE adds four coefficients a tile
+    point."""
     del N   # every slot walks its levels; nothing a block holds is per level
     word = 8 if dtype == torch.float64 else 4
 
     def smem(tx, ty, ks):
         ra, fa = (tx + 6) * (ty + 6), (tx + 1) * (ty + 1)
-        words = ks * (12 * ra + 8 * fa) + 3 * fa + 2 * tx * ty
+        words = ks * (12 * ra + 8 * fa) + 3 * fa + \
+            (6 if bodyforce else 2) * tx * ty
         return words * word + 4 * (ra + fa)
 
     def make(tx, ty):
@@ -65,10 +69,10 @@ def rhs3d_plan(dtype, N: int, ny: int, nx: int) -> dict:
     return tile_plan(make)
 
 
-def rhs3d_layout(dtype) -> dict:
-    """The kernel on the current card: {"registers": a thread,
-    "stack_bytes": its stack frame a thread}."""
-    return kernel_layout("roms_rhs3d_layout", dtype)
+def rhs3d_layout(dtype, bodyforce: bool = False) -> dict:
+    """The kernel (BODYFORCE's, a kernel of its own) on the current card:
+    {"registers": a thread, "stack_bytes": its stack frame a thread}."""
+    return kernel_layout("roms_rhs3d_layout", dtype, int(bodyforce))
 
 
 def supported(cfg: Config) -> bool:
@@ -111,8 +115,6 @@ def rhs3d(cfg: Config, grid: Grid, u, v, Huon, Hvom, W, Hz, ru, rv, sustr,
     if not on_card(u):
         return rhs3d_plain(cfg, grid, u, v, Huon, Hvom, W, Hz, ru, rv, sustr,
                            svstr, bustr, bvstr, start=start)
-    if cfg.bodyforce:
-        raise NotImplementedError("BODYFORCE stresses")
     ints = column_ints(cfg, "rhs3d")
     s2 = (cfg.ny_tot, cfg.nx_tot)
     s3, sw = (cfg.N,) + s2, (cfg.N + 1,) + s2
@@ -136,15 +138,16 @@ def rhs3d(cfg: Config, grid: Grid, u, v, Huon, Hvom, W, Hz, ru, rv, sustr,
     if start is not None:
         outs += [torch.empty_like(u), torch.empty_like(v)]
     get = ins.get
-    plan = rhs3d_plan(u.dtype, cfg.N, *s2)
+    plan = rhs3d_plan(u.dtype, cfg.N, *s2, bodyforce=cfg.bodyforce)
     launch("roms_rhs3d", f64,
            [u, v, Huon, Hvom, W, Hz, ru, rv, sustr, svstr, bustr, bvstr,
             grid.pm, grid.pn, grid.f, get("dndx"), get("dmde"),
             get("ru_prev"), get("rv_prev"), get("ru_prev2"),
             get("rv_prev2")] + outs + [None] * (6 - len(outs)),
            ints + [int(cfg.uv_cor), int(cfg.uv_adv), int(curv),
-                   int(start is not None), *plan["tile"], plan["levels"],
-                   plan["threads"], plan["smem_bytes"]],
+                   int(start is not None), int(cfg.bodyforce),
+                   cfg.levsfrc - 1, cfg.levbfrc, *plan["tile"],
+                   plan["levels"], plan["threads"], plan["smem_bytes"]],
            [cfg.dt, a1, a2], torch.cuda.current_stream(u.device))
     rhs3d.launches += 1
     return tuple(outs)

@@ -11,7 +11,8 @@ building blocks of both entry points:
    and 2-D momentum climatology nudging), which the step takes where the
    fused kernel of ops/step2d_cuda.py does not apply, as the JAX step
    takes ``roms_tpu/ops/step2d.py::fast_loop`` where its Pallas kernel
-   does not.  The Stokes drift raises NotImplementedError.
+   does not; with the nearshore forcing it also carries the frozen Stokes
+   transport (``us2d``, ``stokes_transport``).
  * ``step_2d_only``: main2d mode (no SOLVE3D), one predictor/corrector
    pair a model step with the LF/AM3 history carried across steps and the
    surface and bottom stresses applied directly (SOLITON).  No kernel
@@ -86,13 +87,29 @@ class Forcing2D(NamedTuple):
     svstr: Optional[torch.Tensor] = None
 
 
-def depth_fluxes(grid: Grid, zeta, ubar, vbar):
+def depth_fluxes(grid: Grid, zeta, ubar, vbar, us2d=None):
     """Total depth and vertically integrated mass fluxes
-    (step2d_LF_AM3.h:499-516)."""
+    (step2d_LF_AM3.h:499-516).  us2d: the depth-integrated Stokes
+    transports (TSu, TSv), which NEARSHORE adds to the fluxes continuity
+    and 2-D advection see (step2d_LF_AM3.h:529-541 DUSon/DVSom).  As in
+    roms_tpu, the transport is held fixed over the fast loop (the reference
+    rescales ubar_stokes by the instantaneous depth; the difference is
+    O(ubar_stokes dzeta), a documented delta)."""
     Drhs = zeta + grid.h
     DUon = ubar * at_u(Drhs) * grid.on_u
     DVom = vbar * at_v(Drhs) * grid.om_v
+    if us2d is not None:
+        DUon = DUon + us2d[0]
+        DVom = DVom + us2d[1]
     return Drhs, DUon, DVom
+
+
+def stokes_transport(grid: Grid, zeta, us2d_vel):
+    """The depth-integrated Stokes transports (TSu, TSv) of the vertical
+    mean Stokes velocities at the step-start free surface."""
+    us, vs = us2d_vel
+    Drhs = zeta + grid.h
+    return us * at_u(Drhs) * grid.on_u, vs * at_v(Drhs) * grid.om_v
 
 
 def _g(cfg: Config) -> float:
@@ -373,11 +390,11 @@ def fast_loop(cfg: Config, grid: Grid, fs: Fast2DState, rufrc=None,
 
     Returns (fs, rufrc_c, rvfrc_c, wet): wet is None unless cfg.wetdry,
     else {"rmask_wet", "umask_wet", "vmask_wet"}, the fast-time-averaged
-    masks for the 3-D step (wetdry.F wetdry_avg_mask_tile).  Every tensor
-    is new, so the caller's fs, bry and sources are unchanged."""
-    if us2d is not None or cfg.nearshore is not None:
-        raise NotImplementedError("the general fast loop: Stokes drift "
-                                  "(NEARSHORE)")
+    masks for the 3-D step (wetdry.F wetdry_avg_mask_tile).  us2d: the
+    frozen Stokes transports (stokes_transport) that NEARSHORE adds to
+    every depth flux; DU_avg1/DV_avg1 average the Eulerian part only.
+    Every tensor is new, so the caller's fs, bry and sources are
+    unchanged."""
     dtfast = cfg.dtfast
     h = grid.h
     pmn = grid.pm * grid.pn
@@ -388,6 +405,14 @@ def fast_loop(cfg: Config, grid: Grid, fs: Fast2DState, rufrc=None,
     use_wd = cfg.wetdry
     zbc, bcs = _boundary_fns(cfg, grid, bry, sources)
 
+    def eulerian(DUon, DVom):
+        # DU_avg1 is the Eulerian fast-averaged transport: the 3-D
+        # corrector replaces the Eulerian vertical mean only
+        # (step2d_LF_AM3.h:645-655)
+        if us2d is None:
+            return DUon, DVom
+        return DUon - us2d[0], DVom - us2d[1]
+
     if rufrc is None:
         rufrc = rvfrc = zero
         ru0_nm1 = ru0_nm2 = rv0_nm1 = rv0_nm2 = zero
@@ -396,7 +421,8 @@ def fast_loop(cfg: Config, grid: Grid, fs: Fast2DState, rufrc=None,
     um_w = vm_w = pw_w = wet_avg = None
     if use_wd:                 # FIRST_2D_STEP predictor: kstp = n
         wet_avg, um_w, vm_w, pw_w = _wet_masks(cfg, grid, fs.zeta_n)
-    Drhs, DUon, DVom = depth_fluxes(grid, fs.zeta_n, fs.ubar_n, fs.vbar_n)
+    Drhs, DUon, DVom = depth_fluxes(grid, fs.zeta_n, fs.ubar_n, fs.vbar_n,
+                                    us2d)
     # averaging reset (:611-634); weight(2,iif+1) with iif=1 -> w2[1]
     cff2 = (-1.0 / 12.0) * w2[1]
     fs = fs.replace(Zt_avg1=zero, DU_avg1=zero, DV_avg1=zero,
@@ -446,7 +472,7 @@ def fast_loop(cfg: Config, grid: Grid, fs: Fast2DState, rufrc=None,
         if use_wd:             # corrector: kstp = n -> masks from zeta_n
             wd_c, um_c, vm_c, pw_c = _wet_masks(cfg, grid, fs.zeta_n)
             wet_avg = wet_avg + wd_c
-        Drhs, DUon, DVom = depth_fluxes(grid, zeta_p, ubar_p, vbar_p)
+        Drhs, DUon, DVom = depth_fluxes(grid, zeta_p, ubar_p, vbar_p, us2d)
         # averaging, corrector branch (:688-713): weight(2,iif) -> w2[i-1]
         cff2 = w2[i - 1] if first else (5.0 / 12.0) * w2[i - 1]
         fs = fs.replace(DU_avg2=fs.DU_avg2 + cff2 * DUon,
@@ -495,13 +521,14 @@ def fast_loop(cfg: Config, grid: Grid, fs: Fast2DState, rufrc=None,
             wd_p, um_p, vm_p, pw_p = _wet_masks(cfg, grid, fs.zeta_nm1)
             wet_avg = wet_avg + wd_p
         Drhs, DUon, DVom = depth_fluxes(grid, fs.zeta_n, fs.ubar_n,
-                                        fs.vbar_n)
+                                        fs.vbar_n, us2d)
         cff1 = w1[i - 2]                                  # weight(1,iif-1)
         cff2 = (8.0 / 12.0) * w2[i - 1] - (1.0 / 12.0) * w2[i]
+        du1, dv1 = eulerian(DUon, DVom)
         fs = fs.replace(
             Zt_avg1=fs.Zt_avg1 + cff1 * fs.zeta_n,
-            DU_avg1=fs.DU_avg1 + cff1 * DUon,
-            DV_avg1=fs.DV_avg1 + cff1 * DVom,
+            DU_avg1=fs.DU_avg1 + cff1 * du1,
+            DV_avg1=fs.DV_avg1 + cff1 * dv1,
             DU_avg2=fs.DU_avg2 + cff2 * DUon,
             DV_avg2=fs.DV_avg2 + cff2 * DVom)
 
@@ -541,14 +568,16 @@ def fast_loop(cfg: Config, grid: Grid, fs: Fast2DState, rufrc=None,
                                 wet_avg)
 
     # ========== auxiliary predictor (iif = nfast+1): averages only ==========
-    _, DUon, DVom = depth_fluxes(grid, fs.zeta_n, fs.ubar_n, fs.vbar_n)
+    _, DUon, DVom = depth_fluxes(grid, fs.zeta_n, fs.ubar_n, fs.vbar_n,
+                                 us2d)
     i = nfast + 1
     cff1 = w1[i - 2]
     cff2 = (8.0 / 12.0) * w2[i - 1] - (1.0 / 12.0) * w2[i]
+    du1, dv1 = eulerian(DUon, DVom)
     fs = fs.replace(
         Zt_avg1=bc.fill_halo(cfg, fs.Zt_avg1 + cff1 * fs.zeta_n),
-        DU_avg1=bc.fill_halo(cfg, fs.DU_avg1 + cff1 * DUon),
-        DV_avg1=bc.fill_halo(cfg, fs.DV_avg1 + cff1 * DVom),
+        DU_avg1=bc.fill_halo(cfg, fs.DU_avg1 + cff1 * du1),
+        DV_avg1=bc.fill_halo(cfg, fs.DV_avg1 + cff1 * dv1),
         DU_avg2=bc.fill_halo(cfg, fs.DU_avg2 + cff2 * DUon),
         DV_avg2=bc.fill_halo(cfg, fs.DV_avg2 + cff2 * DVom))
 

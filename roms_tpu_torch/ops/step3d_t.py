@@ -22,37 +22,55 @@ from .stencil import ip1, jp1
 from .tridiag import spline_vdiff_flux, thomas_implicit
 
 
+DIAG_TERMS = ("xadv", "yadv", "vadv", "vdiff")
+
+
 def step3d_t(cfg: Config, grid: Grid, t_nnew, t3, Huon, Hvom, W,
              Hz_new, z_r_new, Akt, t_old=None, bry=None, sources=None,
-             clm=None):
+             clm=None, want_diags: bool = False):
     """Returns the new tracers (NT,N,Ny,Nx), halo-filled.  t_old: the
     tracers at the previous level, which the open-boundary BCs read;
     clm: {"tclm": (NT,N,Ny,Nx), "tnudg": 1/s, one for all tracers or one
-    a tracer}."""
+    a tracer}.  want_diags (DIAGNOSTICS_TS; mod_diags.F DiaTrc): also
+    return {xadv, yadv, vadv, vdiff}, each (NT,N,Ny,Nx), the per-step
+    concentration increments of xi, eta and vertical advection and of the
+    vertical diffusion: in the interior, the new tracer is t_nnew/Hz_new
+    plus their sum."""
     pmn = grid.pm * grid.pn
     oHz = 1.0 / Hz_new
     out = []
+    dia = {k: [] for k in DIAG_TERMS}
     for itrc in range(cfg.ntracers):
         ltrc = min(1, itrc) if cfg.ntracers >= 2 else 0
+        t_old_i = t_old[itrc] if t_old is not None else None
         if "MPDATA" in (cfg.t_hadv[itrc], cfg.t_vadv[itrc]):
-            out.append(mpdata_corrector(
+            res = mpdata_corrector(
                 cfg, grid, pmn, itrc, t_nnew[itrc], t3[itrc], Huon, Hvom, W,
-                Hz_new, z_r_new, oHz, Akt[ltrc],
-                t_old[itrc] if t_old is not None else None, bry, clm))
-            continue
-        out.append(tracer_corrector(
-            cfg, pmn, itrc, t_nnew[itrc], t3[itrc], Huon, Hvom, W, Hz_new,
-            z_r_new, oHz, Akt[ltrc], grid=grid,
-            t_old_i=t_old[itrc] if t_old is not None else None, bry=bry,
-            sources=sources, clm=clm))
-    return torch.stack(out, dim=0)
+                Hz_new, z_r_new, oHz, Akt[ltrc], t_old_i, bry, clm,
+                want_diags=want_diags)
+        else:
+            res = tracer_corrector(
+                cfg, pmn, itrc, t_nnew[itrc], t3[itrc], Huon, Hvom, W,
+                Hz_new, z_r_new, oHz, Akt[ltrc], grid=grid, t_old_i=t_old_i,
+                bry=bry, sources=sources, clm=clm, want_diags=want_diags)
+        if want_diags:
+            res, parts = res
+            for k in DIAG_TERMS:
+                dia[k].append(parts[k])
+        out.append(res)
+    t_new = torch.stack(out, dim=0)
+    if want_diags:
+        return t_new, {k: torch.stack(v, dim=0) for k, v in dia.items()}
+    return t_new
 
 
 def tracer_corrector(cfg: Config, pmn, itrc: int, tn_i, t3_i, Huon, Hvom,
                      W, Hz_new, z_r_new, oHz, Akt_l, grid=None,
-                     t_old_i=None, bry=None, sources=None, clm=None):
+                     t_old_i=None, bry=None, sources=None, clm=None,
+                     want_diags: bool = False):
     """One tracer's corrector (the step3d_t.F:227-1142 loop body); HSIMT
-    and the open boundaries need `grid`."""
+    and the open boundaries need `grid`.  want_diags: also return the
+    tracer's DIAG_TERMS increments."""
     dt = cfg.dt
     hscheme = cfg.t_hadv[itrc]
     vscheme = cfg.t_vadv[itrc]
@@ -68,22 +86,31 @@ def tracer_corrector(cfg: Config, pmn, itrc: int, tn_i, t3_i, Huon, Hvom,
                    pmn=pmn, dt=dt)
     tn = (tn - dt * pmn * (FC[1:] - FC[:-1])) * oHz
 
+    pre_vd = tn
     if cfg.splines_vdiff:
         flux = spline_vdiff_flux(dt, Hz_new, oHz, Akt_l, tn)
         tn = tn + dt * oHz * (flux[1:] - flux[:-1])
     else:
         tn = thomas_implicit(dt, 1.0, Hz_new, z_r_new, Akt_l, tn * Hz_new)
-    return _finalize_tracer(cfg, grid, itrc, tn, t_old_i, bry, clm, dt)
+    tn_new = _finalize_tracer(cfg, grid, itrc, tn, t_old_i, bry, clm, dt)
+    if not want_diags:
+        return tn_new
+    return tn_new, {"xadv": -dt * pmn * oHz * (ip1(FX) - FX),
+                    "yadv": -dt * pmn * oHz * (jp1(FE) - FE),
+                    "vadv": -dt * pmn * oHz * (FC[1:] - FC[:-1]),
+                    "vdiff": tn - pre_vd}
 
 
 def mpdata_corrector(cfg: Config, grid: Grid, pmn, itrc: int, tn_i, t3_i,
                      Huon, Hvom, W, Hz_new, z_r_new, oHz, Akt_l,
-                     t_old_i=None, bry=None, clm=None):
+                     t_old_i=None, bry=None, clm=None,
+                     want_diags: bool = False):
     """One MPDATA tracer's corrector (step3d_t.F:408-428, 1167-1180,
     1213-1318): a first-order upstream pass of t3 in every direction, the
     anti-diffusive velocities, the corrected fluxes, then the standard
     implicit vertical diffusion on the Tunits x m field (the spline form
-    needs Tunits input) and the lateral BCs."""
+    needs Tunits input) and the lateral BCs.  want_diags: also return the
+    DIAG_TERMS increments, the two passes' fluxes together."""
     hscheme = cfg.t_hadv[itrc]
     vscheme = cfg.t_vadv[itrc]
     if not (hscheme == "MPDATA" and vscheme == "MPDATA"):
@@ -98,8 +125,17 @@ def mpdata_corrector(cfg: Config, grid: Grid, pmn, itrc: int, tn_i, t3_i,
     FX2, FE2, FC2 = mpdata_corrected_fluxes(grid, Ta, Ua, Va, Wa, Hz_new)
     tn = Ta * Hz_new - dt * pmn * (
         (ip1(FX2) - FX2) + (jp1(FE2) - FE2) + (FC2[1:] - FC2[:-1]))
+    pre_vd = tn * oHz
     tn = thomas_implicit(dt, 1.0, Hz_new, z_r_new, Akt_l, tn)
-    return _finalize_tracer(cfg, grid, itrc, tn, t_old_i, bry, clm, dt)
+    tn_new = _finalize_tracer(cfg, grid, itrc, tn, t_old_i, bry, clm, dt)
+    if not want_diags:
+        return tn_new
+    return tn_new, {
+        "xadv": -dt * pmn * oHz * ((ip1(FX) - FX) + (ip1(FX2) - FX2)),
+        "yadv": -dt * pmn * oHz * ((jp1(FE) - FE) + (jp1(FE2) - FE2)),
+        "vadv": -dt * pmn * oHz * ((FC[1:] - FC[:-1]) +
+                                   (FC2[1:] - FC2[:-1])),
+        "vdiff": tn - pre_vd}
 
 
 def _finalize_tracer(cfg: Config, grid, itrc: int, tn, t_old_i, bry,

@@ -2,9 +2,9 @@
 main3d.F:183-868).
 
 One call advances the State by one slow step, the nfast-substep barotropic
-loop included, in main3d's order.  Ported here: the branches the cases of
-models/ (UPWELLING, BENCHMARK, the regional, coastal, operator and
-sediment cases) and the file-driven case take (analytic or file surface
+loop included, in main3d's order.  Every branch of roms_tpu's step is
+ported: the ones the cases of models/ and the file-driven case take
+(analytic or file surface
 stress and heat flux, or COARE bulk fluxes from an analytic atmosphere;
 linear, quadratic or logarithmic drag, or the SSW, MB or SG wave-current
 bottom boundary layer with the wave fields Hwave/Pwave/Dwave; constant
@@ -20,11 +20,13 @@ and the tracers through `clm`; curvilinear and periodic grids; the ice
 shelf (`grid.zice`: the ice-base drag, the floating-ice load and the
 displaced levels), mean-age tracer pairs (`cfg.inert_age`), the eight
 biology models of the biology slot (`cfg.biology`, ops/biology.py and
-ops/bio_models.py) and suspended sediment with its bed layers, bedload and
-SED_MORPH (`cfg.sed_params`)).
-Every other branch raises NotImplementedError naming the missing feature:
-the ones listed in _check_slice when the step starts, BODYFORCE stresses
-and the general fast loop's Stokes drift where their stage is called.
+ops/bio_models.py), suspended sediment with its bed layers, bedload and
+SED_MORPH (`cfg.sed_params`), the stresses as body forces
+(`cfg.bodyforce`), and the Mellor05/Mellor08 radiation stress with the
+Stokes drift (`cfg.nearshore` with the forcing's Hwave)), and the
+DIAGNOSTICS_TS/UV budgets (`collect_diags`).  _check_slice raises
+NotImplementedError for a vertical closure or forcing fields outside
+these.
 
 Kernels: with ``cfg.pallas2d`` true (the default), the kernel stages go
 through their wrappers (ops/diag_cuda.py, prsgrd_cuda.py, rhs3d_cuda.py,
@@ -40,8 +42,10 @@ gates hold with the step's `bry`, `sources`, `clm` and the fast loop's
 wet/dry masks (``step3d_cuda.use_tracer``/``use_uv``,
 ``step2d_cuda.supported``, as the JAX step asks
 ``step3d_pallas.use_tracer_pallas``/``use_uv_pallas`` and
-``step2d_pallas.use_pallas``; `clm` also keeps the momentum phase staged,
-as ``rhs3d_pallas.use_pallas`` does); otherwise the step runs the general plain
+``step2d_pallas.use_pallas``; `clm` and the budget diagnostics also keep
+the momentum phase staged, as ``rhs3d_pallas.use_pallas`` does, and the
+active radiation stress keeps grid_flux and eos plain, as roms_tpu's
+``ns_active`` does); otherwise the step runs the general plain
 stages (ops/pre_step3d.py, step3d_t.py, step3d_uv.py, step2d.fast_loop)
 on whatever device the state is on.  The wrappers launch the CUDA kernels
 for CUDA tensors and take the plain versions for CPU tensors.
@@ -61,10 +65,12 @@ from .grid import Grid, hc_of
 from .state import State
 from . import vgrid
 from .ops import bbl, diag_cuda, eos, gls as gls_mod, mix3d, mix3d_cuda, \
-    prsgrd, prsgrd_cuda, rhs3d_cuda, step2d, step2d_cuda, step3d_cuda
+    nearshore, prsgrd, prsgrd_cuda, rhs3d_cuda, step2d, step2d_cuda, \
+    step3d_cuda
 from .ops.biology import apply_biology
 from .ops.bulk_flux import bulk_flux
 from .ops.my25 import my25_corstep
+from .ops.omega import set_massflux
 from .ops.sediment import apply_sediment, bed_thickness_total
 from .ops.tides import equilibrium_tide, harmonic_constituents
 from .ops.vmix import bvf_mix, lmd_vmix, swfrac
@@ -75,15 +81,14 @@ from .ops.step2d import Fast2DState
 from .ops.vbc import set_vbc
 from .state import _initial_bed_mass
 
-DIAGS_NOT_PORTED = "budget diagnostics (collect_diags)"
 # open-boundary data and point sources, taken with either set below
 _BOUNDARY_KEYS = {"bry", "sources"}
 _FORCING_KEYS = {"sustr", "svstr", "stflux", "btflux", "srflx"}
 # the analytic atmosphere that feeds the bulk fluxes (cfg.bulk_fluxes)
 _BULK_KEYS = {"Uwind", "Vwind", "Tair", "Pair", "Hair", "cloud", "rain",
               "srflx", "btflux"}
-# the wave fields the bottom boundary layers and GLS read (without the
-# nearshore radiation stress, which would read them too)
+# the wave fields the bottom boundary layers, GLS and the nearshore
+# radiation stress read
 _WAVE_KEYS = {"Hwave", "Pwave", "Dwave", "Lwave"}
 # the fields a biology model reads from the forcing besides the surface
 # fluxes: the winds of the air-sea gas exchange, the respiration rate and
@@ -93,24 +98,15 @@ _BIO_KEYS = {"fennel": {"Uwind", "Vwind"},
              "red_tide": {"CystIni", "DIN_obs"}}
 
 
-def _check_slice(cfg: Config, grid: Grid, frc: dict, collect_diags: bool):
-    """Raise NotImplementedError for every branch of the reference step
-    that this port does not have yet: the budget diagnostics, the
-    nearshore radiation stress, a vertical closure other than the ported
-    ones, and forcing fields outside the set the step reads (a biology
-    model's own fields, _BIO_KEYS, under that model only).
-    BODYFORCE and the general fast loop's Stokes drift raise where their
-    stage is called."""
+def _check_slice(cfg: Config, frc: dict):
+    """Raise NotImplementedError for a vertical closure other than the
+    ported ones and for forcing fields outside the set the step reads (a
+    biology model's own fields, _BIO_KEYS, under that model only)."""
     missing = []
-    if collect_diags:
-        missing.append(DIAGS_NOT_PORTED)
-    if cfg.nearshore is not None:
-        missing.append(f"nearshore radiation stress ({cfg.nearshore})")
     if cfg.vmix not in (None, "none", "kpp", "gls", "bvf", "my25"):
         missing.append(f"vertical mixing closure ({cfg.vmix})")
     extra = set(frc) - (_BULK_KEYS if cfg.bulk_fluxes else _FORCING_KEYS) \
-        - _BOUNDARY_KEYS - {"clm"} - \
-        (_WAVE_KEYS if cfg.nearshore is None else set()) - \
+        - _BOUNDARY_KEYS - {"clm"} - _WAVE_KEYS - \
         _BIO_KEYS.get(cfg.biology, set())
     if extra:
         missing.append(f"forcing fields {sorted(extra)}")
@@ -146,7 +142,7 @@ def _under_ice(cfg: Config, grid: Grid, state: State, sustr, svstr,
 
 def step(cfg: Config, grid: Grid, state: State,
          forcing_fn: Optional[Callable] = None,
-         collect_diags: bool = False) -> State:
+         collect_diags: bool = False):
     """One slow (baroclinic) step.  forcing_fn(cfg, grid, time) returns a
     dict with sustr, svstr (kinematic wind stress, m2/s2), stflux, btflux
     ((NT,Ny,Nx) surface/bottom tracer fluxes) and srflx; with
@@ -157,9 +153,24 @@ def step(cfg: Config, grid: Grid, state: State,
     (climatology and nudging coefficients: ubarclm/vbarclm with m2nudg,
     uclm/vclm with m3nudg, tclm with tnudg) and the wave fields Hwave,
     Pwave, Dwave and Lwave at rho points (the bottom boundary layers read
-    the first three, GLS's surface roughness Hwave)."""
+    the first three, GLS's surface roughness Hwave; with cfg.nearshore,
+    Hwave switches the radiation stress on and it reads all but Pwave).
+
+    collect_diags (DIAGNOSTICS_TS + DIAGNOSTICS_UV; mod_diags.F
+    DiaTrc/DiaRU/DiaRV): return (state, the step's budget dict) instead of
+    the state.  Tracer keys xadv/yadv/vadv/vdiff (from step3d_t), hdiff
+    (t3dmix) and rate (the total change of t): concentration increments
+    a step.  Momentum keys u_/v_ x {prestep, prsgrd, cor, xadv, yadv,
+    vadv, hvisc, vvisc, rate}: velocity increments a step (m/s) at u/v
+    points, with rate = the sum of the terms exactly.  roms_tpu's deltas
+    from the reference's accumulation are kept: the terms use this step's
+    AB3-weighted rhs (the reference spreads each term over its 3-step AB3
+    history); pre_step3d's predictor contribution is one "prestep"
+    bucket; "vvisc" is the closure remainder (the implicit vertical
+    viscosity, the barotropic-mean replacement, the lateral BCs, masking
+    and clm nudging), the reference's M3vvis analog."""
     frc = forcing_fn(cfg, grid, state.time) if forcing_fn is not None else {}
-    _check_slice(cfg, grid, frc, collect_diags)
+    _check_slice(cfg, frc)
     hc = hc_of(cfg)
     iic = state.iic
     zero2 = torch.zeros_like(state.zeta)
@@ -204,15 +215,43 @@ def step(cfg: Config, grid: Grid, state: State,
                               thick0))
 
     # --- vertical grid, mass fluxes and omega at time n (main3d.F:307,474)
-    #     and density (main3d.F:314) ---
-    kernels = cfg.pallas2d and diag_cuda.supported(cfg, grid)
-    grid_flux = diag_cuda.grid_flux if kernels else diag_cuda.grid_flux_plain
+    #     and density (main3d.F:314); the radiation stress keeps them
+    #     plain, with omega from the fluxes that carry the Stokes transport
+    #     (set_massflux.F:140-160) ---
+    ns_active = cfg.nearshore in ("mellor05", "mellor08") and "Hwave" in frc
+    kernels = cfg.pallas2d and diag_cuda.supported(cfg, grid) and \
+        not ns_active
     rho_eos = diag_cuda.eos if kernels else diag_cuda.eos_plain
-    z_r, z_w, Hz, Huon, Hvom, W = grid_flux(cfg, grid, state.zeta, state.u,
-                                            state.v, hc)
+    if ns_active:
+        z_r, z_w, Hz = vgrid.set_depth(grid.h, state.zeta, hc, grid.sc_r,
+                                       grid.Cs_r, grid.sc_w, grid.Cs_w,
+                                       cfg.vtransform, zice=grid.zice)
+        Huon, Hvom = set_massflux(cfg, grid, state.u, state.v, Hz)
+    else:
+        grid_flux = diag_cuda.grid_flux if kernels \
+            else diag_cuda.grid_flux_plain
+        z_r, z_w, Hz, Huon, Hvom, W = grid_flux(cfg, grid, state.zeta,
+                                                state.u, state.v, hc)
     kpp = cfg.vmix == "kpp"
     rho, pden, *bvf = rho_eos(cfg, state.t, z_r, z_w,
                               want_bvf=cfg.vmix in ("kpp", "bvf"))
+    ns = None
+    if ns_active:
+        # wave radiation stresses and Stokes drift (main3d's
+        # radiation_stress call)
+        waves = (frc["Hwave"], frc.get("Dwave", zero2),
+                 frc.get("Lwave", zero2 + 100.0))
+        if cfg.nearshore == "mellor08":
+            ns = nearshore.radiation_stress08(cfg, grid, state.zeta, Hz, z_r,
+                                              grid.Cs_r, grid.Cs_w, *waves)
+        else:
+            ns = nearshore.radiation_stress(cfg, grid, state.zeta, Hz,
+                                            grid.Cs_r, grid.Cs_w, *waves)
+        Huon = Huon + 0.5 * (Hz + torch.roll(Hz, 1, -1)) * ns.u_stokes * \
+            grid.on_u
+        Hvom = Hvom + 0.5 * (Hz + torch.roll(Hz, 1, -2)) * ns.v_stokes * \
+            grid.om_v
+        W = diag_cuda.omega_plain(cfg, grid, Huon, Hvom, z_w)
 
     # --- surface/bottom fluxes (main3d.F:386-396) ---
     bustr, bvstr, stflx, btflx = set_vbc(cfg, grid, state.u, state.v,
@@ -262,7 +301,8 @@ def step(cfg: Config, grid: Grid, state: State,
     # --- rhs3d phase (main3d.F:563): pre_step3d, prsgrd, t3dmix, rhs,
     #     uv3dmix ---
     tr_kernels = step3d_cuda.use_tracer(cfg, bry=bry, clm=clm,
-                                        sources=sources)
+                                        sources=sources,
+                                        want_diags=collect_diags)
     if tr_kernels:
         t3, t_nnew = step3d_cuda.tracer_predictor(
             cfg, grid, iic, state.t, state.t_prev, Hz, Huon, Hvom, W, Akt,
@@ -285,12 +325,15 @@ def step(cfg: Config, grid: Grid, state: State,
         # pressure slot (roms_tpu's reduced-pressure form of ICESHELF)
         ice_load = -torch.abs(grid.zice) * (1.0 + rho[-1] / cfg.rho0)
         eq_tide = ice_load if eq_tide is None else eq_tide + ice_load
-    if rhs3d_cuda.use_kernels(cfg, clm=clm):
+    if rhs3d_cuda.use_kernels(cfg, clm=clm, want_diags=collect_diags):
         # momentum_init -> prsgrd32 -> rhs3d -> uv3dmix2 as one phase
         u_nnew, v_nnew, ru, rv, rufrc, rvfrc = rhs3d_cuda.momentum_rhs(
             cfg, grid, iic, state.u, state.v, Hz, z_r, z_w, rho, Huon, Hvom,
             W, state.ru_prev, state.ru_prev2, state.rv_prev, state.rv_prev2,
             sustr, svstr, bustr, bvstr, eq_tide=eq_tide)
+        if ns is not None:
+            ru, rv, rufrc, rvfrc = _radiation_force(ns, ru, rv, rufrc,
+                                                    rvfrc)
     else:
         a1, a2 = ab3_start_coefs(iic)
         u_nnew, v_nnew = momentum_init(
@@ -300,9 +343,18 @@ def step(cfg: Config, grid: Grid, state: State,
         pgf = prsgrd_cuda.prsgrd32 if prsgrd_cuda.supported(cfg) \
             else prsgrd.prsgrd
         ru, rv = pgf(cfg, grid, rho, z_r, z_w, Hz, eq_tide=eq_tide)
-        ru, rv, rufrc, rvfrc = rhs3d_momentum(
+        if collect_diags:
+            # the budget terms' snapshots: the pressure gradient, and the
+            # momentum start before the viscosity (whose kernel updates
+            # u_nnew and v_nnew in place)
+            ru_prs, rv_prs = ru, rv
+            u_nnew_pre, v_nnew_pre = u_nnew.clone(), v_nnew.clone()
+        ru, rv, rufrc, rvfrc, *dia_rhs = rhs3d_momentum(
             cfg, grid, state.u, state.v, Huon, Hvom, W, Hz, ru, rv,
-            sustr, svstr, bustr, bvstr, clm=clm)
+            sustr, svstr, bustr, bvstr, clm=clm, want_diags=collect_diags)
+        if ns is not None:
+            ru, rv, rufrc, rvfrc = _radiation_force(ns, ru, rv, rufrc,
+                                                    rvfrc)
         if cfg.uv_vis2 and cfg.visc2 != 0.0:
             if cfg.uv_mix_geo:
                 u_nnew, v_nnew, rufrc, rvfrc = mix3d.uv3dmix2_geo(
@@ -326,6 +378,8 @@ def step(cfg: Config, grid: Grid, state: State,
                 rvfrc, cfg.dt)
     # tracer mixing (main3d's t3dmix): harmonic, then biharmonic, each
     # along isopycnals, geopotentials or s-surfaces
+    # (t3dmix2_geo's kernel updates t_nnew in place)
+    t_nnew_premix = t_nnew.clone() if collect_diags else None
     if any(x != 0.0 for x in cfg.tnu2):
         if cfg.ts_mix_iso:
             t_nnew = mix3d.t3dmix2_iso(cfg, grid, state.t, pden, Hz, z_r,
@@ -369,6 +423,10 @@ def step(cfg: Config, grid: Grid, state: State,
         DV_avg1=torch.zeros_like(zero2), DU_avg2=torch.zeros_like(zero2),
         DV_avg2=torch.zeros_like(zero2))
     wet = None
+    us2d = None
+    if ns is not None:
+        us2d = step2d.stokes_transport(grid, state.zeta,
+                                       (ns.ubar_stokes, ns.vbar_stokes))
     if cfg.pallas2d and step2d_cuda.supported(cfg, bry, sources, clm):
         fs, rufrc_c, rvfrc_c = step2d_cuda.fast_loop(
             cfg, grid, fs, rufrc, rvfrc, state.rufrc0_prev,
@@ -377,27 +435,52 @@ def step(cfg: Config, grid: Grid, state: State,
         fs, rufrc_c, rvfrc_c, wet = step2d.fast_loop(
             cfg, grid, fs, rufrc, rvfrc, state.rufrc0_prev,
             state.rufrc0_prev2, state.rvfrc0_prev, state.rvfrc0_prev2, iic,
-            bry=bry, sources=sources, clm=clm)
+            bry=bry, sources=sources, clm=clm, us2d=us2d)
 
     # --- new depths from the filtered free surface (main3d.F:736) ---
     z_r2, z_w2, Hz2 = vgrid.set_depth(grid.h, fs.Zt_avg1, hc, grid.sc_r,
                                       grid.Cs_r, grid.sc_w, grid.Cs_w,
                                       cfg.vtransform, zice=grid.zice)
 
-    # --- 3D momentum corrector (main3d.F:762) ---
+    # --- 3D momentum corrector (main3d.F:762).  Under the radiation
+    #     stress the time-centred target DU_avg2 is Eulerian + Stokes; the
+    #     corrector takes the Eulerian part (step3d_uv.F:473 DCs) ---
+    DU2_t, DV2_t = fs.DU_avg2, fs.DV_avg2
+    if us2d is not None:
+        DU2_t = DU2_t - us2d[0]
+        DV2_t = DV2_t - us2d[1]
     if step3d_cuda.use_uv(cfg, bry=bry, sources=sources, wet=wet):
         u2, v2, ubar2, vbar2, Huon2, Hvom2 = step3d_cuda.uv_corrector(
             cfg, grid, iic, u_nnew, v_nnew, ru, rv, Hz2, Akv, fs.DU_avg1,
-            fs.DV_avg1, fs.DU_avg2, fs.DV_avg2, Huon, Hvom)
+            fs.DV_avg1, DU2_t, DV2_t, Huon, Hvom)
     else:
         u2, v2, ubar2, vbar2, Huon2, Hvom2 = step3d_cuda.uv_corrector_plain(
             cfg, grid, iic, u_nnew, v_nnew, ru, rv, Hz2, Akv, fs.DU_avg1,
-            fs.DV_avg1, fs.DU_avg2, fs.DV_avg2, Huon, Hvom, u_old=state.u,
+            fs.DV_avg1, DU2_t, DV2_t, Huon, Hvom, u_old=state.u,
             v_old=state.v, bry=bry, sources=sources, z_w_new=z_w2, wet=wet)
+    if ns is not None:
+        # tracer advection and omega see the total transport: the 3-D
+        # Stokes flux keeps the u_stokes profile, its column sum pinned to
+        # the frozen 2-D transport, so that sum_k Huon2 = DU_avg2 exactly
+        Hz2_u = 0.5 * (Hz2 + torch.roll(Hz2, 1, -1))
+        Hz2_v = 0.5 * (Hz2 + torch.roll(Hz2, 1, -2))
+        FSu = Hz2_u * ns.u_stokes * grid.on_u
+        FSv = Hz2_v * ns.v_stokes * grid.om_v
+        D2_u = torch.sum(Hz2_u, dim=0)
+        D2_v = torch.sum(Hz2_v, dim=0)
+        FSu = FSu + (us2d[0] - torch.sum(FSu, dim=0)) * Hz2_u / D2_u
+        FSv = FSv + (us2d[1] - torch.sum(FSv, dim=0)) * Hz2_v / D2_v
+        Huon2 = Huon2 + FSu
+        Hvom2 = Hvom2 + FSv
     if wet is not None:
         # the stored AB3 rhs history is limited too (step3d_uv.F:563)
         ru = ru * wet["umask_wet"]
         rv = rv * wet["vmask_wet"]
+
+    if collect_diags:
+        dia_uv = _momentum_budget(cfg, grid, state, iic, Hz2, u_nnew_pre,
+                                  v_nnew_pre, u_nnew, v_nnew, ru_prs, rv_prs,
+                                  dia_rhs[0], u2, v2)
 
     # --- omega with corrected fluxes (main3d.F:789) ---
     omega = diag_cuda.omega if cfg.pallas2d else diag_cuda.omega_plain
@@ -433,7 +516,11 @@ def step(cfg: Config, grid: Grid, state: State,
     else:
         t2 = step3d_cuda.tracer_corrector_plain(
             cfg, grid, t_nnew, t3, Huon2, Hvom2, W2, Hz2, z_r2, Akt,
-            t_old=state.t, bry=bry, sources=sources, clm=clm)
+            t_old=state.t, bry=bry, sources=sources, clm=clm,
+            want_diags=collect_diags)
+        if collect_diags:
+            t2, dia = t2
+            dia["hdiff"] = (t_nnew - t_nnew_premix) / Hz2
 
     # --- mean-age tracer pairs (AGE_MEAN; step3d_t.F:1507-1539): the age
     #     concentration grows by dt times its conservative partner ---
@@ -467,7 +554,7 @@ def step(cfg: Config, grid: Grid, state: State,
             cfg, grid, sed, t2, bed_mass, Hz2, z_w2, bustr, bvstr,
             tau_cw=tau_cwmax if cfg.bbl else None, **sed_kw)
 
-    return state.replace(
+    new_state = state.replace(
         time=state.time + cfg.dt, iic=iic + 1,
         zeta=fs.Zt_avg1, ubar=ubar2, vbar=vbar2,
         u=u2, v=v2, t=t2, t_prev=state.t,
@@ -482,6 +569,48 @@ def step(cfg: Config, grid: Grid, state: State,
         DU_avg1=fs.DU_avg1, DV_avg1=fs.DV_avg1,
         DU_avg2=fs.DU_avg2, DV_avg2=fs.DV_avg2, bed_mass=bed_mass,
         rheight=rheight, rlength=rlength, tau_cwmax=tau_cwmax)
+    if collect_diags:
+        dia["rate"] = new_state.t - state.t
+        dia.update(dia_uv)
+        return new_state, dia
+    return new_state
+
+
+def _radiation_force(ns, ru, rv, rufrc, rvfrc):
+    """The radiation stress as a body force on ru/rv (rhs3d.F:994), its
+    column sum on rufrc/rvfrc, so that the fast loop carries it."""
+    return (ru - ns.rustr3d, rv - ns.rvstr3d, rufrc - ns.rustr2d,
+            rvfrc - ns.rvstr2d)
+
+
+def _momentum_budget(cfg: Config, grid: Grid, state: State, iic: int, Hz2,
+                     u_nnew_pre, v_nnew_pre, u_nnew, v_nnew, ru_prs, rv_prs,
+                     dia_rhs, u2, v2) -> dict:
+    """The DIAGNOSTICS_UV increments of the step (see step's docstring):
+    each rhs term times this step's AB3 weight, dt and the metric factor,
+    over the new level thickness; vvisc closes rate = sum of the terms."""
+    ab3 = 1.0 if iic == 0 else (1.5 if iic == 1 else 23.0 / 12.0)
+    pm, pn = grid.pm, grid.pn
+    DC0u = 0.25 * cfg.dt * ab3 * (pm + im1(pm)) * (pn + im1(pn))
+    DC0v = 0.25 * cfg.dt * ab3 * (pm + jm1(pm)) * (pn + jm1(pn))
+    oHz_u = 1.0 / (0.5 * (Hz2 + im1(Hz2)))
+    oHz_v = 1.0 / (0.5 * (Hz2 + jm1(Hz2)))
+    dia = {"u_prestep": u_nnew_pre * oHz_u - state.u,
+           "v_prestep": v_nnew_pre * oHz_v - state.v,
+           "u_hvisc": (u_nnew - u_nnew_pre) * oHz_u,
+           "v_hvisc": (v_nnew - v_nnew_pre) * oHz_v,
+           "u_prsgrd": DC0u * ru_prs * oHz_u,
+           "v_prsgrd": DC0v * rv_prs * oHz_v}
+    for key, (tu, tv) in dia_rhs.items():
+        dia["u_" + key] = DC0u * tu * oHz_u
+        dia["v_" + key] = DC0v * tv * oHz_v
+    dia["u_rate"] = u2 - state.u
+    dia["v_rate"] = v2 - state.v
+    terms = ("prestep", "hvisc", "prsgrd", "cor", "xadv", "yadv", "vadv")
+    for d in "uv":
+        dia[d + "_vvisc"] = dia[d + "_rate"] - sum(dia[f"{d}_{k}"]
+                                                   for k in terms)
+    return dia
 
 
 def _check_nfast(cfg: Config):

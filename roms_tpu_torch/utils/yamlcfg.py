@@ -82,7 +82,8 @@ CASES = {
                      "lake_signell_config"),
     **{name: ("roms_tpu_torch.models.cases2", name, name + "_config")
        for name in ("channel", "lmd_test", "mixed_layer", "test_chan",
-                    "riverplume2", "weddell", "bl_test", "sed_test1")},
+                    "riverplume2", "weddell", "bl_test", "sed_test1",
+                    "flt_test", "shoreface")},
 }
 # the surface forcing a file case reads by default: variable -> time axis
 FRC_VARS = {"sustr": "sms_time", "svstr": "sms_time", "shflux": "shf_time",

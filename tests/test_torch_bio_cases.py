@@ -143,7 +143,7 @@ def test_dispatch_mirrors_jax_gates(case, monkeypatch):
 
 def test_registry_cli_and_example(tmp_path, monkeypatch, capsys):
     from roms_tpu_torch.io.netcdf import read_history
-    assert len(REGISTRY) == 28 and "bio_toy" in REGISTRY
+    assert len(REGISTRY) == 30 and "bio_toy" in REGISTRY
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         assert cli(["cases"]) == 0
@@ -220,10 +220,10 @@ def test_model_forcing_fields(field, model, admitted):
     cfg = cfg.replace(biology=model)
     frc = {**ffn(cfg, grid, 0.0), field: torch.zeros_like(grid.h)}
     if admitted:
-        stepping._check_slice(cfg, grid, frc, False)
+        stepping._check_slice(cfg, frc)
     else:
         with pytest.raises(NotImplementedError, match="forcing fields"):
-            stepping._check_slice(cfg, grid, frc, False)
+            stepping._check_slice(cfg, frc)
 
 
 def _with_tracers(nt):

@@ -22,11 +22,11 @@ def test_cases(capsys):
     assert main(["cases"]) == 0
     assert capsys.readouterr().out.split() == [
         "basin", "benchmark", "bio_toy", "bl_test", "canyon3d", "channel",
-        "channel_neck", "double_gyre", "estuary", "grav_adj", "inlet_test",
-        "kelvin", "lab_canyon", "lake_signell", "lmd_test", "mixed_layer",
-        "overflow", "riverplume", "riverplume2", "seamount", "sed_test1",
-        "sed_toy", "soliton", "test_chan", "test_head", "upwelling",
-        "weddell", "windbasin", "file"]
+        "channel_neck", "double_gyre", "estuary", "flt_test", "grav_adj",
+        "inlet_test", "kelvin", "lab_canyon", "lake_signell", "lmd_test",
+        "mixed_layer", "overflow", "riverplume", "riverplume2", "seamount",
+        "sed_test1", "sed_toy", "shoreface", "soliton", "test_chan",
+        "test_head", "upwelling", "weddell", "windbasin", "file"]
 
 
 def test_cases_registered():
@@ -75,12 +75,21 @@ def test_module_entry_point():
     assert res.stdout.count("KE=") == 2
 
 
-@pytest.mark.parametrize("case", ["flt_test", "shoreface",
-                                  "no_such_case"])
+@pytest.mark.parametrize("case", ["no_such_case"])
 def test_cases_not_ported_raise(case):
     with pytest.raises(NotImplementedError,
                        match=f"not ported: case '{case}'"):
         build_from_dict({"case": case, "grid_file": "g.nc"}, device="cpu")
+
+
+@pytest.mark.parametrize("case", ["flt_test", "shoreface"])
+def test_run_the_last_cases(case, capsys):
+    """FLT_TEST and SHOREFACE, which the registry once lacked, run two
+    steps at their published sizes through the command line."""
+    assert main(["run", "--case", case, "--nsteps", "2", "--device", "cpu",
+                 "--ninfo", "1"]) == 0
+    out = capsys.readouterr().out
+    assert f"case={case}" in out and out.count("KE=") == 2
 
 
 def test_run_soliton_exits_2(capsys):

@@ -11,7 +11,8 @@
     under ROMS_PALLAS_INTERPRET), and the general plain stages elsewhere;
 (c) LAB_CANYON's physics and BENCHMARK's tidal response, as
     tests/test_cases4.py and tests/test_tides_avg.py check roms_tpu;
-(d) the branches still missing raise NotImplementedError naming them.
+(d) one step of each branch the step once refused (BODYFORCE, the
+    budgets, the Mellor05/08 radiation stress, the Stokes drift) runs.
 """
 
 import dataclasses
@@ -27,6 +28,7 @@ from roms_tpu_torch.models import cases4
 from roms_tpu_torch.ops import bc, diag_cuda, mix3d_cuda, prsgrd_cuda, \
     rhs3d_cuda, step2d, step2d_cuda, step3d_cuda
 from chip_smoke import coastal_fixture_script
+from test_torch_forward_cases import run_branch
 from test_torch_obc import jax_config
 
 torch.set_num_threads(1)
@@ -176,20 +178,14 @@ def test_tide_generating_force_moves_benchmark(tmp):
 
 @pytest.mark.parametrize("change, kw, feature", [
     (dict(nearshore="mellor08"), {}, "nearshore radiation stress"),
-    (dict(bodyforce=True), {}, "BODYFORCE"),
+    (dict(bodyforce=True, levsfrc=2, levbfrc=3), {}, "BODYFORCE"),
     ({}, dict(collect_diags=True), "budget diagnostics"),
     (dict(nearshore="mellor05"), {}, "nearshore radiation stress"),
     ({}, dict(stokes=True), "Stokes drift"),
 ])
-def test_unported_branches_raise(change, kw, feature, tmp):
-    """The step (with `kw`), or with stokes the general fast loop handed a
-    Stokes transport, raises naming the branch."""
-    cfg, grid, s0, ffn = fx.build_port("lab_canyon", tmp)
-    cfg = dataclasses.replace(cfg, **change)
-    with pytest.raises(NotImplementedError, match=feature):
-        if kw.get("stokes"):
-            zero = torch.zeros_like(s0.zeta)
-            step2d.fast_loop(cfg, grid, step2d.make_fast_state(
-                cfg, s0.zeta, s0.ubar, s0.vbar), us2d=(zero, zero))
-        else:
-            stepping.step(cfg, grid, s0, ffn, **kw)
+def test_once_unported_branches_run(change, kw, feature, tmp):
+    """One step (with `kw`) of each branch the step once refused, on the
+    curvilinear, north-south periodic LAB_CANYON, or with stokes its
+    general fast loop handed a Stokes transport: finite, and moved by the
+    branch (tests/test_torch_forward_cases.run_branch)."""
+    run_branch(*fx.build_port("lab_canyon", tmp), change, kw)

@@ -1,6 +1,6 @@
 """roms_tpu_torch's run driver on a small UPWELLING, on the CPU: analogs of
-tests/test_io.py and tests/test_output_streams.py (the DIA stream is not
-ported and raises).  A history record equals stepping.run's state bitwise,
+tests/test_io.py and tests/test_output_streams.py, the DIA stream among
+them.  A history record equals stepping.run's state bitwise,
 a restart continues bitwise, the averages sample every step, and their
 derived fields match roms_tpu's driver (its step is not run: the
 reference's derived functions and writer are fed the port's states)."""
@@ -271,12 +271,26 @@ def test_his_file_ring(small, tmp_path):
     assert read_history(paths[2])["zeta"].shape[0] == 1
 
 
-def test_dia_stream_is_not_ported(small, tmp_path):
+def test_dia_stream(small, tmp_path):
+    """tests/test_output_streams.py:66's analog: two DIA records of two
+    steps each; the momentum budget closes in the means and the tracer
+    terms are there; the state is the straight run's."""
     cfg, grid, s0, ffn = small
-    with pytest.raises(NotImplementedError, match="collect_diags"):
-        Simulation(cfg, grid, s0, ffn, dia_file=str(tmp_path / "dia.nc"),
-                   ndia=2, **QUIET)
-    assert not (tmp_path / "dia.nc").exists()
+    path = str(tmp_path / "dia.nc")
+    sim = Simulation(cfg, grid, s0, ffn, dia_file=path, ndia=2, **QUIET)
+    sim.run(4)
+    sim.finalize()
+    d = read_history(path)
+    assert d["ocean_time"].shape[0] == 2
+    np.testing.assert_allclose(d["ocean_time"], [cfg.dt, 3.0 * cfg.dt])
+    total = sum(d[f"u_{k}"] for k in ("prestep", "hvisc", "prsgrd", "cor",
+                                      "xadv", "yadv", "vadv", "vvisc"))
+    np.testing.assert_allclose(d["u_rate"], total, atol=1e-15)
+    for k in ("temp_xadv", "temp_vdiff", "temp_rate", "salt_rate"):
+        assert k in d and np.isfinite(d[k]).all()
+    plain = stepping.run(cfg, grid, s0, 4, ffn)
+    assert all(torch.equal(getattr(sim.state, k), getattr(plain, k))
+               for k in TENSOR_FIELDS)
 
 
 def test_steppers_refuse_an_empty_fast_loop(small):

@@ -511,6 +511,25 @@ def test_rhs3d_kernel(developed, iic, curv):
     _check_rhs3d(args, kw)
 
 
+@pytest.mark.parametrize("levels", [(1, 16), (12, 4)])
+@pytest.mark.parametrize("iic", [None, 5])
+def test_rhs3d_kernel_bodyforce(developed, iic, levels):
+    """BODYFORCE: the stresses as body forces over the levels k >=
+    levsfrc and k <= levbfrc, the momentum start without its stress
+    fluxes; ru, rv, u_nnew and v_nnew still bitwise the plain version's
+    (the level-range sums of Hz run in k order in both)."""
+    cfg, grid, s = developed
+    cfg = cfg.replace(bodyforce=True, levsfrc=levels[0], levbfrc=levels[1])
+    f = _stage_inputs(cfg, grid, s)
+    args = (cfg, grid) + _momentum_inputs(s, f)
+    kw = {}
+    if iic is not None:
+        a1, a2 = ab3_start_coefs(iic)
+        kw = dict(start=(a1, a2, s.ru_prev, s.ru_prev2, s.rv_prev,
+                         s.rv_prev2))
+    _check_rhs3d(args, kw)
+
+
 def _check_rhs3d(args, kw):
     """rhs3d: ru, rv (and u_nnew, v_nnew with the start) bitwise equal to
     the plain version, rufrc and rvfrc, the column sums, within RTOL; a

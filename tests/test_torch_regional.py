@@ -9,7 +9,9 @@
     where roms_tpu's step takes its Pallas kernel (the JAX gates asked with
     the case's bry/sources, as under ROMS_PALLAS_INTERPRET), and the
     general plain stages everywhere else;
-(c) the branches still missing raise NotImplementedError naming them.
+(c) forcing fields outside the step's set raise NotImplementedError
+    naming them, and BODYFORCE and the Mellor05/08 radiation stress, which
+    once raised, run.
 """
 
 import dataclasses
@@ -25,6 +27,7 @@ from roms_tpu_torch.models import cases as tcases
 from roms_tpu_torch.ops import diag_cuda, mix3d_cuda, prsgrd_cuda, \
     rhs3d_cuda, step2d, step2d_cuda, step3d_cuda
 from chip_smoke import regional_fixture_script
+from test_torch_forward_cases import run_branch
 from test_torch_obc import jax_config
 
 torch.set_num_threads(1)
@@ -135,10 +138,7 @@ def test_dispatch_mirrors_jax_gates(case, monkeypatch):
 
 
 @pytest.mark.parametrize("change, frc, feature", [
-    (dict(bodyforce=True), {}, "BODYFORCE"),
-    (dict(nearshore="mellor05"), {}, "nearshore radiation stress"),
     ({}, {"Uwind": 0.0}, "forcing fields"),
-    (dict(nearshore="mellor08"), {}, "nearshore radiation stress"),
 ])
 def test_unported_branches_raise(change, frc, feature):
     cfg, grid, s0, ffn = _build("kelvin")
@@ -149,3 +149,15 @@ def test_unported_branches_raise(change, frc, feature):
 
     with pytest.raises(NotImplementedError, match=feature):
         stepping.step(cfg, grid, s0, forcing)
+
+
+@pytest.mark.parametrize("change, feature", [
+    (dict(bodyforce=True, levsfrc=3, levbfrc=2), "BODYFORCE"),
+    (dict(nearshore="mellor05"), "nearshore radiation stress"),
+    (dict(nearshore="mellor08"), "nearshore radiation stress"),
+])
+def test_once_unported_branches_run(change, feature):
+    """One step of KELVIN (its open boundaries' bry) under each branch the
+    step once refused: finite, and moved by the branch
+    (tests/test_torch_forward_cases.run_branch)."""
+    run_branch(*_build("kelvin"), change, {})

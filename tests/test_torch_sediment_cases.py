@@ -165,7 +165,7 @@ def test_dispatch_mirrors_jax_gates(case, monkeypatch):
 
 
 def test_registry_and_cli_run_the_cases(capsys):
-    assert len(REGISTRY) == 28
+    assert len(REGISTRY) == 30
     assert {"sed_toy", "lake_signell", "sed_test1"} <= set(REGISTRY)
     out = io.StringIO()
     with contextlib.redirect_stdout(out):

@@ -6,7 +6,9 @@
     tests/data/upwelling_anchor.npz at the bounds of test_anchor.py, with
     no JAX run;
 (c) a spatially constant tracer stays constant (the analog of
-    test_step3d.py::test_tracer_constancy_*).
+    test_step3d.py::test_tracer_constancy_*);
+(d) one step of each branch the step once refused (BODYFORCE, the
+    budgets, the Mellor05/08 radiation stress, the Stokes drift) runs.
 """
 
 import dataclasses
@@ -20,8 +22,8 @@ from roms_tpu import stepping as jstepping
 from roms_tpu.models import upwelling as jup
 from roms_tpu_torch import convert, stepping
 from roms_tpu_torch.models import upwelling as tup
-from roms_tpu_torch.ops import step2d
 from roms_tpu_torch.state import State, TENSOR_FIELDS
+from test_torch_forward_cases import run_branch
 
 torch.set_num_threads(1)
 
@@ -101,24 +103,17 @@ def _constancy_error(cfg, s):
 
 
 @pytest.mark.parametrize("change, kw, feature", [
-    (dict(bodyforce=True), {}, "BODYFORCE"),
+    (dict(bodyforce=True, levsfrc=6, levbfrc=2), {}, "BODYFORCE"),
     ({}, dict(collect_diags=True), "budget diagnostics"),
     (dict(nearshore="mellor08"), {}, "nearshore radiation stress"),
     ({}, dict(stokes=True), "Stokes drift"),
     (dict(nearshore="mellor05"), {}, "nearshore radiation stress"),
 ])
-def test_step_raises_for_unported_branches(upw, change, kw, feature):
-    """The step (with `kw`), or with stokes the general fast loop handed a
-    Stokes transport, raises naming the branch."""
-    cfg, grid, s0, ffn = upw
-    cfg = dataclasses.replace(cfg, **change)
-    with pytest.raises(NotImplementedError, match=feature):
-        if kw.get("stokes"):
-            zero = torch.zeros_like(s0.zeta)
-            step2d.fast_loop(cfg, grid, step2d.make_fast_state(
-                cfg, s0.zeta, s0.ubar, s0.vbar), us2d=(zero, zero))
-        else:
-            stepping.step(cfg, grid, s0, ffn, **kw)
+def test_once_unported_branches_run(upw, change, kw, feature):
+    """One step (with `kw`) of each branch the step once refused, or with
+    stokes the general fast loop handed a Stokes transport: finite, and
+    moved by the branch (tests/test_torch_forward_cases.run_branch)."""
+    run_branch(*upw, change, kw)
 
 
 def test_tracer_constancy_no_wind(upw):
