@@ -25,6 +25,7 @@ BENCHMARK1 steps through them, and checks the results.
     python3 chip_smoke.py --forward              # the build and phase 19
     python3 chip_smoke.py --forward-long         # the same, with
                                                  # SHOREFACE's 400 steps
+    python3 chip_smoke.py --fourdvar             # the build and phase 20
 
 Phases, one or more lines each; any failure exits non-zero:
   1. device: card name and power limit (nvidia-smi), torch and CUDA versions;
@@ -271,6 +272,28 @@ sand) and the budget diagnostics on UPWELLING (41x80x16):
      bitwise but the column sums, timed with its bound beside the launch
      without it, and both kernels' registers; (f) float32 and float64
      ms/step of each case with its launches a step.
+Then the tangent-linear and adjoint step and the 4D-Var drivers (obs.py,
+fourdvar.py), float64:
+ 20. (a) UPWELLING 41x80x16, 5 steps in: the TLM (fourdvar.Linearization,
+     the drivers' jvp from two vjps, on the plain path) against finite
+     differences of the nonlinear step with the kernels on (eps 1e-4 and
+     1e-5, the error below 1e-2 and falling), the adjoint symmetry <J dx,
+     dy> = <dx, J^T dy> at 1e-10, the launches by row of each run (rows
+     1-4 and 6-11 once a nonlinear step, none in a linearized run), and
+     the ms of a nonlinear step kernels on and plain, of the recorded
+     linearized step, of a TLM and an ADM step and of torch.func.jvp /
+     vjp of fourdvar.step_map; (b) the eos wrapper on CUDA tensors under
+     torch.func.vjp and on one that requires grad, and the uv3dmix2
+     wrapper (which checks its arguments' aliasing by pointer) under
+     torch.func.vjp, must raise their RuntimeError; (c) the one-step TLM and ADM, the small BENCHMARK's
+     TLM, the I4D-Var, RBL4D-Var and R4D-Var twins, the wind-stress and
+     FracObs twins and the bry control from roms_tpu's observations, and
+     the port's own truth runs, against tests/data/torch_fourdvar_small.npz
+     at CARD_FACTOR x the CPU bounds; (d) roms_tpu's 4D-Var checks on
+     those runs (tests/test_fourdvar.py, tests/test_obs.py); (e) an
+     I4D-Var twin at 41x80x16 (SST at step 2 over the interior, 5 CG
+     iterations): Jo before and after, the CG residuals, the seconds, Jo
+     falling and everything finite.
 The last two lines are a JSON object of per-kernel results (BENCHMARK1
 float32, launches of phase 10) and a JSON object {"ok": true, "device":
 {...}}.  Without CUDA it exits non-zero and prints no result.
@@ -3632,6 +3655,318 @@ def forward_phase(device, smi, long=False):
                       forward_fixture_script().WALL_BOUND})
 
 
+FOURDVAR_FIXTURE = os.path.join(ROOT, "tests", "data",
+                                "torch_fourdvar_small.npz")
+# the eleven kernel wrappers by their row in PERF.md's table
+ROWS = ("grid_flux", "omega", "eos", "uv3dmix2", "t3dmix2_geo", "prsgrd32",
+        "rhs3d", "tracer_predictor", "tracer_corrector", "uv_corrector",
+        "fast_loop")
+# UPWELLING's step: every row but 5 (tnu2 = 0)
+UPWELLING_ROWS = tuple(r for r in range(1, 12) if r != 5)
+FOURDVAR_SPINUP = 5          # UPWELLING steps before the linearization
+FOURDVAR_BIG_INNER = 5       # the 41x80x16 twin's CG iterations
+FOURDVAR_TIMED = 2           # calls a TLM / ADM time is the mean of
+
+
+def fourdvar_fixture_script():
+    """scripts/torch_fourdvar_fixture.py as a module."""
+    return _script("torch_fourdvar_fixture")
+
+
+def counted(run):
+    """run() with every kernel wrapper's count set to 0 just before; returns
+    (its result, {row: launches in that run})."""
+    import torch
+    table = {k: getattr(mod, attr) for k, (mod, attr, _) in
+             wrappers().items()}
+    for w in table.values():
+        w.launches = 0
+    out = run()
+    torch.cuda.synchronize()
+    return out, {r: table[k].launches for r, k in enumerate(ROWS, 1)}
+
+
+def mean_ms(fn, reps=FOURDVAR_TIMED, warm=True) -> float:
+    """Host-clock ms of a call of fn, the mean of `reps` (after one unless
+    not `warm`)."""
+    import torch
+    if warm:
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def fourdvar_tlm_adm(device, smi):
+    """Phase 20 (a) and (b): UPWELLING 41x80x16 float64, FOURDVAR_SPINUP
+    steps in: the TLM's finite-difference convergence (nonlinear runs with
+    the kernels on), the adjoint symmetry, the launches by row of each
+    run, the ms of a TLM and an ADM step; then the eos and uv3dmix2
+    wrappers under torch.func.vjp, and eos on a tensor that requires
+    grad, must raise."""
+    import torch
+    from roms_tpu_torch import fourdvar, stepping, vgrid
+    from roms_tpu_torch.grid import hc_of
+    from roms_tpu_torch.models import upwelling
+    from roms_tpu_torch.ops import diag_cuda, mix3d_cuda
+    from roms_tpu_torch.state import TENSOR_FIELDS
+    fx = fourdvar_fixture_script()
+    cfg, grid, s, ffn = upwelling.build(upwelling.make_config(),
+                                        device=device)
+    s, spin = counted(lambda: stepping.run(cfg, grid, s, FOURDVAR_SPINUP,
+                                           ffn))
+    f, x = fourdvar.step_map(cfg, grid, s, ffn)
+
+    def flat(d):
+        return torch.cat([d[k].reshape(-1) for k in TENSOR_FIELDS])
+
+    shapes = fx.shapes_of(s, TENSOR_FIELDS)
+    kw = dict(dtype=grid.h.dtype, device=device)
+    dx = {k: torch.as_tensor(v, **kw) for k, v in fx.tangent(shapes,
+                                                             1).items()}
+    dy = flat({k: torch.as_tensor(v, **kw)
+               for k, v in fx.tangent(shapes, 2).items()})
+    lin, rec = counted(lambda: fourdvar.Linearization(
+        lambda d: flat(f(d)), x))
+    jdx, n_jvp = counted(lambda: lin.jvp(dx))
+    jtdy, n_vjp = counted(lambda: lin.vjp(dy))
+    y0, n_nl = counted(lambda: stepping.step(cfg, grid, s, ffn))
+    errs, n_fd = [], {}
+    for eps in (1e-4, 1e-5):
+        y1, n_fd = counted(lambda: stepping.step(
+            cfg, grid, s.replace(**{k: x[k] + eps * dx[k] for k in x}),
+            ffn))
+        num = (flat(vars(y1)) - flat(vars(y0))) / eps
+        errs.append(float(torch.linalg.vector_norm(num - jdx) /
+                          torch.linalg.vector_norm(jdx)))
+    lhs = float(torch.vdot(jdx, dy))
+    rhs = sum(float(torch.vdot(dx[k].reshape(-1), jtdy[k].reshape(-1)))
+              for k in TENSOR_FIELDS)
+    sym = abs(lhs - rhs) / max(abs(lhs), abs(rhs))
+    for tag, n in (("spin-up (5 nonlinear steps)", spin),
+                   ("nonlinear step", n_nl), ("FD nonlinear step", n_fd),
+                   ("linearized run (recorded)", rec),
+                   ("TLM (jvp)", n_jvp), ("ADM (vjp)", n_vjp)):
+        print(f"[fourdvar] UPWELLING {cfg.Lm}x{cfg.Mm}x{cfg.N} launches by "
+              f"row, {tag}: {n}", flush=True)
+    check(all(spin[r] == FOURDVAR_SPINUP for r in UPWELLING_ROWS) and
+          spin[5] == 0, f"the spin-up missed a kernel of rows 1-4, 6-11: "
+          f"{spin}")
+    for n in (n_nl, n_fd):
+        check(all(n[r] == 1 for r in UPWELLING_ROWS) and n[5] == 0,
+              f"a nonlinear step missed a kernel of rows 1-4, 6-11: {n}")
+    for n in (rec, n_jvp, n_vjp):
+        check(not any(n.values()), f"a linearized run launched a kernel: "
+              f"{n}")
+    print(f"[fourdvar] TLM finite-difference check: |(f(x+eps dx) - f(x))"
+          f"/eps - J dx| / |J dx| = {errs[0]:.3e} (eps 1e-4), "
+          f"{errs[1]:.3e} (eps 1e-5); adjoint symmetry <J dx, dy> = "
+          f"{lhs:.12e}, <dx, J^T dy> = {rhs:.12e}, relative difference "
+          f"{sym:.3e} (bound 1e-10)", flush=True)
+    check(errs[0] < 1e-2 and errs[1] < errs[0],
+          f"the TLM's finite-difference error does not fall: {errs}")
+    check(sym <= 1e-10, f"adjoint symmetry {sym:.3e} over 1e-10")
+    check(bool(torch.isfinite(jdx).all()) and
+          all(bool(torch.isfinite(v).all()) for v in jtdy.values()),
+          "a non-finite TLM or ADM output")
+
+    ms_rec = mean_ms(lambda: fourdvar.Linearization(lambda d: flat(f(d)),
+                                                    x), warm=False)
+    ms_tlm = mean_ms(lambda: lin.jvp(dx))
+    ms_adm = mean_ms(lambda: lin.vjp(dy))
+    ms_on = mean_ms(lambda: stepping.step(cfg, grid, s, ffn))
+    ms_off = mean_ms(lambda: stepping.step(fourdvar.linear_config(cfg),
+                                           grid, s, ffn))
+    ms_fjvp = mean_ms(lambda: torch.func.jvp(f, (x,), (dx,)), 1, False)
+    ms_fvjp = mean_ms(lambda: torch.func.vjp(f, x)[1](
+        {k: torch.zeros_like(v) for k, v in x.items()}), 1, False)
+    print(f"[fourdvar] UPWELLING {cfg.Lm}x{cfg.Mm}x{cfg.N} float64 ms, "
+          f"host clock: nonlinear step kernels on {ms_on:.2f}, plain "
+          f"{ms_off:.2f}; the linearized step recorded {ms_rec:.2f}; TLM "
+          f"step (Linearization.jvp) {ms_tlm:.2f}; ADM step "
+          f"(Linearization.vjp) {ms_adm:.2f}; torch.func.jvp of step_map "
+          f"{ms_fjvp:.2f}, torch.func.vjp {ms_fvjp:.2f}; on {smi}",
+          flush=True)
+
+    # (b) the wrappers refuse a differentiated tensor on the card
+    z_r, z_w, Hz = vgrid.set_depth(grid.h, s.zeta, hc_of(cfg),
+                                   grid.sc_r, grid.Cs_r, grid.sc_w,
+                                   grid.Cs_w, cfg.vtransform)
+    s2 = torch.zeros_like(s.zeta)
+
+    def mix(u):
+        return mix3d_cuda.uv3dmix2(cfg, grid, u, s.v, Hz, s.u.clone(),
+                                   s.v.clone(), s2.clone(), s2.clone(),
+                                   cfg.dt)[0]
+
+    for name, tag, call in (
+            ("eos", "under torch.func.vjp", lambda: torch.func.vjp(
+                lambda t: diag_cuda.eos(cfg, t, z_r, z_w, False)[0], s.t)),
+            ("eos", "that requires grad", lambda: diag_cuda.eos(
+                cfg, s.t.clone().requires_grad_(), z_r, z_w, False)),
+            ("uv3dmix2", "under torch.func.vjp",
+             lambda: torch.func.vjp(mix, s.u))):
+        try:
+            _, n = counted(call)
+        except RuntimeError as exc:
+            ok = f"roms_{name} kernel" in str(exc) and "pallas2d=False" \
+                in str(exc)
+            print(f"[fourdvar] {name} wrapper on a CUDA tensor {tag}: "
+                  f"raised RuntimeError: {exc}", flush=True)
+            check(ok, f"the {name} wrapper raised another error: {exc}")
+            continue
+        check(False, f"the {name} wrapper launched on a tensor {tag}: {n}")
+    rho, _ = diag_cuda.eos(cfg, s.t, z_r, z_w, False)
+    check(bool(torch.isfinite(rho).all()), "eos without a derivative")
+
+
+def fourdvar_small(device):
+    """Phase 20 (c) and (d): the small twins from roms_tpu's observations
+    against tests/data/torch_fourdvar_small.npz at CARD_FACTOR x the CPU
+    bounds (the one-step TLM and ADM, the small BENCHMARK's TLM, the six
+    driver runs, the bry control, the port's own truth runs), and
+    roms_tpu's 4D-Var checks at its tests' sizes on the same runs."""
+    import numpy as np
+    from roms_tpu_torch import obs as tobs, stepping
+    fx = fourdvar_fixture_script()
+    ref = np.load(FOURDVAR_FIXTURE)
+    errors = {}
+    cfg, _, _, _, jdx, jtdy = fx.port_autodiff(ref, device)
+    errors.update(fx.autodiff_errors(cfg, jdx, jtdy, ref, CARD_FACTOR))
+    cfg, jdx = fx.port_benchmark_tlm(ref, device)
+    errors.update(fx.benchmark_errors(cfg, jdx, ref, CARD_FACTOR))
+    cfg, d, adj = fx.port_bry(device)
+    errors.update(fx.bry_errors(cfg, d, adj, ref, CARD_FACTOR))
+    runs = {}
+    for part, (setup, driver, n_inner) in fx.DRIVERS.items():
+        t0 = time.perf_counter()
+        runs[part] = fx.port_driver(part, device, fx.fixture_obs(ref, part))
+        errors.update(fx.driver_errors(part, *runs[part], ref,
+                                       CARD_FACTOR))
+        jo = runs[part][2]["Jo"]
+        print(f"[fourdvar-small] {part} ({driver}, n_inner {n_inner}): Jo "
+              f"{jo[0]:.6e} -> {jo[-1]:.6e}, {time.perf_counter() - t0:.1f}"
+              f" s", flush=True)
+    for setup in ("twin", "wind", "fracobs"):
+        errors.update(fx.obs_errors(setup, fx.port_twin(setup, device), ref,
+                                    CARD_FACTOR))
+    worst = max(errors.items(), key=lambda kv: kv[1][0] / kv[1][1])
+    print(f"[fourdvar-small] {len(errors)} outputs against the fixture; "
+          f"worst against its bound: {worst[0]} {worst[1][0]:.3e} (bound "
+          f"{worst[1][1]:g})", flush=True)
+    bad = {k: e for k, e in errors.items() if not e[0] <= e[1]}
+    check(not bad, f"the small 4D-Var runs miss their fixture: {bad}")
+
+    # (d) roms_tpu's own checks (tests/test_fourdvar.py, test_obs.py)
+    def jo_ratio(part):
+        jo = runs[part][2]["Jo"]
+        return jo[-1] / jo[0]
+
+    su, ana, _ = runs["twin"]
+    s0, truth = su[2], su[6]
+    err_b = float((s0.t[0, -1] - truth.t[0, -1]).abs().max())
+    err_a = float((ana.t[0, -1] - truth.t[0, -1]).abs().max())
+    pa = (runs["primal8"][1].t[0, -1] - s0.t[0, -1]).cpu().numpy()
+    dual = {p: float(np.abs((runs[p][1].t[0, -1] - s0.t[0, -1]).cpu()
+                            .numpy() - pa).max() / np.abs(pa).max())
+            for p in ("rbl8", "r48")}
+    (cfg, grid, _, ffn, _, _, tau), _, wd = runs["wind"]
+    H = cfg.halo
+    ii = np.s_[H:H + cfg.Mm, H:H + cfg.Lm]
+    a = wd["control"]["sustr"][ii].cpu().numpy().ravel()
+    b = tau[ii].cpu().numpy().ravel()
+    corr = float(np.dot(a - a.mean(), b - b.mean()) /
+                 (np.linalg.norm(a - a.mean()) *
+                  np.linalg.norm(b - b.mean())))
+    amp = float(np.abs(a).max() / b.max())
+    (cfg, grid, s0f, ffn, olist, nsteps, _), anaf, _ = runs["fracobs"]
+    sb, sa, states_b, states_a = s0f, anaf, {}, {}
+    for n in range(1, nsteps + 1):
+        sb = stepping.step(cfg, grid, sb, ffn)
+        sa = stepping.step(cfg, grid, sa, ffn)
+        states_b[n], states_a[n] = sb, sa
+    rmse_b = tobs.stats_modobs(cfg, olist, states_b)["temp"]["rmse"]
+    rmse_a = tobs.stats_modobs(cfg, olist, states_a)["temp"]["rmse"]
+    print(f"[fourdvar-small] roms_tpu's checks: twin Jo ratio "
+          f"{jo_ratio('twin'):.3e} (< 0.05), SST error {err_b:.4f} -> "
+          f"{err_a:.4f}; duals' Jo ratios {jo_ratio('rbl8'):.3e}, "
+          f"{jo_ratio('r48'):.3e}, their increments against the primal's "
+          f"{dual['rbl8']:.3e}, {dual['r48']:.3e} of its max (< 0.05); "
+          f"wind Jo ratio {jo_ratio('wind'):.3e} (< 1e-3), correlation "
+          f"{corr:.6f}, amplitude {amp:.4f}; FracObs Jo ratio "
+          f"{jo_ratio('fracobs'):.3e} (< 0.5), RMSE {rmse_b:.4f} -> "
+          f"{rmse_a:.4f}", flush=True)
+    check(jo_ratio("twin") < 0.05 and err_a < 0.5 * err_b,
+          "the I4D-Var twin's checks")
+    check(all(jo_ratio(p) < 0.05 for p in ("rbl8", "r48")) and
+          all(e <= 0.05 for e in dual.values()), "the duals' checks")
+    check(jo_ratio("wind") < 1e-3 and corr > 0.95 and 0.8 < amp < 1.2,
+          "the wind-stress twin's checks")
+    check(jo_ratio("fracobs") < 0.5 and rmse_a < rmse_b,
+          "the FracObs twin's checks")
+
+
+def fourdvar_big(device, smi):
+    """Phase 20 (e): an I4D-Var twin at UPWELLING's published 41x80x16,
+    float64: SST over the interior at step 2 from a truth with a smooth
+    0.5 degC anomaly, FOURDVAR_BIG_INNER CG iterations."""
+    import numpy as np
+    import torch
+    from roms_tpu_torch import fourdvar, stepping
+    from roms_tpu_torch.models import upwelling
+    cfg, grid, s0, ffn = upwelling.build(upwelling.make_config(),
+                                         device=device)
+    H = cfg.halo
+    pert = 0.5 * torch.exp(-(((grid.xr - 20e3) / 3e3) ** 2 +
+                             ((grid.yr - 30e3) / 3e3) ** 2))
+    t_true = s0.t.clone()
+    t_true[0] = t_true[0] + pert
+    truth = s0.replace(t=t_true, t_prev=t_true)
+    ii = np.s_[0, -1, H:H + cfg.Mm, H:H + cfg.Lm]
+    s = stepping.run(cfg, grid, truth, 2, ffn)
+    obs = [fourdvar.Obs(step=2, field="t", idx=ii, values=s.t[ii],
+                        sigma=0.1)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (ana, diags), n = counted(lambda: fourdvar.i4dvar(
+        cfg, grid, s0, obs, 2, ffn,
+        sigmas={"zeta": 0.0, "u": 0.0, "v": 0.0, "t": 0.5}, b_iters=2,
+        n_inner=FOURDVAR_BIG_INNER))
+    sec = time.perf_counter() - t0
+    jo, res = diags["Jo"], diags["cg_residuals"]
+    err_b = float((s0.t[0, -1] - truth.t[0, -1]).abs().max())
+    err_a = float((ana.t[0, -1] - truth.t[0, -1]).abs().max())
+    print(f"[fourdvar-big] I4D-Var twin UPWELLING {cfg.Lm}x{cfg.Mm}x{cfg.N}"
+          f" float64, {obs[0].values.numel()} SST obs at step 2, n_inner "
+          f"{FOURDVAR_BIG_INNER}: Jo {jo[0]:.6e} -> {jo[-1]:.6e}, CG "
+          f"residuals {[float(f'{r:.4e}') for r in res]}, SST error "
+          f"{err_b:.4f} -> {err_a:.4f}, {sec:.2f} s; launches by row (the "
+          f"final cost's nonlinear run) {n}; on {smi}", flush=True)
+    check(all(np.isfinite(jo)) and all(np.isfinite(res)) and
+          all(bool(torch.isfinite(getattr(ana, k)).all())
+              for k in ("zeta", "u", "v", "t")), "a non-finite I4D-Var")
+    check(jo[-1] < jo[0], f"Jo does not fall at 41x80x16: {jo}")
+    check(all(n[r] == 2 for r in UPWELLING_ROWS) and n[5] == 0,
+          f"the I4D-Var's nonlinear run missed a kernel: {n}")
+
+
+def fourdvar_phase(device, smi):
+    """Phase 20: the tangent-linear and adjoint step and the 4D-Var
+    drivers on the card ((a)-(e) of the module docstring)."""
+    t0 = time.perf_counter()
+    fourdvar_tlm_adm(device, smi)
+    t1 = time.perf_counter()
+    fourdvar_small(device)
+    t2 = time.perf_counter()
+    fourdvar_big(device, smi)
+    print(f"[fourdvar] phase 20: (a)-(b) {t1 - t0:.1f} s, (c)-(d) "
+          f"{t2 - t1:.1f} s, (e) {time.perf_counter() - t2:.1f} s",
+          flush=True)
+
+
 def column_times(device, names=()):
     """`--column-times TREE [KERNEL ...]`: the time a call of rows 1-4 and
     6-10 (or of the KERNELs named), with the host's time (device_ms) and
@@ -3705,6 +4040,7 @@ def main() -> int:
     biology_only = sys.argv[1:2] == ["--biology"]
     forward_only = sys.argv[1:2] in (["--forward"], ["--forward-long"])
     forward_long = sys.argv[1:2] == ["--forward-long"]
+    fourdvar_only = sys.argv[1:2] == ["--fourdvar"]
     sys.path.insert(0, os.path.abspath(sys.argv[2]) if timing else ROOT)
     try:
         import roms_tpu_torch  # noqa: F401
@@ -3715,7 +4051,7 @@ def main() -> int:
         return 2
     for path in (ANCHOR, BENCH_FIXTURE, REGIONAL_FIXTURE, COASTAL_FIXTURE,
                  OPERATORS_FIXTURE, CASES2_FIXTURE, SEDIMENT_FIXTURE,
-                 BIOLOGY_FIXTURE, FORWARD_FIXTURE):
+                 BIOLOGY_FIXTURE, FORWARD_FIXTURE, FOURDVAR_FIXTURE):
         if not os.path.exists(path):
             print(f"chip_smoke: missing {path}", file=sys.stderr)
             return 2
@@ -3765,6 +4101,9 @@ def main() -> int:
         if forward_only:
             forward_phase(device, smi, long=forward_long)
             return 0
+        if fourdvar_only:
+            fourdvar_phase(device, smi)
+            return 0
         results = {}
         kernel_checks(results, device)
         main_path(device)
@@ -3786,6 +4125,7 @@ def main() -> int:
         sediment_phase(device, smi)
         biology_phase(device, smi)
         forward_phase(device, smi)
+        fourdvar_phase(device, smi)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

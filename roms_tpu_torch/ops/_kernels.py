@@ -25,6 +25,7 @@ import time
 from pathlib import Path
 
 import torch
+import torch.autograd.forward_ad as fwAD
 
 from ..config import BC_PERIODIC, BC_CLOSED, BC_GRADIENT
 
@@ -187,21 +188,55 @@ def on_card(t) -> bool:
     raise ValueError(f"no kernel or plain path for device {t.device}")
 
 
-def check_tensors(tensors: dict, shapes: dict, dtype, device) -> bool:
-    """Raise unless every tensor is contiguous, of `dtype` on `device`, of
-    its expected shape, and `dtype` is one the kernels take.  Returns
-    whether `dtype` is float64 (the kernels' dtype flag)."""
+def refuse_autodiff(name: str, tensors) -> None:
+    """Raise a RuntimeError if any tensor carries a derivative: one under a
+    torch.func transform (jvp, vjp, grad, vmap), one that requires grad
+    while grad mode is on, or a forward-AD dual.  A kernel reads raw
+    device pointers, so its outputs would carry no derivative; no kernel
+    has one, in this package or in roms_tpu, whose tangent-linear and
+    adjoint runs take its plain path.  Every wrapper calls this through
+    check_tensors() before it reads a pointer or launches; it never falls
+    back.  The three states are asked once a call, so that a launch
+    outside them pays ~0.1 us a tensor."""
+    transformed = torch._C._functorch.peek_interpreter_stack() is not None
+    grad = torch.is_grad_enabled()
+    dual = fwAD._current_level >= 0       # inside a forward-AD dual_level
+    for t in tensors:
+        if t is None:
+            continue
+        if transformed and torch._C._functorch.is_functorch_wrapped_tensor(t):
+            why = "a tensor under a torch.func transform"
+        elif grad and t.requires_grad:
+            why = "a tensor that requires grad"
+        elif dual and fwAD.unpack_dual(t).tangent is not None:
+            why = "a forward-AD dual tensor"
+        else:
+            continue
+        raise RuntimeError(
+            f"{name} kernel was handed {why}: the kernels have no "
+            f"derivative; run the linearized step with pallas2d=False "
+            f"(fourdvar.linear_config)")
+
+
+def check_tensors(name: str, tensors: dict, shapes: dict, dtype,
+                  device) -> bool:
+    """Raise if a tensor carries a derivative (refuse_autodiff), and unless
+    every tensor is contiguous, of `dtype` on `device`, of its expected
+    shape, and `dtype` is one the kernels take.  `name` is the kernel's
+    entry point.  Returns whether `dtype` is float64 (the kernels' dtype
+    flag)."""
+    refuse_autodiff(name, tensors.values())
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"the kernels take float32 and float64, not {dtype}")
-    for name, t in tensors.items():
+    for arg, t in tensors.items():
         if t.device != device or t.dtype != dtype:
-            raise ValueError(f"{name}: {t.dtype} on {t.device}, expected "
-                             f"{dtype} on {device}")
-        if tuple(t.shape) != tuple(shapes[name]):
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                             f"{tuple(shapes[name])}")
+            raise ValueError(f"{name}: {arg}: {t.dtype} on {t.device}, "
+                             f"expected {dtype} on {device}")
+        if tuple(t.shape) != tuple(shapes[arg]):
+            raise ValueError(f"{name}: {arg} has shape {tuple(t.shape)}, "
+                             f"expected {tuple(shapes[arg])}")
         if not t.is_contiguous():
-            raise ValueError(f"{name} is not contiguous")
+            raise ValueError(f"{name}: {arg} is not contiguous")
     return dtype == torch.float64
 
 

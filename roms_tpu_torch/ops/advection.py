@@ -12,7 +12,7 @@ import torch
 
 from ..config import Config
 from . import bc
-from .stencil import ip1, im1, jp1, jm1
+from .stencil import ip1, im1, jp1, jm1, maximum, minimum
 from .tridiag import spline_interp_flux
 
 _EPS = 1.0e-16
@@ -108,10 +108,10 @@ def hadv_fluxes(cfg: Config, scheme: str, q, Huon, Hvom, grid=None,
         FE = Hvom * 0.5 * (jm1(q) + q)
         return FX, FE
     if scheme == "U1":
-        FX = torch.clamp(Huon, min=0.0) * im1(q) + \
-            torch.clamp(Huon, max=0.0) * q
-        FE = torch.clamp(Hvom, min=0.0) * jm1(q) + \
-            torch.clamp(Hvom, max=0.0) * q
+        FX = maximum(Huon, 0.0) * im1(q) + \
+            minimum(Huon, 0.0) * q
+        FE = maximum(Hvom, 0.0) * jm1(q) + \
+            minimum(Hvom, 0.0) * q
         return FX, FE
     if scheme not in ("U3", "C4", "A4"):
         raise ValueError(f"unknown horizontal advection scheme {scheme}")
@@ -123,8 +123,8 @@ def hadv_fluxes(cfg: Config, scheme: str, q, Huon, Hvom, grid=None,
     if scheme == "U3":
         curv = ip1(dq) - dq
         FX = Huon * 0.5 * (im1(q) + q) - (1.0 / 6.0) * (
-            im1(curv) * torch.clamp(Huon, min=0.0) +
-            curv * torch.clamp(Huon, max=0.0))
+            im1(curv) * maximum(Huon, 0.0) +
+            curv * minimum(Huon, 0.0))
     else:
         grad = _akima(ip1(dq), dq) if scheme == "A4" else \
             0.5 * (ip1(dq) + dq)
@@ -137,8 +137,8 @@ def hadv_fluxes(cfg: Config, scheme: str, q, Huon, Hvom, grid=None,
     if scheme == "U3":
         curv = jp1(dq) - dq
         FE = Hvom * 0.5 * (jm1(q) + q) - (1.0 / 6.0) * (
-            jm1(curv) * torch.clamp(Hvom, min=0.0) +
-            curv * torch.clamp(Hvom, max=0.0))
+            jm1(curv) * maximum(Hvom, 0.0) +
+            curv * minimum(Hvom, 0.0))
     else:
         grad = _akima(jp1(dq), dq) if scheme == "A4" else \
             0.5 * (jp1(dq) + dq)
@@ -183,8 +183,8 @@ def vadv_flux(scheme: str, q, W, Hz, spline_variant: str, z_r=None,
                                 (1.0 / 3.0) * (CFk[1:] - CFk[:-1]))
         return torch.cat([zero, flux, zero], dim=0)
     if scheme == "U1":
-        flux = torch.clamp(W[1:-1], min=0.0) * q[:-1] + \
-            torch.clamp(W[1:-1], max=0.0) * q[1:]
+        flux = maximum(W[1:-1], 0.0) * q[:-1] + \
+            minimum(W[1:-1], 0.0) * q[1:]
         return torch.cat([zero, flux, zero], dim=0)
     if scheme == "SPLINES":
         if spline_variant == "predictor":

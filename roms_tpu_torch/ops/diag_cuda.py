@@ -140,9 +140,10 @@ def grid_flux(cfg: Config, grid: Grid, zeta, u, v, hc):
     ins = dict(zeta=zeta, h=grid.h, pm=grid.pm, pn=grid.pn, u=u, v=v,
                sc_r=grid.sc_r, Cs_r=grid.Cs_r, sc_w=grid.sc_w,
                Cs_w=grid.Cs_w)
-    f64 = check_tensors(ins, dict(zeta=s2, h=s2, pm=s2, pn=s2, u=s3, v=s3,
-                                  sc_r=(N,), Cs_r=(N,), sc_w=(N + 1,),
-                                  Cs_w=(N + 1,)), zeta.dtype, zeta.device)
+    f64 = check_tensors("roms_grid_flux", ins,
+                        dict(zeta=s2, h=s2, pm=s2, pn=s2, u=s3, v=s3,
+                             sc_r=(N,), Cs_r=(N,), sc_w=(N + 1,),
+                             Cs_w=(N + 1,)), zeta.dtype, zeta.device)
     kw = dict(dtype=zeta.dtype, device=zeta.device)
     z_r, Hz, Huon, Hvom = (torch.empty(s3, **kw) for _ in range(4))
     z_w, W = torch.empty(sw, **kw), torch.empty(sw, **kw)
@@ -169,7 +170,7 @@ def eos(cfg: Config, t, z_r, z_w, want_bvf: bool):
     if want_bvf:
         ins["z_w"] = z_w
         shapes["z_w"] = (N + 1, Ny, Nx)
-    f64 = check_tensors(ins, shapes, t.dtype, t.device)
+    f64 = check_tensors("roms_eos", ins, shapes, t.dtype, t.device)
     kw = dict(dtype=t.dtype, device=t.device)
     rho, pden = torch.empty(s3, **kw), torch.empty(s3, **kw)
     bvf = torch.empty((N + 1, Ny, Nx), **kw) if want_bvf else None
@@ -193,7 +194,7 @@ def omega(cfg: Config, grid: Grid, Huon, Hvom, z_w):
         return omega_plain(cfg, grid, Huon, Hvom, z_w)
     N = cfg.N
     s3, sw = (N, cfg.ny_tot, cfg.nx_tot), (N + 1, cfg.ny_tot, cfg.nx_tot)
-    f64 = check_tensors(dict(Huon=Huon, Hvom=Hvom, z_w=z_w),
+    f64 = check_tensors("roms_omega", dict(Huon=Huon, Hvom=Hvom, z_w=z_w),
                         dict(Huon=s3, Hvom=s3, z_w=sw), Huon.dtype,
                         Huon.device)
     W = torch.empty(sw, dtype=Huon.dtype, device=Huon.device)

@@ -99,7 +99,7 @@ def uv3dmix2(cfg: Config, grid: Grid, u, v, Hz, u_nnew, v_nnew, rufrc,
                u_nnew=u_nnew, v_nnew=v_nnew, rufrc=rufrc, rvfrc=rvfrc)
     shapes = dict.fromkeys(ins, s3)
     shapes.update(dict.fromkeys(("pm", "pn", "pmask", "rufrc", "rvfrc"), s2))
-    f64 = check_tensors(ins, shapes, u.dtype, u.device)
+    f64 = check_tensors("roms_uv3dmix2", ins, shapes, u.dtype, u.device)
     outs = {t.data_ptr() for t in (u_nnew, v_nnew, rufrc, rvfrc)}
     reads = {t.data_ptr() for t in (u, v, Hz, grid.pm, grid.pn, grid.pmask)}
     if len(outs) != 4 or outs & reads:
@@ -144,7 +144,8 @@ def t3dmix2_geo(cfg: Config, grid: Grid, t, Hz, z_r, t_nnew, dt: float):
     ins = dict(t=t, Hz=Hz, z_r=z_r, pm=grid.pm, pn=grid.pn, t_nnew=t_nnew)
     shapes = dict(t=(nt,) + s3, Hz=s3, z_r=s3, pm=s2, pn=s2,
                   t_nnew=(nt,) + s3)
-    f64 = check_tensors(ins, shapes, t.dtype, t.device)
+    f64 = check_tensors("roms_t3dmix2_geo", ins, shapes, t.dtype,
+                        t.device)
     reads = {x.data_ptr() for x in (t, Hz, z_r, grid.pm, grid.pn)}
     if t_nnew.data_ptr() in reads:
         raise ValueError("t3dmix2_geo kernel updates t_nnew in place: it "

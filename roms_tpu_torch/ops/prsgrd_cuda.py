@@ -64,7 +64,8 @@ def prsgrd32(cfg: Config, grid: Grid, rho, z_r, z_w, Hz, eq_tide=None):
     if eq_tide is not None:
         ins["eq_tide"] = eq_tide
         shapes["eq_tide"] = s2
-    f64 = check_tensors(ins, shapes, rho.dtype, rho.device)
+    f64 = check_tensors("roms_prsgrd32", ins, shapes, rho.dtype,
+                        rho.device)
     ru, rv = torch.empty_like(rho), torch.empty_like(rho)
     GRho = C.g / cfg.rho0
     plan = prsgrd_plan(rho.dtype, N, *s2)

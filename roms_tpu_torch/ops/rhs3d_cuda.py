@@ -132,7 +132,7 @@ def rhs3d(cfg: Config, grid: Grid, u, v, Huon, Hvom, W, Hz, ru, rv, sustr,
     shapes.update(dict.fromkeys(
         ("u", "v", "Huon", "Hvom", "Hz", "ru", "rv", "ru_prev", "ru_prev2",
          "rv_prev", "rv_prev2"), s3), W=sw)
-    f64 = check_tensors(ins, shapes, u.dtype, u.device)
+    f64 = check_tensors("roms_rhs3d", ins, shapes, u.dtype, u.device)
     outs = [torch.empty_like(ru), torch.empty_like(rv),
             torch.empty_like(sustr), torch.empty_like(svstr)]
     if start is not None:

@@ -31,6 +31,20 @@ def shift(a, di: int = 0, dj: int = 0):
     return torch.roll(a, (-dj, -di), (-2, -1))
 
 
+def maximum(a, b: float):
+    """jnp.maximum(a, b) for a number b: torch.clamp(a, min=b)'s values,
+    and JAX's derivative, which is half where a == b (torch.clamp's is
+    whole there), so that the tangent-linear and adjoint steps match
+    roms_tpu's where a flux or velocity is exactly b.  b is a 0-d CPU
+    tensor, which a CUDA operation takes without a launch of its own."""
+    return torch.maximum(a, torch.tensor(b, dtype=a.dtype))
+
+
+def minimum(a, b: float):
+    """jnp.minimum(a, b) for a number b (see maximum)."""
+    return torch.minimum(a, torch.tensor(b, dtype=a.dtype))
+
+
 # --- neighbor accessors (named after the offset) -------------------------
 def ip1(a):
     return shift(a, di=1)

@@ -92,7 +92,7 @@ def fast_loop(cfg: Config, grid: Grid, fs: Fast2DState, rufrc, rvfrc,
     named.update(weight1=grid.weight1, weight2=grid.weight2)
     shapes.update(weight1=(2 * cfg.ndtfast + 2,),
                   weight2=(2 * cfg.ndtfast + 2,))
-    f64 = check_tensors(named, shapes, dtype, device)
+    f64 = check_tensors("roms_fast_loop", named, shapes, dtype, device)
     if len({getattr(fs, k).data_ptr() for k in FS_FIELDS}) != len(FS_FIELDS):
         raise ValueError("fast_loop kernel updates the 17 Fast2DState "
                          "fields in place: they must not alias")

@@ -178,7 +178,8 @@ def tracer_predictor(cfg: Config, grid: Grid, iic: int, t, t_prev, Hz,
     if sol:
         ins.update(srflx=srflx, swdk_w=swdk_w)
         shapes.update(srflx=s2, swdk_w=sw)
-    f64 = check_tensors(ins, shapes, t.dtype, t.device)
+    f64 = check_tensors("roms_tracer_predictor", ins, shapes, t.dtype,
+                        t.device)
     t3, t_nnew = torch.empty_like(t), torch.empty_like(t)
     ng = 0 if ghats is None else min(ghats.shape[0], nt)
     coefs = [c for itrc in range(nt) for c in predictor_coefs(cfg, iic, itrc)]
@@ -213,7 +214,8 @@ def tracer_corrector(cfg: Config, grid: Grid, t_nnew, t3, Huon, Hvom, W,
     if thomas:
         ins["z_r_new"] = z_r_new
         shapes["z_r_new"] = s3
-    f64 = check_tensors(ins, shapes, t_nnew.dtype, t_nnew.device)
+    f64 = check_tensors("roms_tracer_corrector", ins, shapes,
+                        t_nnew.dtype, t_nnew.device)
     out = torch.empty_like(t_nnew)
     launch("roms_tracer_corrector", f64,
            [t_nnew, t3, Huon, Hvom, W, Hz_new, z_r_new if thomas else None,
@@ -244,7 +246,8 @@ def uv_corrector(cfg: Config, grid: Grid, iic: int, u_nnew, v_nnew, ru, rv,
     shapes = dict.fromkeys(ins, s2)
     shapes.update(dict.fromkeys(("u_nnew", "v_nnew", "ru", "rv", "Hz_new",
                                  "Huon_old", "Hvom_old"), s3), Akv=sw)
-    f64 = check_tensors(ins, shapes, u_nnew.dtype, u_nnew.device)
+    f64 = check_tensors("roms_uv_corrector", ins, shapes, u_nnew.dtype,
+                        u_nnew.device)
     outs = [torch.empty_like(a) for a in (u_nnew, v_nnew, DU_avg1, DV_avg1,
                                           u_nnew, v_nnew)]
     plan = uv_plan(u_nnew.dtype, N, cfg.ny_tot, cfg.nx_tot)

@@ -133,17 +133,21 @@ def _alpha_beta(cfg: Config, temp_s, salt_s):
     """Surface thermal expansion / saline contraction coefficients.
 
     Linear EOS: |Tcoef|, |Scoef| (rho_eos.F:774-780); JM95: -drho/dT / rho
-    and drho/dS / rho at the surface, by autograd of the EOS."""
+    and drho/dS / rho at the surface, by torch.func.grad of the EOS, which
+    composes with an outer torch.func.jvp / vjp or torch.autograd: the
+    tangent-linear and adjoint steps reach alpha and beta through T and S,
+    as roms_tpu's jax.grad inside jax.jvp / jax.vjp does."""
     if cfg.eos == "linear":
         alpha = torch.full_like(temp_s, abs(cfg.Tcoef))
         beta = torch.full_like(temp_s, abs(cfg.Scoef))
         return alpha, beta
-    with torch.enable_grad():
-        T = temp_s.detach().requires_grad_()
-        S = salt_s.detach().requires_grad_()
-        den = eos.rho_jm95(T, S, torch.zeros_like(T)) + 1000.0
-        dT, dS = torch.autograd.grad(den.sum(), (T, S))
-    den = den.detach()
+
+    def den_surface(T, S):
+        return eos.rho_jm95(T, S, torch.zeros_like(T)) + 1000.0
+
+    den = den_surface(temp_s, salt_s)
+    dT, dS = torch.func.grad(lambda T, S: den_surface(T, S).sum(),
+                             argnums=(0, 1))(temp_s, salt_s)
     return -dT / den, dS / den
 
 

@@ -11,13 +11,18 @@ tracer_corrector) on the arguments the UPWELLING and BENCHMARK1 steps give
 them (row 5 at UPWELLING, which does not call it, on its tracers with
 tnu2 = 500 m2/s), float64 and float32, with the host's time (CUDA events)
 and the device's alone (torch.profiler), and the kernels' registers and
-stack frames.
+stack frames; with ``--case-times CASE ...``, the host-clock ms/step of
+each case at its published size, float64 and float32, from CASE_START
+steps in (``upwelling``, or a case of ``roms_tpu_torch.models.cases``
+such as ``kelvin``, whose open boundaries keep the tracer steps plain).
 
     cd CHECKOUT && python3 scripts/torch_step_times.py TREE
     cd CHECKOUT && python3 scripts/torch_step_times.py TREE \\
         --upwelling-profile
     cd CHECKOUT && python3 scripts/torch_step_times.py TREE --profiles
     cd CHECKOUT && python3 scripts/torch_step_times.py TREE --tracer-times
+    cd CHECKOUT && python3 scripts/torch_step_times.py TREE \\
+        --case-times upwelling kelvin
 
 TREE holds the roms_tpu_torch to time (a `git archive` checkout of
 another commit, or `.`); chip_smoke.py comes from the current directory.
@@ -26,6 +31,10 @@ Needs a CUDA card.
 
 import os
 import sys
+import time
+
+CASE_START = 3      # steps before the timed ones
+CASE_STEPS = 40     # timed steps a case and dtype
 
 
 def tracer_times(dev) -> None:
@@ -76,6 +85,34 @@ def tracer_times(dev) -> None:
                       f"ms", flush=True)
 
 
+def case_times(dev, names) -> None:
+    """--case-times: ms/step of each case, float64 and float32, the mean
+    of CASE_STEPS steps after CASE_START, on the host's clock."""
+    import torch
+
+    import chip_smoke as cs
+    from roms_tpu_torch import stepping
+    from roms_tpu_torch.models import upwelling
+
+    for name in names:
+        for dtype in ("float64", "float32"):
+            if name == "upwelling":
+                cfg, grid, s, ffn = upwelling.build(
+                    upwelling.make_config(dtype=dtype), device=dev)
+            else:
+                cfg, grid, s, ffn = cs.regional_case(name, dev, dtype)
+            s = stepping.run(cfg, grid, s, CASE_START, ffn)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s = stepping.run(cfg, grid, s, CASE_STEPS, ffn)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0) / CASE_STEPS
+            ok = bool(torch.isfinite(s.u).all())
+            print(f"[case-times] {name} {cfg.Lm}x{cfg.Mm}x{cfg.N} {dtype}: "
+                  f"{ms:.4f} ms/step over {CASE_STEPS} steps, finite {ok}",
+                  flush=True)
+
+
 def main() -> int:
     tree = os.path.abspath(sys.argv[1])
     sys.path.insert(0, tree)
@@ -92,6 +129,10 @@ def main() -> int:
     if "--tracer-times" in sys.argv[2:]:
         print(f"[tracer-times] {name}", flush=True)
         tracer_times(dev)
+        return 0
+    if "--case-times" in sys.argv[2:]:
+        print(f"[case-times] {name}", flush=True)
+        case_times(dev, sys.argv[sys.argv.index("--case-times") + 1:])
         return 0
     if "--profiles" in sys.argv[2:]:
         chip_smoke.profile(dev)
