@@ -26,6 +26,11 @@ BENCHMARK1 steps through them, and checks the results.
     python3 chip_smoke.py --forward-long         # the same, with
                                                  # SHOREFACE's 400 steps
     python3 chip_smoke.py --fourdvar             # the build and phase 20
+    python3 chip_smoke.py --nesting-parallel     # the build and phase 21
+    python3 chip_smoke.py --nesting-parallel-long
+                                                 # the same, with the
+                                                 # composite contact's
+                                                 # 120 steps
 
 Phases, one or more lines each; any failure exits non-zero:
   1. device: card name and power limit (nvidia-smi), torch and CUDA versions;
@@ -294,6 +299,26 @@ fourdvar.py), float64:
      I4D-Var twin at 41x80x16 (SST at step 2 over the interior, 5 CG
      iterations): Jo before and after, the CG residuals, the seconds, Jo
      falling and everything finite.
+Then refinement and composite nesting (nesting.py), the blocked
+decomposition (parallel/) and sharded output (io/pio.py), float64:
+ 21. (a) UPWELLING 41x80x16 with a refined patch over parent cells 10-19 x
+     30-39 at factor 3 (30x30x16, dt 100 s; two_way, conserve,
+     flux_coupling), 2 nested steps with the kernels on against
+     cfg.pallas2d=False on both grids, each field within 1e-9 x
+     max|field|; the launches by row of the parent's steps (rows 1-4 and
+     6-11 once a step) and of the fine grid's (none of rows 8-11: its bry);
+     the ms of a nested step; (b) the small nested and composite runs and
+     the blocked UPWELLING runs (2 x 4 blocks, 26 x 26 on uneven ones)
+     against tests/data/torch_nesting_small.npz at CARD_FACTOR x the CPU
+     bounds, and roms_tpu's nesting checks (rest and constancy, the contact
+     flux, volume conservation with the flux coupling; with
+     --nesting-parallel-long the transparent composite contact over 120
+     steps); (c) BENCHMARK1 512x64x30 from the state three plain steps from
+     rest, 2 steps on 2 x 4 blocks in process against one block with the
+     kernels off, each field within 1e-11 x max|field|, no kernel launched
+     by the blocked run, ms/step of both; (d) the blocked run's sharded
+     history assembled equal to the HistoryWriter records of its unblocked
+     states, bitwise.
 The last two lines are a JSON object of per-kernel results (BENCHMARK1
 float32, launches of phase 10) and a JSON object {"ok": true, "device":
 {...}}.  Without CUDA it exits non-zero and prints no result.
@@ -1325,6 +1350,11 @@ def biology_fixture_script():
 def forward_fixture_script():
     """scripts/torch_forward_fixture.py as a module."""
     return _script("torch_forward_fixture")
+
+
+def nesting_fixture_script():
+    """scripts/torch_nesting_fixture.py as a module."""
+    return _script("torch_nesting_fixture")
 
 
 def bench_fixture(device):
@@ -3967,6 +3997,308 @@ def fourdvar_phase(device, smi):
           flush=True)
 
 
+NESTING_FIXTURE = os.path.join(ROOT, "tests", "data",
+                               "torch_nesting_small.npz")
+# the refined patch of (a): UPWELLING parent cells 10-19 x 30-39, factor 3
+NESTED_PATCH = dict(istr=10, iend=19, jstr=30, jend=39, factor=3)
+NESTED_STEPS = 2              # parent steps of (a), kernels on and off
+BLOCKED_LAYOUT = (2, 4)       # (c)'s eta x xi blocks, in process
+BLOCKED_STEPS = 2
+BLOCKED_RTOL = 1e-11          # (c): blocked against one block, x max|field|
+NEST_FIELDS = ("zeta", "ubar", "vbar", "u", "v", "t")
+
+
+def _by_row(counts) -> dict:
+    """{row: launches} of a {wrapper name: launches}, rows launched only."""
+    return {r: counts[k] for r, k in enumerate(ROWS, 1) if counts[k]}
+
+
+def nested_upwelling(device, smi):
+    """Phase 21 (a): UPWELLING 41x80x16 float64 with the refined patch
+    NESTED_PATCH (30x30x16, dt 100 s), NESTED_STEPS parent steps of
+    make_nested_stepper (two_way, conserve, flux_coupling) with the
+    kernels on against cfg.pallas2d=False on both grids, each field of
+    each grid within BENCH_EQUIV_RTOL x max|field|; the launches by row of
+    the parent's and the fine grid's steps; the ms of a nested step."""
+    import torch
+    from roms_tpu_torch import nesting, stepping
+    from roms_tpu_torch.models import upwelling
+    fx = nesting_fixture_script()
+    cfg_c, grid_c, s0, ffn = upwelling.build(upwelling.make_config(),
+                                             device=device)
+    spec = nesting.RefineSpec(**NESTED_PATCH)
+    cfg_f, grid_f = nesting.build_refined(cfg_c, grid_c, spec)
+    sf0 = nesting.init_refined(cfg_c, grid_c, s0, spec, cfg_f, grid_f)
+    table = {k: getattr(mod, attr) for k, (mod, attr, _) in
+             wrappers().items()}
+    per_grid = {cfg_c.name: dict.fromkeys(table, 0),
+                cfg_f.name: dict.fromkeys(table, 0)}
+    plain_step = stepping.step
+
+    def counting_step(cfg, *args, **kw):
+        before = {k: w.launches for k, w in table.items()}
+        out = plain_step(cfg, *args, **kw)
+        for k, w in table.items():
+            per_grid[cfg.name][k] += w.launches - before[k]
+        return out
+
+    def run(on):
+        stepn = nesting.make_nested_stepper(
+            cfg_c.replace(pallas2d=on), grid_c, cfg_f.replace(pallas2d=on),
+            grid_f, spec, forcing_c=ffn, forcing_f=ffn, conserve=True,
+            flux_coupling=True)
+        sc, sf, ms = s0, sf0, []
+        for _ in range(NESTED_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sc, sf = stepn(sc, sf)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return sc, sf, ms
+
+    stepping.step = counting_step
+    try:
+        for w in table.values():
+            w.launches = 0
+        sc_on, sf_on, ms_on = run(True)
+        parent = _by_row(per_grid[cfg_c.name])
+        fine = _by_row(per_grid[cfg_f.name])
+        sc_off, sf_off, ms_off = run(False)
+    finally:
+        stepping.step = plain_step
+    print(f"[nesting] UPWELLING {cfg_c.Lm}x{cfg_c.Mm}x{cfg_c.N} f64 with "
+          f"the patch {NESTED_PATCH} ({cfg_f.Lm}x{cfg_f.Mm}x{cfg_f.N}, dt "
+          f"{cfg_f.dt:g} s): {NESTED_STEPS} nested steps, launches by row "
+          f"of the parent's steps {parent}, of the fine grid's "
+          f"{3 * NESTED_STEPS} steps {fine}", flush=True)
+    print(f"[nesting] ms of a nested step (host clock; {smi}): kernels on "
+          f"{', '.join(f'{t:.1f}' for t in ms_on)}; plain "
+          f"{', '.join(f'{t:.1f}' for t in ms_off)}", flush=True)
+    check(parent == {r: NESTED_STEPS for r in UPWELLING_ROWS},
+          f"the parent's steps did not launch rows 1-4, 6-11 once each: "
+          f"{parent}")
+    check(not any(r in fine for r in (8, 9, 10, 11)),
+          f"the fine grid's bry steps launched rows 8-11: {fine}")
+    P = fx.port(device)
+    worst = 0.0
+    for tag, cfg, on, off in (("parent", cfg_c, sc_on, sc_off),
+                              ("fine", cfg_f, sf_on, sf_off)):
+        errs = fx._compare(fx.interiors(P, {tag: (cfg, on)}),
+                           fx.interiors(P, {tag: (cfg, off)}))
+        finite = all(bool(torch.isfinite(getattr(s, k)).all())
+                     for s in (on, off) for k in NEST_FIELDS)
+        key = max(errs, key=errs.get)
+        worst = max(worst, errs[key])
+        print(f"[nesting] {tag}: kernels on against off, worst "
+              f"{key} {errs[key]:.3e} x max|field| (bound "
+              f"{BENCH_EQUIV_RTOL:g}), finite={finite}", flush=True)
+        check(finite and errs[key] <= BENCH_EQUIV_RTOL,
+              f"nested UPWELLING {tag}: kernels on and off disagree")
+    return parent, fine
+
+
+def nesting_small(device, long=False):
+    """Phase 21 (b): the small nested and composite runs and the blocked
+    UPWELLING runs against tests/data/torch_nesting_small.npz at
+    CARD_FACTOR x the CPU bounds, and roms_tpu's nesting checks
+    (tests/test_nesting.py) on the card: rest and constancy, the contact
+    flux, volume conservation; with --nesting-parallel-long also the
+    transparent composite contact (120 steps)."""
+    import numpy as np
+    import torch
+    from roms_tpu_torch import nesting
+    fx = nesting_fixture_script()
+    ref = np.load(NESTING_FIXTURE)
+    errors = {}
+    for part in fx.PARTS:
+        t0 = time.perf_counter()
+        errs = fx.errors(part, fx.port_part(part, device), ref, CARD_FACTOR)
+        errors.update({f"{part}/{k}": e for k, e in errs.items()})
+        print(f"[nesting-small] {part}: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    worst = max(errors.items(), key=lambda kv: kv[1][0] / kv[1][1])
+    print(f"[nesting-small] {len(errors)} outputs against the fixture; "
+          f"worst against its bound: {worst[0]} {worst[1][0]:.3e} (bound "
+          f"{worst[1][1]:g})", flush=True)
+    bad = {k: e for k, e in errors.items() if not e[0] <= e[1]}
+    check(not bad, f"the small nesting runs miss their fixture: {bad}")
+
+    P = fx.port(device)
+    spec = nesting.RefineSpec(**fx.SPEC)
+    cfg_c, grid_c = fx.nested_parent(P)
+    cfg_f, grid_f = nesting.build_refined(cfg_c, grid_c, spec)
+    Hc, Hf = cfg_c.halo, cfg_f.halo
+    itc = (slice(Hc, Hc + cfg_c.Mm), slice(Hc, Hc + cfg_c.Lm))
+    itf = (slice(Hf, Hf + cfg_f.Mm), slice(Hf, Hf + cfg_f.Lm))
+    # rest and constancy through three nested cycles
+    rest = P.initial_state(cfg_c, t=P.asarray(np.stack(
+        [np.full((cfg_c.N, cfg_c.ny_tot, cfg_c.nx_tot), v)
+         for v in (17.0, 35.0)])))
+    sf = nesting.init_refined(cfg_c, grid_c, rest, spec, cfg_f, grid_f)
+    stepn = nesting.make_nested_stepper(cfg_c, grid_c, cfg_f, grid_f, spec)
+    sc = rest
+    for _ in range(3):
+        sc, sf = stepn(sc, sf)
+    dev_t = max(float((s.t[0][(slice(None),) + it] - 17.0).abs().max())
+                for s, it in ((sc, itc), (sf, itf)))
+    dev_u = max(float(s.u[(slice(None),) + it].abs().max())
+                for s, it in ((sc, itc), (sf, itf)))
+    # the contact flux after conserve_bry_flux, under a sheared ubar
+    y = P.numpy(grid_c.yr) - P.numpy(grid_c.yr)[Hc + 10, Hc + 12]
+    sheared = fx.nested_state(P, cfg_c, grid_c, width=3.0e3)
+    sheared = sheared.replace(ubar=P.fill_halo(cfg_c, P.asarray(
+        0.02 * np.cos(y / 4.0e3))))
+    bry = nesting.conserve_bry_flux(
+        cfg_c, grid_c, sheared, spec, cfg_f, grid_f,
+        nesting.extract_bry(cfg_c, grid_c, sheared, spec, cfg_f))
+    iu = Hc + spec.istr - 1
+    D = sheared.zeta + grid_c.h
+    Tc = (sheared.ubar[:, iu] * 0.5 * (D[:, iu - 1] + D[:, iu]) *
+          grid_c.on_u[:, iu])[Hc + spec.jstr - 1:Hc + spec.jend]
+    hu = 0.5 * (grid_f.h[:, Hf - 1] + grid_f.h[:, Hf])
+    Tf = (bry["ubar_west"] * (hu + bry["zeta_west"]) *
+          grid_f.on_u[:, Hf])[Hf:Hf + cfg_f.Mm].reshape(-1, spec.factor)
+    flux_err = float((Tf.sum(-1) - Tc).abs().max())
+    # volume conservation with the flux coupling, 1 + 6 nested steps
+    bump = fx.nested_state(P, cfg_c, grid_c)
+    area = (1.0 / (grid_c.pm * grid_c.pn))[itc]
+    bump_vol = float((bump.zeta[itc].abs() * area).sum())
+    sf = nesting.init_refined(cfg_c, grid_c, bump, spec, cfg_f, grid_f)
+    stepn = nesting.make_nested_stepper(cfg_c, grid_c, cfg_f, grid_f, spec,
+                                        flux_coupling=True)
+    sc, sf = stepn(bump, sf)
+    vol0 = float((sc.zeta[itc] * area).sum())
+    for _ in range(6):
+        sc, sf = stepn(sc, sf)
+    vol_err = abs(float((sc.zeta[itc] * area).sum()) - vol0) / bump_vol
+    t_err = max(float((s.t[0][(slice(None),) + it] - 17.0).abs().max())
+                for s, it in ((sc, itc), (sf, itf)))
+    print(f"[nesting-small] roms_tpu's checks: at rest after 3 nested "
+          f"steps |T - 17| {dev_t:.3e} (< 1e-9), |u| {dev_u:.3e} (< 1e-12); "
+          f"contact transport |fine - parent| {flux_err:.3e} m3/s of "
+          f"{float(Tc.abs().max()):.3e}; volume drift over 6 nested steps "
+          f"{vol_err:.3e} of the bump (< 1e-3), |T - 17| {t_err:.3e} "
+          f"(< 2e-4)", flush=True)
+    check(dev_t < 1e-9 and dev_u < 1e-12, "the nested rest state moved")
+    check(flux_err <= 1e-12 * max(float(Tc.abs().max()), 1e-300),
+          "conserve_bry_flux missed the parent transport")
+    check(vol_err < 1e-3 and t_err < 2e-4,
+          "the flux-coupled nested run lost volume or tracer constancy")
+    if long:
+        t0 = time.perf_counter()
+        olap, la = fx.COMPOSITE["olap"], 32
+        cfg_t, grid_t = fx.composite_member(P, 2 * la - olap, "Clo", "Clo",
+                                            "mono")
+        s_t = fx.pulse(P, cfg_t, grid_t, 12e3)
+        for _ in range(120):
+            s_t = P.stepping.step(cfg_t, grid_t, s_t)
+        out = fx.run_composite(P, steps=120, la=la, lb=la)
+        H = cfg_t.halo
+        zt = s_t.zeta[H:-H, H:-H]
+        zb = out["b"][1].zeta[H:-H, H:-H]
+        zc = torch.cat([out["a"][1].zeta[H:-H, H:-H][:, :la - olap], zb],
+                       dim=1)
+        amp = float(zt.abs().max())
+        diff = float((zc - zt).abs().max())
+        print(f"[nesting-small] composite contact after 120 steps: pulse "
+              f"{amp:.4f} m, |composite - monolithic| {diff:.3e} m (< 1e-3), "
+              f"max|zeta| of grid B {float(zb.abs().max()):.4f}; "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        check(amp > 0.03 and diff < 1e-3 and
+              float(zb.abs().max()) > 0.8 * amp,
+              "the composite contact is not transparent")
+
+
+def blocked_benchmark(device, smi):
+    """Phase 21 (c) and (d): BENCHMARK1 512x64x30 float64 from the state
+    three plain steps from rest, BLOCKED_STEPS steps on BLOCKED_LAYOUT
+    blocks in process against one block with the kernels off, each field
+    within BLOCKED_RTOL x max|field|, no kernel launched by the blocked
+    run, ms/step of both; the blocked run's sharded history assembled
+    against the HistoryWriter records of its unblocked states, bitwise."""
+    import tempfile
+    import numpy as np
+    import torch
+    from roms_tpu_torch import stepping
+    from roms_tpu_torch.io import pio
+    from roms_tpu_torch.io.netcdf import HistoryWriter, read_history
+    from roms_tpu_torch.parallel import smap
+    cfg, grid, s0, ffn = bench_developed(device)
+    table = {k: getattr(mod, attr) for k, (mod, attr, _) in
+             wrappers().items()}
+    plain = cfg.replace(pallas2d=False)
+    stepping.step(plain, grid, s0, ffn)             # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s_one = stepping.run(plain, grid, s0, BLOCKED_STEPS, ffn)
+    torch.cuda.synchronize()
+    ms_one = (time.perf_counter() - t0) * 1e3 / BLOCKED_STEPS
+
+    lay = smap.Layout(*BLOCKED_LAYOUT)
+    step = smap.make_smap_stepper(cfg, grid, lay, ffn)
+    sb = smap.block(cfg, lay, s0)
+    with tempfile.TemporaryDirectory() as tmp:
+        base = os.path.join(tmp, "bench_pio")
+        writer = pio.ShardedHistoryWriter(base, cfg, lay)
+        his = HistoryWriter(os.path.join(tmp, "bench_his.nc"), cfg)
+        for w in table.values():
+            w.launches = 0
+        ms_blk = []
+        for _ in range(BLOCKED_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sb = step(sb)
+            torch.cuda.synchronize()
+            ms_blk.append((time.perf_counter() - t0) * 1e3)
+            s_blk = smap.unblock(cfg, lay, sb)
+            writer.write(sb, s_blk.time)
+            his.write(s_blk)
+        launches = {k: w.launches for k, w in table.items() if w.launches}
+        writer.close()
+        his.close()
+        parts = pio.read_sharded(base)
+        rec = read_history(os.path.join(tmp, "bench_his.nc"))
+        same = all(np.array_equal(parts[k], rec[k]) for k in
+                   ("zeta", "ubar", "vbar", "u", "v")) and \
+            np.array_equal(parts["t"][:, 0], rec["temp"]) and \
+            np.array_equal(parts["t"][:, 1], rec["salt"]) and \
+            np.array_equal(parts["time"], rec["ocean_time"])
+    print(f"[blocked] BENCHMARK1 {cfg.Lm}x{cfg.Mm}x{cfg.N} f64 on "
+          f"{BLOCKED_LAYOUT[0]}x{BLOCKED_LAYOUT[1]} blocks in process, "
+          f"{BLOCKED_STEPS} steps: ms/step blocked "
+          f"{', '.join(f'{t:.1f}' for t in ms_blk)}, one block plain "
+          f"{ms_one:.1f} (host clock; {smi}); kernel launches in the "
+          f"blocked run {launches}", flush=True)
+    check(not launches, f"the blocked run launched kernels: {launches}")
+    for name in BENCH_FIELDS:
+        a, b = getattr(s_blk, name), getattr(s_one, name)
+        err = float((a - b).abs().max())
+        tol = BLOCKED_RTOL * max(float(b.abs().max()), 1e-300)
+        ok = bool(torch.isfinite(a).all()) and err <= tol
+        print(f"[blocked] {name:5s}: |blocked - one block| = {err:.3e} "
+              f"(bound {tol:.3e}) {'OK' if ok else 'FAIL'}", flush=True)
+        check(ok, f"BENCHMARK1 {name}: blocked and one block disagree")
+    print(f"[blocked] (d) the sharded history of {BLOCKED_STEPS} records "
+          f"assembled equals the gathered HistoryWriter's bitwise: {same}",
+          flush=True)
+    check(same, "the sharded history differs from the gathered one")
+    return ms_blk, ms_one
+
+
+def nesting_phase(device, smi, long=False):
+    """Phase 21: refinement and composite nesting, the blocked
+    decomposition and sharded output on the card ((a)-(d) of the module
+    docstring)."""
+    t0 = time.perf_counter()
+    nested_upwelling(device, smi)
+    t1 = time.perf_counter()
+    nesting_small(device, long)
+    t2 = time.perf_counter()
+    blocked_benchmark(device, smi)
+    print(f"[nesting] phase 21: (a) {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, "
+          f"(c)-(d) {time.perf_counter() - t2:.1f} s", flush=True)
+
+
 def column_times(device, names=()):
     """`--column-times TREE [KERNEL ...]`: the time a call of rows 1-4 and
     6-10 (or of the KERNELs named), with the host's time (device_ms) and
@@ -4041,6 +4373,9 @@ def main() -> int:
     forward_only = sys.argv[1:2] in (["--forward"], ["--forward-long"])
     forward_long = sys.argv[1:2] == ["--forward-long"]
     fourdvar_only = sys.argv[1:2] == ["--fourdvar"]
+    nesting_only = sys.argv[1:2] in (["--nesting-parallel"],
+                                     ["--nesting-parallel-long"])
+    nesting_long = sys.argv[1:2] == ["--nesting-parallel-long"]
     sys.path.insert(0, os.path.abspath(sys.argv[2]) if timing else ROOT)
     try:
         import roms_tpu_torch  # noqa: F401
@@ -4051,7 +4386,8 @@ def main() -> int:
         return 2
     for path in (ANCHOR, BENCH_FIXTURE, REGIONAL_FIXTURE, COASTAL_FIXTURE,
                  OPERATORS_FIXTURE, CASES2_FIXTURE, SEDIMENT_FIXTURE,
-                 BIOLOGY_FIXTURE, FORWARD_FIXTURE, FOURDVAR_FIXTURE):
+                 BIOLOGY_FIXTURE, FORWARD_FIXTURE, FOURDVAR_FIXTURE,
+                 NESTING_FIXTURE):
         if not os.path.exists(path):
             print(f"chip_smoke: missing {path}", file=sys.stderr)
             return 2
@@ -4104,6 +4440,9 @@ def main() -> int:
         if fourdvar_only:
             fourdvar_phase(device, smi)
             return 0
+        if nesting_only:
+            nesting_phase(device, smi, long=nesting_long)
+            return 0
         results = {}
         kernel_checks(results, device)
         main_path(device)
@@ -4126,6 +4465,7 @@ def main() -> int:
         biology_phase(device, smi)
         forward_phase(device, smi)
         fourdvar_phase(device, smi)
+        nesting_phase(device, smi)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

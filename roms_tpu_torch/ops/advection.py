@@ -40,11 +40,12 @@ def _hsimt_sw(q_up, q_dn, grad_c, grad_up, Ka_c, Ka_up):
     return q_up + 0.5 * lim * grad_c * Ka_c
 
 
-def _hsimt_inflow(f, a, inflow, along_x: bool):
-    """f with its column (along_x) or row `a` zeroed where `inflow`."""
+def _hsimt_inflow(f, a, inflow, along_x: bool, side: str):
+    """f with its column (along_x) or row `a` zeroed where `inflow` (a
+    write on the physical edge `side`)."""
     if along_x:
-        return bc.set_col(f, a, torch.where(inflow, 0.0, f[..., :, a]))
-    return bc.set_row(f, a, torch.where(inflow, 0.0, f[..., a, :]))
+        return bc.set_col(f, a, torch.where(inflow, 0.0, f[..., :, a]), side)
+    return bc.set_row(f, a, torch.where(inflow, 0.0, f[..., a, :]), side)
 
 
 def _hsimt_fluxes(cfg: Config, q, Huon, Hvom, grid, Hz, dt):
@@ -60,11 +61,11 @@ def _hsimt_fluxes(cfg: Config, q, Huon, Hvom, grid, Hz, dt):
     gradX = q - im1(q)
     if not cfg.ew_periodic:
         inflow_w = Huon[..., :, H] >= 0.0
-        gradX = _hsimt_inflow(gradX, H - 1, inflow_w, True)
-        KaX = _hsimt_inflow(KaX, H - 1, inflow_w, True)
+        gradX = _hsimt_inflow(gradX, H - 1, inflow_w, True, "west")
+        KaX = _hsimt_inflow(KaX, H - 1, inflow_w, True, "west")
         inflow_e = Huon[..., :, H + L] < 0.0
-        gradX = _hsimt_inflow(gradX, H + L + 1, inflow_e, True)
-        KaX = _hsimt_inflow(KaX, H + L + 1, inflow_e, True)
+        gradX = _hsimt_inflow(gradX, H + L + 1, inflow_e, True, "east")
+        KaX = _hsimt_inflow(KaX, H + L + 1, inflow_e, True, "east")
     sw_pos = _hsimt_sw(im1(q), q, gradX, im1(gradX), KaX, im1(KaX))
     sw_neg = _hsimt_sw(q, im1(q), -gradX, -ip1(gradX), KaX, ip1(KaX))
     FX = torch.where(Huon >= 0.0, sw_pos, sw_neg) * Huon
@@ -74,11 +75,12 @@ def _hsimt_fluxes(cfg: Config, q, Huon, Hvom, grid, Hz, dt):
     gradE = q - jm1(q)
     if not cfg.ns_periodic:
         inflow_s = Hvom[..., H, :] >= 0.0
-        gradE = _hsimt_inflow(gradE, H - 1, inflow_s, False)
-        KaE = _hsimt_inflow(KaE, H - 1, inflow_s, False)
+        gradE = _hsimt_inflow(gradE, H - 1, inflow_s, False, "south")
+        KaE = _hsimt_inflow(KaE, H - 1, inflow_s, False, "south")
         inflow_n = Hvom[..., H + M, :] < 0.0
-        gradE = _hsimt_inflow(gradE, H + M + 1, inflow_n, False)
-        KaE = _hsimt_inflow(KaE, H + M + 1, inflow_n, False)
+        gradE = _hsimt_inflow(gradE, H + M + 1, inflow_n, False,
+                             "north")
+        KaE = _hsimt_inflow(KaE, H + M + 1, inflow_n, False, "north")
     sw_pos = _hsimt_sw(jm1(q), q, gradE, jm1(gradE), KaE, jm1(KaE))
     sw_neg = _hsimt_sw(q, jm1(q), -gradE, -jp1(gradE), KaE, jp1(KaE))
     FE = torch.where(Hvom >= 0.0, sw_pos, sw_neg) * Hvom

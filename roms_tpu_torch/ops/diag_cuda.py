@@ -27,7 +27,7 @@ from .. import constants as C
 from ..config import Config
 from ..grid import Grid
 from .. import vgrid
-from . import eos as _eos
+from . import bc, eos as _eos
 from ._kernels import SMEM_MAX, check_tensors, geometry, kernel_layout, \
     launch, on_card, tile_plan
 from .omega import set_massflux, omega as _omega
@@ -98,9 +98,15 @@ def supported(cfg: Config, grid: Grid) -> bool:
     """True when the diag kernels implement this configuration exactly
     (the ice-shelf draft is outside them; the step also keeps grid_flux
     and eos plain while the radiation stress is active, as roms_tpu's
-    ns_active does)."""
+    ns_active does); never in a blocked run (diag_pallas.use_pallas)."""
     return (grid.zice is None and cfg.vtransform in (1, 2)
-            and cfg.eos in ("linear", "jm95"))
+            and cfg.eos in ("linear", "jm95") and use_omega(cfg))
+
+
+def use_omega(cfg: Config) -> bool:
+    """The omega kernel's gate: kernels on and no ParCtx (a blocked run
+    takes the plain path, as diag_pallas.use_pallas has it)."""
+    return cfg.pallas2d and bc.current_ctx() is None
 
 
 # ---------------------------------------------------------------------------

@@ -162,11 +162,11 @@ def _smooth_w(cfg, q):
     replication (gls_corstep.F:230-300)."""
     H = cfg.halo
     if not cfg.ew_periodic:
-        q = bc.set_col(q, H - 1, q[..., :, H])
-        q = bc.set_col(q, H + cfg.Lm, q[..., :, H + cfg.Lm - 1])
+        q = bc.set_col(q, H - 1, q[..., :, H], "west")
+        q = bc.set_col(q, H + cfg.Lm, q[..., :, H + cfg.Lm - 1], "east")
     if not cfg.ns_periodic:
-        q = bc.set_row(q, H - 1, q[..., H, :])
-        q = bc.set_row(q, H + cfg.Mm, q[..., H + cfg.Mm - 1, :])
+        q = bc.set_row(q, H - 1, q[..., H, :], "south")
+        q = bc.set_row(q, H + cfg.Mm, q[..., H + cfg.Mm - 1, :], "north")
     q = bc.fill_halo(cfg, q)
     qp = 0.25 * (q + ip1(q) + jp1(q) + ip1(jp1(q)))   # at psi+1/2 offset
     return 0.25 * (qp + im1(qp) + jm1(qp) + im1(jm1(qp)))

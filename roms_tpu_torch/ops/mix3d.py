@@ -167,32 +167,34 @@ def _lapuv_bc(cfg: Config, LapU, LapV):
     L, M = cfg.Lm, cfg.Mm
     if not cfg.ew_periodic:
         if cfg.lbc_u.west == BC_CLOSED:
-            LapU = bc.set_col(LapU, H, 0.0)
-            LapV = bc.set_col(LapV, H - 1, cfg.gamma2 * LapV[..., :, H])
+            LapU = bc.set_col(LapU, H, 0.0, "west")
+            LapV = bc.set_col(LapV, H - 1, cfg.gamma2 * LapV[..., :, H],
+                              "west")
         else:
-            LapU = bc.set_col(LapU, H, LapU[..., :, H + 1])
-            LapV = bc.set_col(LapV, H - 1, 0.0)
+            LapU = bc.set_col(LapU, H, LapU[..., :, H + 1], "west")
+            LapV = bc.set_col(LapV, H - 1, 0.0, "west")
         if cfg.lbc_u.east == BC_CLOSED:
-            LapU = bc.set_col(LapU, H + L, 0.0)
+            LapU = bc.set_col(LapU, H + L, 0.0, "east")
             LapV = bc.set_col(LapV, H + L,
-                              cfg.gamma2 * LapV[..., :, H + L - 1])
+                              cfg.gamma2 * LapV[..., :, H + L - 1], "east")
         else:
-            LapU = bc.set_col(LapU, H + L, LapU[..., :, H + L - 1])
-            LapV = bc.set_col(LapV, H + L, 0.0)
+            LapU = bc.set_col(LapU, H + L, LapU[..., :, H + L - 1], "east")
+            LapV = bc.set_col(LapV, H + L, 0.0, "east")
     if not cfg.ns_periodic:
         if cfg.lbc_v.south == BC_CLOSED:
-            LapV = bc.set_row(LapV, H, 0.0)
-            LapU = bc.set_row(LapU, H - 1, cfg.gamma2 * LapU[..., H, :])
+            LapV = bc.set_row(LapV, H, 0.0, "south")
+            LapU = bc.set_row(LapU, H - 1, cfg.gamma2 * LapU[..., H, :],
+                              "south")
         else:
-            LapV = bc.set_row(LapV, H, LapV[..., H + 1, :])
-            LapU = bc.set_row(LapU, H - 1, 0.0)
+            LapV = bc.set_row(LapV, H, LapV[..., H + 1, :], "south")
+            LapU = bc.set_row(LapU, H - 1, 0.0, "south")
         if cfg.lbc_v.north == BC_CLOSED:
-            LapV = bc.set_row(LapV, H + M, 0.0)
+            LapV = bc.set_row(LapV, H + M, 0.0, "north")
             LapU = bc.set_row(LapU, H + M,
-                              cfg.gamma2 * LapU[..., H + M - 1, :])
+                              cfg.gamma2 * LapU[..., H + M - 1, :], "north")
         else:
-            LapV = bc.set_row(LapV, H + M, LapV[..., H + M - 1, :])
-            LapU = bc.set_row(LapU, H + M, 0.0)
+            LapV = bc.set_row(LapV, H + M, LapV[..., H + M - 1, :], "north")
+            LapU = bc.set_row(LapU, H + M, 0.0, "north")
     return bc.fill_halo(cfg, LapU), bc.fill_halo(cfg, LapV)
 
 
@@ -203,11 +205,11 @@ def _lap_bc(cfg: Config, LapT):
     H = cfg.halo
     L, M = cfg.Lm, cfg.Mm
     if not cfg.ew_periodic:
-        LapT = bc.set_col(LapT, H - 1, 0.0)
-        LapT = bc.set_col(LapT, H + L, 0.0)
+        LapT = bc.set_col(LapT, H - 1, 0.0, "west")
+        LapT = bc.set_col(LapT, H + L, 0.0, "east")
     if not cfg.ns_periodic:
-        LapT = bc.set_row(LapT, H - 1, 0.0)
-        LapT = bc.set_row(LapT, H + M, 0.0)
+        LapT = bc.set_row(LapT, H - 1, 0.0, "south")
+        LapT = bc.set_row(LapT, H + M, 0.0, "north")
     return bc.fill_halo(cfg, LapT)
 
 

@@ -28,6 +28,7 @@ import torch
 
 from ..config import Config
 from ..grid import Grid
+from . import bc
 from ._kernels import MAX_TRACERS, SMEM_MAX, check_tensors, column_ints, \
     kernel_layout, launch, library, on_card, tile_plan
 from .mix3d import t3dmix2_geo as t3dmix2_geo_plain
@@ -73,8 +74,9 @@ def uv3dmix2_layout(dtype) -> dict:
 
 def supported(cfg: Config) -> bool:
     """The configurations the kernel computes (mix3d_pallas.supported): no
-    sponge and no Smagorinsky viscosity."""
-    return not (cfg.use_sponge or cfg.uv_smagorinsky)
+    sponge and no Smagorinsky viscosity; never in a blocked run."""
+    return not (cfg.use_sponge or cfg.uv_smagorinsky) and \
+        bc.current_ctx() is None
 
 
 def use_kernels(cfg: Config) -> bool:

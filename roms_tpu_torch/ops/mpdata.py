@@ -208,16 +208,16 @@ def _uv_edge_bc(cfg: Config, a, kind: str):
         if not cfg.ew_periodic:
             lbc = cfg.lbc_u
             wv = 0.0 if lbc.west == "Clo" else a[..., :, H + 1]
-            a = bc_mod.set_col(a, H, wv)
+            a = bc_mod.set_col(a, H, wv, "west")
             ev = 0.0 if lbc.east == "Clo" else a[..., :, H + cfg.Lm - 1]
-            a = bc_mod.set_col(a, H + cfg.Lm, ev)
+            a = bc_mod.set_col(a, H + cfg.Lm, ev, "east")
     else:
         if not cfg.ns_periodic:
             lbc = cfg.lbc_v
             sv = 0.0 if lbc.south == "Clo" else a[..., H + 1, :]
-            a = bc_mod.set_row(a, H, sv)
+            a = bc_mod.set_row(a, H, sv, "south")
             nv = 0.0 if lbc.north == "Clo" else a[..., H + cfg.Mm - 1, :]
-            a = bc_mod.set_row(a, H + cfg.Mm, nv)
+            a = bc_mod.set_row(a, H + cfg.Mm, nv, "north")
     return a
 
 

@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from .. import constants as C
+from . import bc
 from ..config import (Config, LBC, BC_RADIATION, BC_CHAPMAN_EXPLICIT,
                       BC_CHAPMAN_IMPLICIT, BC_FLATHER, BC_CLAMPED,
                       BC_SHCHEPETKIN, BC_REDUCED)
@@ -46,10 +47,14 @@ def _col(a, i):
     return a[..., i]
 
 
-def _set_ring(q, axis, ab, qb):
-    """A copy of q with the boundary ring ab (along `axis`) set to qb."""
+def _set_ring(q, side, ab, qb):
+    """A copy of q with the boundary ring ab of `side` set to qb; under a
+    ParCtx only on the block that owns that side (roms_tpu/ops/obc.py:
+    49-67)."""
+    if bc._skips(side):
+        return q
     out = q.clone()
-    _ax(out, axis)[..., ab] = qb
+    _ax(out, _SIDES[side][0])[..., ab] = qb
     return out
 
 
@@ -83,7 +88,7 @@ def radiation(cfg: Config, q_know, q_kout, side: str, ab: int,
         qb = qb + tau * (ext - _col(qn, ab))
     if mask is not None:
         qb = qb * _col(_ax(mask, axis), ab)
-    return _set_ring(q_kout, axis, ab, qb)
+    return _set_ring(q_kout, side, ab, qb)
 
 
 def chapman(cfg: Config, grid, z_know, z_kout, side: str,
@@ -106,7 +111,7 @@ def chapman(cfg: Config, grid, z_know, z_kout, side: str,
         zb = (1.0 - cffc) * _col(zn, ab) + cffc * _col(zn, ai)
     if mask is not None:
         zb = zb * _col(_ax(mask, axis), ab)
-    return _set_ring(z_kout, axis, ab, zb)
+    return _set_ring(z_kout, side, ab, zb)
 
 
 def flather(cfg: Config, grid, ub_kout, z_know, side: str,
@@ -128,7 +133,7 @@ def flather(cfg: Config, grid, ub_kout, z_know, side: str,
     ub = ext_ubar - sign * Cx * (zavg - zext)
     if mask is not None:
         ub = ub * _col(_ax(mask, axis), ab)
-    return _set_ring(ub_kout, axis, ab, ub)
+    return _set_ring(ub_kout, side, ab, ub)
 
 
 def shchepetkin(cfg: Config, grid, ub_know, ub_kout, z_know, z_kout,
@@ -169,7 +174,7 @@ def shchepetkin(cfg: Config, grid, ub_know, ub_kout, z_know, z_kout,
                 ext_ubar - sign * cff1 * (Zx - ext_zeta))
     if mask is not None:
         ub = ub * _col(_ax(mask, axis), ab)
-    return _set_ring(ub_kout, axis, ab, ub)
+    return _set_ring(ub_kout, side, ab, ub)
 
 
 def reduced(cfg: Config, grid, ub_know, ub_kout, z_know, vt_know,
@@ -225,7 +230,7 @@ def reduced(cfg: Config, grid, ub_know, ub_kout, z_know, vt_know,
     ub = _col(un, ab) + dt2d * (bry_pgr + bry_cor + bry_str)
     if mask is not None:
         ub = ub * _col(_ax(mask, axis), ab)
-    return _set_ring(ub_kout, axis, ab, ub)
+    return _set_ring(ub_kout, side, ab, ub)
 
 
 def clamped(cfg: Config, q_kout, side: str, ab: int, ext, mask=None):
@@ -234,7 +239,7 @@ def clamped(cfg: Config, q_kout, side: str, ab: int, ext, mask=None):
     qb = ext + 0.0 * _col(_ax(q_kout, axis), ab)
     if mask is not None:
         qb = qb * _col(_ax(mask, axis), ab)
-    return _set_ring(q_kout, axis, ab, qb)
+    return _set_ring(q_kout, side, ab, qb)
 
 
 # ---------------------------------------------------------------------------
@@ -441,48 +446,60 @@ def obc_volcons(cfg: Config, grid, ubar, vbar, zeta, volcons):
     """Integral volume conservation across open boundaries (obc_volcons.F
     obc_flux_tile): the net inflow over the sides in `volcons` (e.g.
     {"west", "east"}) removed by a uniform cross-section correction
-    velocity at every participating open-boundary face."""
+    velocity at every participating open-boundary face.
+
+    Under a ParCtx each block sums its own share of the faces it owns,
+    and the shares are summed over all blocks (obc_volcons.F:487
+    mp_reduce, roms_tpu/ops/obc.py:483-545); the face corrections land on
+    the owning blocks only."""
     H = cfg.halo
     L, M = cfg.Lm, cfg.Mm
+    ctx = bc.current_ctx()
     D = zeta + grid.h
     area = torch.zeros((), dtype=ubar.dtype, device=ubar.device)
     flux = torch.zeros_like(area)
     jj = slice(H, H + M)
     ii = slice(H, H + L)
-    if "west" in volcons:
+
+    def owns(side):
+        return ctx is None or getattr(ctx, side)
+
+    if "west" in volcons and owns("west"):
         cff = 0.5 * (D[jj, H - 1] + D[jj, H])
         on_u_w = 2.0 / (grid.pn[jj, H - 1] + grid.pn[jj, H])
         cw = cff * on_u_w * grid.umask[jj, H]
         area = area + torch.sum(cw)
         flux = flux + torch.sum(cw * ubar[jj, H])
-    if "east" in volcons:
+    if "east" in volcons and owns("east"):
         cff = 0.5 * (D[jj, H + L - 1] + D[jj, H + L])
         on_u_e = 2.0 / (grid.pn[jj, H + L - 1] + grid.pn[jj, H + L])
         ce = cff * on_u_e * grid.umask[jj, H + L]
         area = area + torch.sum(ce)
         flux = flux - torch.sum(ce * ubar[jj, H + L])
-    if "south" in volcons:
+    if "south" in volcons and owns("south"):
         cff = 0.5 * (D[H - 1, ii] + D[H, ii])
         om_v_s = 2.0 / (grid.pm[H - 1, ii] + grid.pm[H, ii])
         cs = cff * om_v_s * grid.vmask[H, ii]
         area = area + torch.sum(cs)
         flux = flux + torch.sum(cs * vbar[H, ii])
-    if "north" in volcons:
+    if "north" in volcons and owns("north"):
         cff = 0.5 * (D[H + M - 1, ii] + D[H + M, ii])
         om_v_n = 2.0 / (grid.pm[H + M - 1, ii] + grid.pm[H + M, ii])
         cn = cff * om_v_n * grid.vmask[H + M, ii]
         area = area + torch.sum(cn)
         flux = flux - torch.sum(cn * vbar[H + M, ii])
+    if ctx is not None:
+        area, flux = ctx.exchange.sum(torch.stack([area, flux]))
     ubar_xs = flux / torch.clamp(area, min=_EPS)
 
     ubar = ubar.clone()
     vbar = vbar.clone()
-    if "west" in volcons:
+    if "west" in volcons and owns("west"):
         ubar[jj, H] -= ubar_xs
-    if "east" in volcons:
+    if "east" in volcons and owns("east"):
         ubar[jj, H + L] += ubar_xs
-    if "south" in volcons:
+    if "south" in volcons and owns("south"):
         vbar[H, ii] -= ubar_xs
-    if "north" in volcons:
+    if "north" in volcons and owns("north"):
         vbar[H + M, ii] += ubar_xs
     return ubar, vbar

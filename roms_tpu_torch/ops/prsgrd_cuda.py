@@ -17,6 +17,7 @@ import torch
 from .. import constants as C
 from ..config import Config
 from ..grid import Grid
+from . import bc
 from ._kernels import check_tensors, column_ints, kernel_layout, launch, \
     on_card, tile_plan
 from .prsgrd import prsgrd32 as prsgrd32_plain
@@ -47,8 +48,10 @@ def prsgrd_layout(dtype) -> dict:
 
 def supported(cfg: Config) -> bool:
     """The kernel's gate (prsgrd_pallas.use_pallas without its environment
-    switches): kernels on and the splines density-Jacobian scheme."""
-    return cfg.pallas2d and cfg.prsgrd_scheme == "djs"
+    switches): kernels on, the splines density-Jacobian scheme and no
+    ParCtx."""
+    return cfg.pallas2d and cfg.prsgrd_scheme == "djs" and \
+        bc.current_ctx() is None
 
 
 def prsgrd32(cfg: Config, grid: Grid, rho, z_r, z_w, Hz, eq_tide=None):

@@ -30,7 +30,7 @@ import torch
 
 from ..config import Config
 from ..grid import Grid
-from . import mix3d_cuda, prsgrd_cuda
+from . import bc, mix3d_cuda, prsgrd_cuda
 from ._kernels import SMEM_MAX, check_tensors, column_ints, kernel_layout, \
     launch, on_card, tile_plan
 from .pre_step3d import ab3_start_coefs, momentum_init
@@ -77,8 +77,8 @@ def rhs3d_layout(dtype, bodyforce: bool = False) -> dict:
 
 def supported(cfg: Config) -> bool:
     """The configurations whose momentum phase the kernels compute
-    (rhs3d_pallas.supported)."""
-    return (cfg.prsgrd_scheme == "djs"
+    (rhs3d_pallas.supported), never in a blocked run."""
+    return (cfg.prsgrd_scheme == "djs" and bc.current_ctx() is None
             and not cfg.use_sponge and not cfg.uv_smagorinsky
             and not cfg.uv_mix_geo and not (cfg.uv_vis4 and cfg.visc4)
             and cfg.uv_cor and cfg.uv_adv)

@@ -97,11 +97,11 @@ def _sanitize_ring(cfg: Config, f):
     Istr:Iend,Jstr:Jend only and exchanges afterwards)."""
     H = cfg.halo
     if not cfg.ns_periodic:
-        f = set_row(f, H - 1, f[..., H, :])
-        f = set_row(f, H + cfg.Mm, f[..., H + cfg.Mm - 1, :])
+        f = set_row(f, H - 1, f[..., H, :], "south")
+        f = set_row(f, H + cfg.Mm, f[..., H + cfg.Mm - 1, :], "north")
     if not cfg.ew_periodic:
-        f = set_col(f, H - 1, f[..., :, H])
-        f = set_col(f, H + cfg.Lm, f[..., :, H + cfg.Lm - 1])
+        f = set_col(f, H - 1, f[..., :, H], "west")
+        f = set_col(f, H + cfg.Lm, f[..., :, H + cfg.Lm - 1], "east")
     return fill_halo(cfg, f)
 
 
@@ -294,14 +294,14 @@ def _bedload_mpm(cfg: Config, grid, p: SedParams, bed_mass, tau_w,
         # no bedload through closed boundaries (sed_bedload.F:722-760)
         if not cfg.ew_periodic:
             if cfg.lbc_t.west == "Clo":
-                FX = set_col(FX, H, 0.0)
+                FX = set_col(FX, H, 0.0, "west")
             if cfg.lbc_t.east == "Clo":
-                FX = set_col(FX, H + cfg.Lm, 0.0)
+                FX = set_col(FX, H + cfg.Lm, 0.0, "east")
         if not cfg.ns_periodic:
             if cfg.lbc_t.south == "Clo":
-                FE = set_row(FE, H, 0.0)
+                FE = set_row(FE, H, 0.0, "south")
             if cfg.lbc_t.north == "Clo":
-                FE = set_row(FE, H + cfg.Mm, 0.0)
+                FE = set_row(FE, H + cfg.Mm, 0.0, "north")
         div = (ip1(FX) - FX + jp1(FE) - FE) * grid.pm * grid.pn
         tops.append(torch.clamp(bed_mass[0, c] - div, min=0.0))
     bed_mass = bed_mass.clone()

@@ -302,7 +302,7 @@ def _wet_masks(cfg: Config, grid: Grid, z_kstp):
 
 def _boundary_fns(cfg: Config, grid: Grid, bry, sources, sustr=None,
                   svstr=None):
-    """The lateral conditions of a fast step, as (zbc, bcs): zbc(z_new,
+    """The lateral conditions of a fast step, as (zbc, bcs, fill): zbc(z_new,
     z_know, dt2d) for the new free surface (the simple kinds, then the
     open ones through obc.zetabc, then the wet/dry clamp); bcs(u_new,
     v_new, u_know, v_know, z_know, dt2d, z_new, um, vm) for the new
@@ -310,11 +310,21 @@ def _boundary_fns(cfg: Config, grid: Grid, bry, sources, sustr=None,
     (with the surface stresses of the 2-D-only mode), the limiter again
     under WET_DRY (the reference limits the boundary points inside
     u2dbc/v2dbc, u2dbc_im.F:1187-1234; idempotent inside), then the volume
-    conservation and the point sources."""
+    conservation and the point sources.
+
+    Under a ParCtx bcs leaves the halos of ubar and vbar stale, and
+    fill(u_new, v_new, *more) refreshes them with the substep's other
+    fields in one exchange at the end of the substep (mp_exchange.F packs
+    up to 4 fields in a message; roms_tpu/ops/step2d.py:325-340); zeta
+    keeps its own refresh, since its halo feeds the same substep's
+    momentum.  Without a ParCtx bcs refreshes ubar and vbar itself and
+    fill refreshes `more` only."""
     adv_z = bc.has_advanced(cfg.lbc_zeta)
     adv_u = bc.has_advanced(cfg.lbc_ubar)
     adv_v = bc.has_advanced(cfg.lbc_vbar)
     use_wd = cfg.wetdry
+    blocked = bc.current_ctx() is not None
+    halo = (lambda a: a) if blocked else (lambda a: bc.fill_halo(cfg, a))
 
     def zbc(z_new, z_know, dt2d):
         z_new = bc.apply_bc_rho(cfg, cfg.lbc_zeta, z_new, mask=grid.rmask)
@@ -327,18 +337,18 @@ def _boundary_fns(cfg: Config, grid: Grid, bry, sources, sustr=None,
 
     def ubc(u_new, u_know, z_know, dt2d, z_new, v_know):
         u_new = bc.apply_bc_u(cfg, cfg.lbc_ubar, u_new, gamma2=cfg.gamma2,
-                              mask=grid.umask)
+                              mask=grid.umask, fill=not blocked)
         if adv_u:
-            u_new = bc.fill_halo(cfg, obc.u2dbc(
+            u_new = halo(obc.u2dbc(
                 cfg, grid, cfg.lbc_ubar, u_know, u_new, z_know, dt2d, bry,
                 z_kout=z_new, vb_know=v_know, sustr=sustr))
         return u_new
 
     def vbc(v_new, v_know, z_know, dt2d, z_new, u_know):
         v_new = bc.apply_bc_v(cfg, cfg.lbc_vbar, v_new, gamma2=cfg.gamma2,
-                              mask=grid.vmask)
+                              mask=grid.vmask, fill=not blocked)
         if adv_v:
-            v_new = bc.fill_halo(cfg, obc.v2dbc(
+            v_new = halo(obc.v2dbc(
                 cfg, grid, cfg.lbc_vbar, v_know, v_new, z_know, dt2d, bry,
                 z_kout=z_new, ub_know=u_know, svstr=svstr))
         return v_new
@@ -347,14 +357,14 @@ def _boundary_fns(cfg: Config, grid: Grid, bry, sources, sustr=None,
         if cfg.volcons:
             u_new, v_new = obc.obc_volcons(cfg, grid, u_new, v_new, z_new,
                                            set(cfg.volcons))
-            u_new = bc.fill_halo(cfg, u_new)
-            v_new = bc.fill_halo(cfg, v_new)
+            u_new = halo(u_new)
+            v_new = halo(v_new)
         if sources is None:
             return u_new, v_new
         from .sources import apply_ubar_sources
         u_new, v_new = apply_ubar_sources(sources, u_new, v_new, z_new,
                                           grid.h, grid.on_u, grid.om_v)
-        return bc.fill_halo(cfg, u_new), bc.fill_halo(cfg, v_new)
+        return halo(u_new), halo(v_new)
 
     def bcs(u_new, v_new, u_know, v_know, z_know, dt2d, z_new, um, vm):
         u_new = ubc(u_new, u_know, z_know, dt2d, z_new, v_know)
@@ -364,7 +374,12 @@ def _boundary_fns(cfg: Config, grid: Grid, bry, sources, sustr=None,
             v_new = v_new * wetdry.limit(vm, v_new)
         return srcs(u_new, v_new, z_new)
 
-    return zbc, bcs
+    def fill(u_new, v_new, *more):
+        if blocked:
+            return bc.fill_halo_multi(cfg, u_new, v_new, *more)
+        return (u_new, v_new) + tuple(bc.fill_halo(cfg, a) for a in more)
+
+    return zbc, bcs, fill
 
 
 def fast_loop(cfg: Config, grid: Grid, fs: Fast2DState, rufrc=None,
@@ -403,7 +418,7 @@ def fast_loop(cfg: Config, grid: Grid, fs: Fast2DState, rufrc=None,
     zero = torch.zeros_like(fs.zeta_n)
 
     use_wd = cfg.wetdry
-    zbc, bcs = _boundary_fns(cfg, grid, bry, sources)
+    zbc, bcs, fill = _boundary_fns(cfg, grid, bry, sources)
 
     def eulerian(DUon, DVom):
         # DU_avg1 is the Eulerian fast-averaged transport: the 3-D
@@ -462,8 +477,9 @@ def fast_loop(cfg: Config, grid: Grid, fs: Fast2DState, rufrc=None,
         rvfrc_c = rvfrc_c * c7v
     ubar_p, vbar_p = bcs(ubar_p, vbar_p, fs.ubar_n, fs.vbar_n, fs.zeta_n,
                          dtfast, zeta_p, um_w, vm_w)
+    ubar_p, vbar_p, rhs_zeta = fill(ubar_p, vbar_p, rhs_zeta)
     fs = fs.replace(
-        rzeta_nm1=fs.rzeta_n, rzeta_n=bc.fill_halo(cfg, rhs_zeta),
+        rzeta_nm1=fs.rzeta_n, rzeta_n=rhs_zeta,
         rubar_nm1=fs.rubar_n, rubar_n=rhs_ubar,
         rvbar_nm1=fs.rvbar_n, rvbar_n=rhs_vbar)
 
@@ -507,6 +523,7 @@ def fast_loop(cfg: Config, grid: Grid, fs: Fast2DState, rufrc=None,
             vbar_new = vbar_new * wetdry.limit(vm_c, vbar_new)
         ubar_new, vbar_new = bcs(ubar_new, vbar_new, fs.ubar_n, fs.vbar_n,
                                  fs.zeta_n, dtfast, zeta_new, um_c, vm_c)
+        ubar_new, vbar_new = fill(ubar_new, vbar_new)
         return fs.replace(
             zeta_nm1=fs.zeta_n, zeta_n=zeta_new,
             ubar_nm1=fs.ubar_n, ubar_n=ubar_new,
@@ -560,8 +577,9 @@ def fast_loop(cfg: Config, grid: Grid, fs: Fast2DState, rufrc=None,
             rhs_vbar = rhs_vbar * c7v
         ubar_p, vbar_p = bcs(ubar_p, vbar_p, fs.ubar_n, fs.vbar_n,
                              fs.zeta_n, 2.0 * dtfast, zeta_p, um_p, vm_p)
+        ubar_p, vbar_p, rhs_zeta = fill(ubar_p, vbar_p, rhs_zeta)
         fs = fs.replace(
-            rzeta_nm1=fs.rzeta_n, rzeta_n=bc.fill_halo(cfg, rhs_zeta),
+            rzeta_nm1=fs.rzeta_n, rzeta_n=rhs_zeta,
             rubar_nm1=fs.rubar_n, rubar_n=rhs_ubar,
             rvbar_nm1=fs.rvbar_n, rvbar_n=rhs_vbar)
         fs, wet_avg = corrector(i, fs, zeta_p, ubar_p, vbar_p, False,
@@ -574,12 +592,15 @@ def fast_loop(cfg: Config, grid: Grid, fs: Fast2DState, rufrc=None,
     cff1 = w1[i - 2]
     cff2 = (8.0 / 12.0) * w2[i - 1] - (1.0 / 12.0) * w2[i]
     du1, dv1 = eulerian(DUon, DVom)
-    fs = fs.replace(
-        Zt_avg1=bc.fill_halo(cfg, fs.Zt_avg1 + cff1 * fs.zeta_n),
-        DU_avg1=bc.fill_halo(cfg, fs.DU_avg1 + cff1 * du1),
-        DV_avg1=bc.fill_halo(cfg, fs.DV_avg1 + cff1 * dv1),
-        DU_avg2=bc.fill_halo(cfg, fs.DU_avg2 + cff2 * DUon),
-        DV_avg2=bc.fill_halo(cfg, fs.DV_avg2 + cff2 * DVom))
+    avgs = (fs.Zt_avg1 + cff1 * fs.zeta_n, fs.DU_avg1 + cff1 * du1,
+            fs.DV_avg1 + cff1 * dv1, fs.DU_avg2 + cff2 * DUon,
+            fs.DV_avg2 + cff2 * DVom)
+    if bc.current_ctx() is not None:
+        avgs = bc.fill_halo_multi(cfg, *avgs)
+    else:
+        avgs = tuple(bc.fill_halo(cfg, a) for a in avgs)
+    fs = fs.replace(**dict(zip(
+        ("Zt_avg1", "DU_avg1", "DV_avg1", "DU_avg2", "DV_avg2"), avgs)))
 
     # --- time-averaged wet masks for the 3-D step (the auxiliary wetdry
     #     call, wetdry.F:253-271): wet only if wet at all 2*nfast substeps,
@@ -608,7 +629,7 @@ def step_2d_only(cfg: Config, grid: Grid, fs: Fast2DState, first: bool,
     h = grid.h
     pmn = grid.pm * grid.pn
     use_wd = cfg.wetdry
-    zbc, bcs = _boundary_fns(
+    zbc, bcs, fill = _boundary_fns(
         cfg, grid, bry, sources,
         sustr=forcing.sustr if forcing is not None else None,
         svstr=forcing.svstr if forcing is not None else None)
@@ -650,8 +671,9 @@ def step_2d_only(cfg: Config, grid: Grid, fs: Fast2DState, first: bool,
         rhs_vbar = rhs_vbar * c7v
     ubar_p, vbar_p = bcs(ubar_p, vbar_p, fs.ubar_n, fs.vbar_n, fs.zeta_n,
                          dtfast, zeta_p, um_p, vm_p)
+    ubar_p, vbar_p, rhs_zeta = fill(ubar_p, vbar_p, rhs_zeta)
     fs = fs.replace(
-        rzeta_nm1=fs.rzeta_n, rzeta_n=bc.fill_halo(cfg, rhs_zeta),
+        rzeta_nm1=fs.rzeta_n, rzeta_n=rhs_zeta,
         rubar_nm1=fs.rubar_n, rubar_n=rhs_ubar,
         rvbar_nm1=fs.rvbar_n, rvbar_n=rhs_vbar)
 
@@ -686,6 +708,7 @@ def step_2d_only(cfg: Config, grid: Grid, fs: Fast2DState, first: bool,
         vbar_new = vbar_new * wetdry.limit(vm_c, vbar_new)
     ubar_new, vbar_new = bcs(ubar_new, vbar_new, fs.ubar_n, fs.vbar_n,
                              fs.zeta_n, dtfast, zeta_new, um_c, vm_c)
+    ubar_new, vbar_new = fill(ubar_new, vbar_new)
     return fs.replace(
         zeta_nm1=fs.zeta_n, zeta_n=zeta_new,
         ubar_nm1=fs.ubar_n, ubar_n=ubar_new,

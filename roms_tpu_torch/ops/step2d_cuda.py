@@ -23,6 +23,7 @@ import torch
 
 from ..config import Config
 from ..grid import Grid
+from . import bc
 from ._kernels import (BC_CODE, bc_kinds, check_tensors, geometry, launch,
                        library, on_card)
 from .step2d import FS_FIELDS, Fast2DState, _g, ab3_coupling_weights
@@ -39,7 +40,9 @@ def supported(cfg: Config, bry=None, sources=None, clm=None) -> bool:
     """True when the fused loop implements this configuration exactly
     (step2d_pallas.supported: no wetting-drying, open-boundary data,
     sources, climatology or Stokes drift; only the periodic, closed and
-    gradient BC kinds)."""
+    gradient BC kinds; never in a blocked run)."""
+    if bc.current_ctx() is not None:
+        return False
     if not cfg.solve3d or cfg.wetdry or cfg.volcons:
         return False
     if cfg.nearshore is not None:

@@ -107,7 +107,7 @@ def tracer_layout(name: str, dtype) -> dict:
 def use_tracer(cfg: Config, bry=None, clm=None, sources=None,
                want_diags=False) -> bool:
     """Gate of the two tracer kernels (step3d_pallas.use_tracer_pallas)."""
-    if not cfg.pallas2d:
+    if not cfg.pallas2d or bc.current_ctx() is not None:
         return False
     if bry is not None or clm is not None or sources is not None \
             or want_diags:
@@ -121,7 +121,7 @@ def use_tracer(cfg: Config, bry=None, clm=None, sources=None,
 
 def use_uv(cfg: Config, bry=None, sources=None, wet=None) -> bool:
     """Gate of the momentum-corrector kernel (step3d_pallas.use_uv_pallas)."""
-    if not cfg.pallas2d:
+    if not cfg.pallas2d or bc.current_ctx() is not None:
         return False
     if bry is not None or sources is not None or wet is not None:
         return False

@@ -96,11 +96,11 @@ def step3d_uv(cfg: Config, grid: Grid, iic: int, u_nnew, v_nnew, ru, rv,
     ubar = oD_u * DU_avg1
     # boundary-ring-only replacement at non-periodic edges
     if not cfg.ew_periodic:
-        u = bc.add_col(u, H, -CFb_u[:, H])
-        u = bc.add_col(u, H + L, -CFb_u[:, H + L])
+        u = bc.add_col(u, H, -CFb_u[:, H], "west")
+        u = bc.add_col(u, H + L, -CFb_u[:, H + L], "east")
     if not cfg.ns_periodic:
-        u = bc.add_row(u, H - 1, -CFb_u[H - 1, :])
-        u = bc.add_row(u, H + M, -CFb_u[H + M, :])
+        u = bc.add_row(u, H - 1, -CFb_u[H - 1, :], "south")
+        u = bc.add_row(u, H + M, -CFb_u[H + M, :], "north")
     # time-centered mass flux corrected to integrate to DU_avg2
     Huon = 0.5 * (Huon_old + u * DCk_u)
     FCc = oD_u * (torch.sum(Huon, dim=0) - DU_avg2)
@@ -111,11 +111,11 @@ def step3d_uv(cfg: Config, grid: Grid, iic: int, u_nnew, v_nnew, ru, rv,
     CFb_v = oD_v * (torch.sum(DCk_v * v, dim=0) - DV_avg1)
     vbar = oD_v * DV_avg1
     if not cfg.ew_periodic:
-        v = bc.add_col(v, H - 1, -CFb_v[:, H - 1])
-        v = bc.add_col(v, H + L, -CFb_v[:, H + L])
+        v = bc.add_col(v, H - 1, -CFb_v[:, H - 1], "west")
+        v = bc.add_col(v, H + L, -CFb_v[:, H + L], "east")
     if not cfg.ns_periodic:
-        v = bc.add_row(v, H, -CFb_v[H, :])
-        v = bc.add_row(v, H + M, -CFb_v[H + M, :])
+        v = bc.add_row(v, H, -CFb_v[H, :], "south")
+        v = bc.add_row(v, H + M, -CFb_v[H + M, :], "north")
     Hvom = 0.5 * (Hvom_old + v * DCk_v)
     FCcv = oD_v * (torch.sum(Hvom, dim=0) - DV_avg2)
     Hvom = Hvom - DCk_v * FCcv

@@ -483,7 +483,8 @@ def step(cfg: Config, grid: Grid, state: State,
                                   dia_rhs[0], u2, v2)
 
     # --- omega with corrected fluxes (main3d.F:789) ---
-    omega = diag_cuda.omega if cfg.pallas2d else diag_cuda.omega_plain
+    omega = diag_cuda.omega if diag_cuda.use_omega(cfg) \
+        else diag_cuda.omega_plain
     W2 = omega(cfg, grid, Huon2, Hvom2, z_w2)
 
     # --- GLS corrector (main3d.F:791-793): new Akv/Akt for the tracer

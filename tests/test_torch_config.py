@@ -84,7 +84,8 @@ def test_import_leaves_jax_out():
         "want = {'driver', 'forcing', '__main__', 'io.varinfo',"
         " 'io.netcdf', 'io.checkpoint', 'io.stations', 'utils.timers',"
         " 'utils.diag', 'utils.yamlcfg', 'utils.dateclock',"
-        " 'utils.fields'}\n"
+        " 'utils.fields', 'nesting', 'parallel', 'parallel.halo',"
+        " 'parallel.smap', 'parallel.run', 'io.pio'}\n"
         "missing = {m for m in want if 'roms_tpu_torch.' + m not in"
         " sys.modules}\n"
         "assert not missing, missing\n"
